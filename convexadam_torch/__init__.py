@@ -1,0 +1,33 @@
+"""PyTorch + CUDA port of ConvexAdam for one NVIDIA H100.
+
+The main path is the default MIND registration
+(:func:`convexadam_torch.pipeline.convex_adam.convex_adam`).  Its four hot
+kernels are hand-written CUDA for ``sm_90a`` under ``csrc/``, wrapped in
+``kernels/``; each wrapper runs its plain PyTorch version only for tensors
+that lie on the CPU.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _resolve_device(device: "str | torch.device | None" = None) -> torch.device:
+    """``None`` means the card: ``cuda``, raising when no GPU is visible.
+
+    An explicit ``"cpu"`` is the only way to run on the CPU (the tests do
+    so); nothing falls back to it quietly.
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "convexadam_torch runs on CUDA by default and no GPU is "
+                "visible; pass device='cpu' to run the plain PyTorch path"
+            )
+        return torch.device("cuda")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    return dev

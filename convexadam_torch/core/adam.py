@@ -1,0 +1,101 @@
+"""Adam instance optimisation, the local continuous refinement stage.
+
+Counterpart of ``convexadam_tpu/core/adam.py``.  The only trainable tensor
+is a low-resolution displacement grid.  Each iteration smooths the raw grid,
+adds the diffusion regulariser to the fused warp + SSD data term
+(:func:`convexadam_torch.core.warp.warp_ssd_mean_loss`, one kernel launch),
+back-propagates with ordinary autograd, and takes a ``torch.optim.Adam``
+step with ``lr=1``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from convexadam_torch.core.smoothing import box_smooth_repeated, gaussian_smooth, kovesi_spline
+from convexadam_torch.core.warp import warp_ssd_mean_loss
+
+# stage-2 "shift-spline" smoother bank: two Gaussians and six Kovesi
+# box-cascade splines, indexed by ``avg_n``
+SMOOTHER_BANK: "tuple[tuple, ...]" = (
+    ("gauss", 0.7),
+    ("gauss", 1.0),
+    ("kovesi", 1.3),
+    ("kovesi", 1.6),
+    ("kovesi", 1.9),
+    ("kovesi", 2.2),
+    ("kovesi", 2.5),
+    ("kovesi", 2.8),
+)
+
+
+def resolve_smoother(spec: tuple):
+    """Smoother spec → callable: ("box", kernel, repeats), ("gauss", sigma),
+    ("kovesi", sigma[, n]) or ("bank", avg_n)."""
+    kind = spec[0]
+    if kind == "box":
+        _, kernel, repeats = spec
+        return lambda x: box_smooth_repeated(x, kernel, repeats)
+    if kind == "gauss":
+        return lambda x: gaussian_smooth(x, spec[1])
+    if kind == "kovesi":
+        n = spec[2] if len(spec) > 2 else 4
+        return lambda x: kovesi_spline(x, spec[1], n)
+    if kind == "bank":
+        return resolve_smoother(SMOOTHER_BANK[spec[1]])
+    raise ValueError(f"unknown smoother spec: {spec}")
+
+
+def diffusion_regularizer(disp: torch.Tensor) -> torch.Tensor:
+    """Mean squared forward differences of ``disp`` (3, H, W, D) along each
+    spatial axis, each averaged over its own element count, summed."""
+    dh = disp[:, 1:, :, :] - disp[:, :-1, :, :]
+    dw = disp[:, :, 1:, :] - disp[:, :, :-1, :]
+    dd = disp[:, :, :, 1:] - disp[:, :, :, :-1]
+    return (dh * dh).mean() + (dw * dw).mean() + (dd * dd).mean()
+
+
+def adam_instance_optimisation(
+    feat_fix: torch.Tensor,
+    feat_mov: torch.Tensor,
+    disp_init: torch.Tensor,
+    lambda_weight: float,
+    niter: int,
+    snapshot_iters: "tuple[int, ...]" = (),
+    smoother: tuple = ("box", 3, 3),
+    cost_scale: float = 12.0,
+    sample_stride: int = 1,
+) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Optimise a low-resolution displacement grid against pooled features.
+
+    ``feat_fix`` (C, h, w, d) is used in float32, ``feat_mov`` in its own
+    dtype (float32 or bfloat16); ``disp_init`` (3, h, w, d) is in coarse
+    voxels.  Returns ``(final, snapshots)``: the smoothed field computed in
+    the last loop body, before its update (the reference's output), and a
+    (len(snapshot_iters), 3, h, w, d) stack whose entry for ``k`` is the
+    smoothed field of loop body ``k - 1``.
+    """
+    if sample_stride != 1:
+        raise NotImplementedError(
+            "adam_sample_stride != 1 is ROADMAP queue A item 6 and not ported yet"
+        )
+    C = feat_fix.shape[0]
+    fix_flat = feat_fix.float().reshape(C, -1).contiguous()
+    mov = feat_mov.contiguous()
+    smooth_fn = resolve_smoother(smoother)
+    w = disp_init.float().clone().requires_grad_(True)
+    opt = torch.optim.Adam([w], lr=1.0, betas=(0.9, 0.999), eps=1e-8)
+    final = torch.zeros_like(w, requires_grad=False)
+    snaps = torch.zeros((len(snapshot_iters),) + tuple(w.shape), dtype=torch.float32, device=w.device)
+    for it in range(niter):
+        opt.zero_grad(set_to_none=True)
+        ds = smooth_fn(w)
+        reg = lambda_weight * diffusion_regularizer(ds)
+        loss = warp_ssd_mean_loss(mov, ds, fix_flat, cost_scale) + reg
+        loss.backward()
+        opt.step()
+        final = ds.detach()
+        for si, k in enumerate(snapshot_iters):
+            if k - 1 == it:
+                snaps[si] = final
+    return final, snaps

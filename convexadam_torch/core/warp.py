@@ -1,0 +1,148 @@
+"""Coordinate conventions, trilinear resizing, inverse consistency and the
+Adam data term.
+
+Counterpart of ``convexadam_tpu/core/warp.py``.  Coordinates are kept in
+array order: channel 0 indexes axis 0 (H) and channel 2 the innermost axis
+(D), never torch ``grid_sample``'s reversed (x, y, z).
+
+The JAX package's corner stack (``build_corner_stack``) exists only because
+XLA:TPU gathers are per-index bound; the port's kernels gather the 8
+corners straight from the (C, H, W, D) volume instead.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from convexadam_torch.kernels.warp import sample_trilinear, warp_ssd_loss_grad
+
+
+def unnormalize_coord(g, size: int, align_corners: bool):
+    """Normalized [-1, 1] coordinate → voxel coordinate (torch's
+    ``grid_sampler_unnormalize``)."""
+    if align_corners:
+        return (g + 1.0) * 0.5 * (size - 1)
+    return ((g + 1.0) * size - 1.0) * 0.5
+
+
+def normalize_coord(x, size: int, align_corners: bool):
+    """Inverse of :func:`unnormalize_coord`."""
+    if align_corners:
+        return x * (2.0 / (size - 1)) - 1.0
+    return (2.0 * x + 1.0) / size - 1.0
+
+
+def identity_grid_normalized(
+    shape: Sequence[int], align_corners: bool, device=None, dtype=torch.float32
+) -> torch.Tensor:
+    """Identity sampling grid in normalized coordinates, array order,
+    shape (H, W, D, 3)."""
+    axes = [
+        normalize_coord(torch.arange(n, dtype=dtype, device=device), n, align_corners)
+        for n in shape
+    ]
+    gh, gw, gd = torch.meshgrid(*axes, indexing="ij")
+    return torch.stack([gh, gw, gd], dim=-1)
+
+
+def _linear_resize_axis(x: torch.Tensor, axis: int, out_size: int, align_corners: bool):
+    in_size = x.shape[axis]
+    if in_size == out_size:
+        return x
+    i = torch.arange(out_size, dtype=torch.float32, device=x.device)
+    if align_corners:
+        if out_size == 1:
+            src = torch.zeros((1,), dtype=torch.float32, device=x.device)
+        else:
+            src = i * ((in_size - 1) / (out_size - 1))
+    else:
+        # torch's area_pixel_compute_source_index, clamped below at 0
+        src = torch.clamp((i + 0.5) * (in_size / out_size) - 0.5, min=0.0)
+    i0 = torch.floor(src).long().clamp(0, in_size - 1)
+    i1 = torch.clamp(i0 + 1, max=in_size - 1)
+    w1 = (src - i0.to(torch.float32)).to(x.dtype)
+    lo = x.index_select(axis, i0)
+    hi = x.index_select(axis, i1)
+    shape = [1] * x.ndim
+    shape[axis] = out_size
+    w1 = w1.reshape(shape)
+    return lo * (1 - w1) + hi * w1
+
+
+def resize_trilinear(
+    x: torch.Tensor, size: Sequence[int], align_corners: bool = False
+) -> torch.Tensor:
+    """``F.interpolate(x, size, mode='trilinear', align_corners=ac)`` for
+    (..., H, W, D) tensors, one separable pass per axis."""
+    nd = x.ndim
+    for k, out_size in enumerate(size):
+        x = _linear_resize_axis(x, nd - 3 + k, int(out_size), align_corners)
+    return x
+
+
+def inverse_consistency(
+    disp1: torch.Tensor, disp2: torch.Tensor, iters: int = 20
+) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Fixed-point symmetrization of forward/backward fields (3, H, W, D) in
+    normalized units: each of ``iters`` Jacobi steps sets
+    ``d1 = (d1 - d2 ∘ (id + d1)) / 2`` and ``d2 = (d2 - d1 ∘ (id + d2)) / 2``,
+    both sampling the other field of the previous step.  The two directions
+    are one :func:`sample_trilinear` launch with a batch of 2."""
+    shape = tuple(disp1.shape[1:])
+    n = disp1[0].numel()
+    identity = identity_grid_normalized(shape, False, device=disp1.device, dtype=disp1.dtype)
+    d1, d2 = disp1, disp2
+    for _ in range(iters):
+        g1 = (identity + d1.permute(1, 2, 3, 0)).reshape(n, 3)
+        g2 = (identity + d2.permute(1, 2, 3, 0)).reshape(n, 3)
+        vol = torch.stack([d2, d1]).contiguous()
+        out = sample_trilinear(vol, torch.stack([g1, g2]))
+        s1 = out[0].reshape((3,) + shape)  # d2 ∘ (id + d1)
+        s2 = out[1].reshape((3,) + shape)  # d1 ∘ (id + d2)
+        d1, d2 = 0.5 * (d1 - s1), 0.5 * (d2 - s2)
+    return d1, d2
+
+
+class _WarpSSDLoss(torch.autograd.Function):
+    """The Adam data term with its gradient from the fused kernel.
+
+    The forward launches :func:`warp_ssd_loss_grad` once: the loss and the
+    coordinate-gradient rows come out of the same pass.  The loss is linear
+    in its cotangent, so the backward only scales the saved rows.
+    """
+
+    @staticmethod
+    def forward(ctx, disp, mov, fix_flat, cost_scale):
+        C, H, W, D = mov.shape
+        n = H * W * D
+        fac = (H / (H - 1.0), W / (W - 1.0), D / (D - 1.0))
+        chain = 2.0 * cost_scale / (C * n)
+        ssq, rows = warp_ssd_loss_grad(mov, disp.contiguous(), fix_flat, fac, chain)
+        ctx.save_for_backward(rows)
+        ctx.fac = fac
+        ctx.shape = (H, W, D)
+        return ssq * (cost_scale / (C * n))
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (rows,) = ctx.saved_tensors
+        fac = torch.tensor(ctx.fac, dtype=rows.dtype, device=rows.device).reshape(3, 1)
+        ddisp = (rows * fac) * grad_out
+        return ddisp.reshape(3, *ctx.shape), None, None, None
+
+
+def warp_ssd_mean_loss(
+    mov: torch.Tensor, disp: torch.Tensor, fix_flat: torch.Tensor, cost_scale: float
+) -> torch.Tensor:
+    """The Adam data term ``mean(mean_c((warp(mov, disp) - fix)^2) * cost_scale)``.
+
+    ``mov`` (C, H, W, D) float32 or bfloat16, ``disp`` (3, H, W, D) float32 in
+    voxels, ``fix_flat`` (C, H*W*D) float32.  Sampling follows the reference's
+    deliberate convention mismatch: the identity grid with align_corners=False
+    spacing plus the displacement normalized by ``(size - 1) / 2``, sampled
+    with align_corners=False, i.e. the position ``index + disp * size /
+    (size - 1)`` with zeros outside.  Differentiable in ``disp``.
+    """
+    return _WarpSSDLoss.apply(disp, mov, fix_flat, float(cost_scale))

@@ -1,0 +1,19 @@
+"""Hand-written Hopper kernels of the main path and their plain versions.
+
+Each wrapper runs its kernel's plain PyTorch version for tensors on the
+CPU, and for CUDA tensors launches the kernel (built from ``csrc/`` at first
+use) or raises.  :data:`LAUNCHES` counts the kernel launches of each
+wrapper; a wrapper adds one where it launches and nowhere else, so a run
+can show that the main path went through its kernels.
+"""
+
+from __future__ import annotations
+
+KERNEL_NAMES = ("mind_ssd_stats", "cost_volume", "sample_trilinear", "warp_ssd_loss_grad")
+
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+
+
+def reset_launches() -> None:
+    for name in KERNEL_NAMES:
+        LAUNCHES[name] = 0

@@ -1,0 +1,205 @@
+"""The ConvexAdam registration pipeline with MIND-SSC features.
+
+Counterpart of ``convexadam_tpu/pipeline/convex_adam.py`` (the MIND path):
+
+  1. MIND-SSC features of both volumes,
+  2. average pooling to the coarse grid ``grid_sp``,
+  3. the dense SSD cost volume over ``(2*disp_hw+1)**3`` displacements,
+  4. coupled convex optimisation,
+  5. optional inverse consistency with the reverse-direction field,
+  6. optional Adam instance optimisation at ``grid_sp_adam`` resolution,
+  7. optional cascaded box smoothing of the full-resolution field.
+
+Like the JAX package, ``ic=False`` upsamples the coarse field and rescales
+it by ``grid_sp`` instead of returning coarse-voxel units.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from convexadam_torch import _resolve_device
+from convexadam_torch.core.adam import adam_instance_optimisation
+from convexadam_torch.core.convex import convex_displacement
+from convexadam_torch.core.features import mindssc
+from convexadam_torch.core.smoothing import avg_pool3d, box_smooth_repeated
+from convexadam_torch.core.warp import inverse_consistency, resize_trilinear
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvexAdamConfig:
+    """Hyperparameters; defaults are the reference CLI's.  The fields and
+    their meaning are those of the JAX package's ``ConvexAdamConfig``."""
+
+    mind_r: int = 1
+    mind_d: int = 2
+    lambda_weight: float = 1.25
+    grid_sp: int = 6
+    disp_hw: int = 4
+    selected_niter: int = 80
+    selected_smooth: int = 0
+    grid_sp_adam: int = 2
+    ic: bool = True
+    cost_metric: str = "ssd"
+    cost_smooth_passes: int = 2
+    adam_smoother: tuple = ("box", 3, 3)
+    # "auto" (bfloat16 on CUDA, float32 on the CPU), "float32" or "bfloat16"
+    dtype: str = "auto"
+    snapshot_iters: "tuple[int, ...]" = ()
+    adam_sample_stride: int = 1
+
+    def compute_dtype(self, device: torch.device) -> torch.dtype:
+        """Feature dtype on ``device``: ``"auto"`` is bfloat16 on CUDA, the
+        JAX package's accelerator policy, so its bf16 envelopes transfer."""
+        if self.dtype == "auto":
+            return torch.bfloat16 if device.type == "cuda" else torch.float32
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown dtype {self.dtype!r}")
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+
+def _convex_stage(
+    feat_fix: torch.Tensor,
+    feat_mov: torch.Tensor,
+    cfg: ConvexAdamConfig,
+    full_shape: "tuple[int, int, int]",
+    for_adam_init: bool = False,
+) -> torch.Tensor:
+    """Pooling, cost volume, coupled convex and inverse consistency.
+
+    Returns the displacement (3, H, W, D) in full-resolution voxels; with
+    ``for_adam_init`` and ``ic=False`` it stays on the coarse grid, so that
+    one resize takes it to the Adam grid.
+    """
+    H, W, D = full_shape
+    g = cfg.grid_sp
+    if min(H // g, W // g, D // g) < 2:
+        raise ValueError(
+            f"grid_sp={g} leaves a coarse grid of {(H // g, W // g, D // g)} for "
+            f"volume {full_shape}; every coarse axis needs >= 2 cells"
+        )
+    fix_s = avg_pool3d(feat_fix, g, stride=g)
+    mov_s = avg_pool3d(feat_mov, g, stride=g)
+    kw = dict(metric=cfg.cost_metric, smooth_passes=cfg.cost_smooth_passes)
+    disp_soft = convex_displacement(fix_s, mov_s, cfg.disp_hw, **kw)
+    if cfg.ic:
+        h, w, d = disp_soft.shape[1:]
+        scale = torch.tensor(
+            [(h - 1) / 2.0, (w - 1) / 2.0, (d - 1) / 2.0], dtype=torch.float32,
+            device=disp_soft.device,
+        ).reshape(3, 1, 1, 1)
+        disp_soft_r = convex_displacement(mov_s, fix_s, cfg.disp_hw, **kw)
+        disp_ice, _ = inverse_consistency(disp_soft / scale, disp_soft_r / scale, iters=15)
+        return resize_trilinear(disp_ice * scale * g, (H, W, D), align_corners=False)
+    if for_adam_init:
+        return disp_soft * g
+    return resize_trilinear(disp_soft * g, (H, W, D), align_corners=False)
+
+
+def _adam_stage(
+    feat_fix: torch.Tensor,
+    feat_mov: torch.Tensor,
+    disp_hr: torch.Tensor,
+    cfg: ConvexAdamConfig,
+) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Instance optimisation and final smoothing.  ``disp_hr`` is the init
+    in full-resolution voxels at any resolution; returns the final field
+    (3, H, W, D) and the snapshot fields (S, 3, H, W, D) in voxels."""
+    H, W, D = feat_fix.shape[1:]
+    g2 = cfg.grid_sp_adam
+    if min(H // g2, W // g2, D // g2) < 2:
+        raise ValueError(
+            f"grid_sp_adam={g2} leaves an Adam grid of {(H // g2, W // g2, D // g2)} "
+            f"for volume {(H, W, D)}; every axis needs >= 2 cells"
+        )
+    patch_fix = avg_pool3d(feat_fix.float(), g2, stride=g2)
+    # the moving features stay in the compute dtype (bf16 halves the data
+    # term's gather traffic); the kernel accumulates in float32 either way
+    patch_mov = avg_pool3d(feat_mov.float(), g2, stride=g2).to(cfg.compute_dtype(feat_fix.device))
+    disp_lr = resize_trilinear(disp_hr, (H // g2, W // g2, D // g2), align_corners=False)
+    fitted, snaps = adam_instance_optimisation(
+        patch_fix, patch_mov, disp_lr / g2,
+        lambda_weight=cfg.lambda_weight, niter=cfg.selected_niter,
+        snapshot_iters=cfg.snapshot_iters, smoother=cfg.adam_smoother,
+        sample_stride=cfg.adam_sample_stride,
+    )
+
+    def upsample_and_smooth(field):
+        out = resize_trilinear(field * g2, (H, W, D), align_corners=False)
+        k = cfg.selected_smooth
+        if k > 0:
+            if k % 2 == 0:
+                k += 1  # the reference warns for even kernels; round up
+            out = box_smooth_repeated(out, k, 3)
+        return out
+
+    final = upsample_and_smooth(fitted)
+    snaps_hr = torch.stack([upsample_and_smooth(s) for s in snaps]) if len(snaps) else (
+        torch.zeros((0, 3, H, W, D), dtype=torch.float32, device=final.device)
+    )
+    return final, snaps_hr
+
+
+def convex_adam_features(
+    feat_fix: torch.Tensor, feat_mov: torch.Tensor, cfg: ConvexAdamConfig
+) -> torch.Tensor:
+    """Stages 2-7 on full-resolution features (C, H, W, D) → the
+    displacement field (H, W, D, 3) in voxels, channels in array order."""
+    H, W, D = feat_fix.shape[1:]
+    run_adam = cfg.lambda_weight > 0
+    with torch.no_grad():
+        disp_hr = _convex_stage(feat_fix, feat_mov, cfg, (H, W, D), for_adam_init=run_adam)
+    if run_adam:
+        disp_hr, _ = _adam_stage(feat_fix, feat_mov, disp_hr, cfg)
+    return disp_hr.detach().permute(1, 2, 3, 0)
+
+
+def convex_adam_torch(
+    img_fixed: torch.Tensor,
+    img_moving: torch.Tensor,
+    cfg: ConvexAdamConfig = ConvexAdamConfig(),
+) -> torch.Tensor:
+    """The MIND pipeline on intensity volumes (H, W, D), on their device.
+
+    Returns the displacement field (H, W, D, 3) in voxels (dH, dW, dD).
+    """
+    dt = cfg.compute_dtype(img_fixed.device)
+    with torch.no_grad():
+        feat_fix = mindssc(img_fixed.float(), cfg.mind_r, cfg.mind_d, dtype=dt)
+        feat_mov = mindssc(img_moving.float(), cfg.mind_r, cfg.mind_d, dtype=dt)
+    return convex_adam_features(feat_fix, feat_mov, cfg)
+
+
+def validate_volume(img) -> np.ndarray:
+    """numpy arrays and torch tensors → float32 numpy volume."""
+    if isinstance(img, np.ndarray):
+        return np.asarray(img, np.float32)
+    if isinstance(img, torch.Tensor):
+        return img.detach().cpu().float().numpy()
+    raise ValueError("Input image must be a numpy array or a torch tensor")
+
+
+def convex_adam(
+    img_fixed,
+    img_moving,
+    cfg: Optional[ConvexAdamConfig] = None,
+    device: "str | torch.device | None" = None,
+    **overrides,
+) -> np.ndarray:
+    """Host-level entry point: numpy or torch volumes in, numpy field
+    (H, W, D, 3) out.  Runs on ``cuda`` unless ``device="cpu"``; raises when
+    no GPU is visible and no device is given.  ``overrides`` are
+    :class:`ConvexAdamConfig` fields (e.g. ``grid_sp=4``)."""
+    dev = _resolve_device(device)
+    if cfg is None:
+        cfg = ConvexAdamConfig(**overrides)
+    elif overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    f = torch.from_numpy(validate_volume(img_fixed)).to(dev)
+    m = torch.from_numpy(validate_volume(img_moving)).to(dev)
+    out = convex_adam_torch(f, m, cfg)
+    return out.cpu().numpy().astype(np.float32, copy=False)

@@ -1,0 +1,260 @@
+"""The port's core modules against the JAX package (XLA path) and against
+the stored reference fixture ``tests/reference_ops_20.npz``.
+
+Every comparison hands the same numpy inputs, made from a seed, to both
+packages and runs the port on the CPU; the tolerance of each assert is
+written beside it.
+"""
+
+import dataclasses
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from convexadam_tpu.core import adam as jadam
+from convexadam_tpu.core import convex as jconvex
+from convexadam_tpu.core import cost_volume as jcv
+from convexadam_tpu.core import features as jfeat
+from convexadam_tpu.core import smoothing as jsm
+from convexadam_tpu.core import warp as jwarp
+from convexadam_torch.core import adam as tadam
+from convexadam_torch.core import convex as tconvex
+from convexadam_torch.core import cost_volume as tcv
+from convexadam_torch.core import features as tfeat
+from convexadam_torch.core import smoothing as tsm
+from convexadam_torch.core import warp as twarp
+
+torch.set_num_threads(2)
+
+_REF = np.load(pathlib.Path(__file__).parent / "reference_ops_20.npz")
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _j(a):
+    return np.asarray(a)
+
+
+# ---------------------------------------------------------------------------
+# smoothing
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize(
+    "kernel,stride,padding,cip",
+    [(3, 1, 1, True), (2, 2, 0, True), (3, 3, 0, True), (5, 1, 2, False), (3, 2, 1, True)],
+)
+def test_avg_pool3d_matches_jax(rng, kernel, stride, padding, cip):
+    x = rng.standard_normal((2, 11, 9, 12)).astype(np.float32)
+    ref = _j(jsm.avg_pool3d(jnp.asarray(x), kernel, stride, padding, cip))
+    out = tsm.avg_pool3d(_t(x), kernel, stride, padding, cip).numpy()
+    # same window sums; the non-overlapping pool sums in another order
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["box", "replicate", "gauss", "kovesi"])
+def test_smoothers_match_jax(rng, name):
+    x = rng.standard_normal((3, 10, 12, 9)).astype(np.float32)
+    fn = {
+        "box": (lambda m, a: m.box_smooth_repeated(a, 3, 3)),
+        "replicate": (lambda m, a: m.avg_pool3d_replicate(a, 5)),
+        "gauss": (lambda m, a: m.gaussian_smooth(a, 1.0)),
+        "kovesi": (lambda m, a: m.kovesi_spline(a, 1.9)),
+    }[name]
+    ref = _j(fn(jsm, jnp.asarray(x)))
+    out = fn(tsm, _t(x)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+    assert tsm.kovesi_widths(2.2) == jsm.kovesi_widths(2.2)
+
+
+# ---------------------------------------------------------------------------
+# features, cost volume, coupled convex
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r,d", [(1, 2), (2, 1)])
+def test_mindssc_matches_jax(rng, r, d):
+    img = (rng.standard_normal((20, 18, 16)) * 50).astype(np.float32)
+    ref = _j(jfeat.mindssc(jnp.asarray(img), r, d))
+    out = tfeat.mindssc(_t(img), r, d).numpy()
+    # tolerance of tests/test_reference_ops_parity.py
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("q", [1, 3])
+def test_correlate_matches_jax(rng, q):
+    fix = rng.random((12, 8, 10, 7)).astype(np.float32)
+    mov = rng.random((12, 8, 10, 7)).astype(np.float32)
+    ssd_j, am_j = jcv.correlate(jnp.asarray(fix), jnp.asarray(mov), q)
+    ssd_t, am_t = tcv.correlate(_t(fix), _t(mov), q)
+    np.testing.assert_allclose(ssd_t.numpy(), _j(ssd_j), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(am_t.numpy(), _j(am_j))
+    np.testing.assert_array_equal(tcv.displacement_mesh(q).numpy(), _j(jcv.displacement_mesh(q)))
+
+
+def test_coupled_convex_matches_jax(rng):
+    q = 2
+    K3 = (2 * q + 1) ** 3
+    ssd = rng.random((K3, 6, 7, 5)).astype(np.float32) * 10
+    am = ssd.argmin(0)
+    ref = _j(jconvex.coupled_convex(
+        jnp.asarray(ssd), jnp.asarray(am.astype(np.int32)), jcv.displacement_mesh(q),
+        use_mxu=False,
+    ))
+    out = tconvex.coupled_convex(_t(ssd), _t(am), tcv.displacement_mesh(q)).numpy()
+    # exact form on both sides: 1e-4
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
+
+
+def test_convex_displacement_refuses_streamed_sizes(rng):
+    f = torch.zeros((1, 4, 4, 4))
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tconvex.convex_displacement(f, f, 2, stream_threshold=1000)
+    with pytest.raises(NotImplementedError, match="SSD only"):
+        tcv.correlate(f, f, 1, metric="sad")
+
+
+# ---------------------------------------------------------------------------
+# warp: coordinates, resize, inverse consistency, data term
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("ac", [False, True])
+@pytest.mark.parametrize("size", [(13, 7, 9), (4, 5, 3)])
+def test_resize_trilinear_matches_jax(rng, ac, size):
+    x = rng.standard_normal((3, 6, 8, 5)).astype(np.float32)
+    ref = _j(jwarp.resize_trilinear(jnp.asarray(x), size, align_corners=ac))
+    out = twarp.resize_trilinear(_t(x), size, align_corners=ac).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("ac", [False, True])
+def test_coordinate_conventions_match_jax(rng, ac):
+    np.testing.assert_allclose(
+        twarp.identity_grid_normalized((5, 6, 7), ac).numpy(),
+        _j(jwarp.identity_grid_normalized((5, 6, 7), ac)), rtol=0, atol=1e-7,
+    )
+    g = rng.uniform(-1.2, 1.2, (64,)).astype(np.float32)
+    vox = twarp.unnormalize_coord(_t(g), 9, ac)
+    np.testing.assert_allclose(vox.numpy(), _j(jwarp.unnormalize_coord(jnp.asarray(g), 9, ac)),
+                               rtol=0, atol=1e-6)
+    # the two maps invert each other to float32 rounding
+    np.testing.assert_allclose(twarp.normalize_coord(vox, 9, ac).numpy(), g, rtol=0, atol=1e-6)
+
+
+def test_inverse_consistency_matches_jax(rng):
+    d1 = (rng.standard_normal((3, 7, 8, 6)) * 0.1).astype(np.float32)
+    d2 = (rng.standard_normal((3, 7, 8, 6)) * 0.1).astype(np.float32)
+    r1, r2 = jwarp.inverse_consistency(jnp.asarray(d1), jnp.asarray(d2), iters=15)
+    o1, o2 = twarp.inverse_consistency(_t(d1), _t(d2), iters=15)
+    np.testing.assert_allclose(o1.numpy(), _j(r1), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(o2.numpy(), _j(r2), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_data_term_value_and_grad_match_jax(rng, dtype):
+    C, H, W, D = 4, 7, 8, 6
+    cost_scale = 12.0
+    mov = rng.standard_normal((C, H, W, D)).astype(np.float32)
+    if dtype == "bfloat16":
+        mov = torch.from_numpy(mov).to(torch.bfloat16).float().numpy()
+    fix = rng.standard_normal((C, H, W, D)).astype(np.float32)
+    disp = (rng.standard_normal((3, H, W, D)) * 1.5).astype(np.float32)
+    stack = jwarp.build_corner_stack(jnp.asarray(mov))
+    ref_v, ref_g = jax.value_and_grad(
+        lambda d: jwarp.warp_ssd_mean_loss(stack, (C, H, W, D), d, jnp.asarray(fix), cost_scale)
+    )(jnp.asarray(disp))
+    d_t = _t(disp).requires_grad_(True)
+    mov_t = _t(mov).to(getattr(torch, dtype))
+    val = twarp.warp_ssd_mean_loss(mov_t, d_t, _t(fix).reshape(C, -1), cost_scale)
+    val.backward()
+    # positions are composed as index + disp * size/(size-1) here and through
+    # the normalized grid in JAX: 1e-5 on the value, 1e-4 on the gradient
+    np.testing.assert_allclose(float(val.detach()), float(ref_v), rtol=1e-5)
+    np.testing.assert_allclose(
+        d_t.grad.numpy(), _j(ref_g), rtol=1e-4, atol=1e-4 * np.abs(_j(ref_g)).max()
+    )
+
+
+# ---------------------------------------------------------------------------
+# Adam instance optimisation
+# ---------------------------------------------------------------------------
+
+def test_diffusion_regularizer_matches_jax(rng):
+    d = rng.standard_normal((3, 5, 6, 7)).astype(np.float32)
+    np.testing.assert_allclose(
+        float(tadam.diffusion_regularizer(_t(d))), float(jadam.diffusion_regularizer(d)),
+        rtol=1e-6,
+    )
+
+
+@pytest.mark.parametrize("smoother", [("box", 3, 3), ("bank", 3)])
+def test_adam_instance_optimisation_matches_jax(rng, smoother):
+    """Ten iterations from the same init.  Adam's normalised steps amplify
+    ulp-level differences of the gradient; measured max |diff| 1.4e-5 on
+    this case with either smoother, bound 1e-4 (the JAX package's
+    torch-oracle test allows 5e-4 at 12 iterations)."""
+    C, h, w, d = 4, 8, 9, 7
+    fix = rng.standard_normal((C, h, w, d)).astype(np.float32)
+    mov = rng.standard_normal((C, h, w, d)).astype(np.float32)
+    init = (rng.standard_normal((3, h, w, d)) * 0.5).astype(np.float32)
+    ref, ref_snaps = jadam.adam_instance_optimisation(
+        jnp.asarray(fix), jnp.asarray(mov), jnp.asarray(init), 1.25, 10,
+        snapshot_iters=(4,), smoother=smoother,
+    )
+    out, snaps = tadam.adam_instance_optimisation(
+        _t(fix), _t(mov), _t(init), 1.25, 10, snapshot_iters=(4,), smoother=smoother
+    )
+    np.testing.assert_allclose(out.numpy(), _j(ref), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(snaps.numpy(), _j(ref_snaps), rtol=0, atol=1e-4)
+
+
+def test_adam_sample_stride_not_ported():
+    z = torch.zeros((2, 4, 4, 4))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tadam.adam_instance_optimisation(z, z, torch.zeros((3, 4, 4, 4)), 1.0, 1, sample_stride=2)
+
+
+# ---------------------------------------------------------------------------
+# the stored reference fixture (reference_ops_20.npz), with the tolerances of
+# tests/test_reference_ops_parity.py
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("r,d", [(1, 2), (2, 1), (3, 3)])
+def test_mindssc_matches_reference_fixture(r, d):
+    out = tfeat.mindssc(_t(_REF["vol"]), r, d).numpy()
+    np.testing.assert_allclose(out, _REF[f"mind_r{r}_d{d}"], rtol=1e-4, atol=1e-5)
+
+
+def _pooled_features():
+    ff = tfeat.mindssc(_t(_REF["vol"]), 1, 2)
+    fm = tfeat.mindssc(_t(_REF["vol2"]), 1, 2)
+    return tsm.avg_pool3d(ff, 2, stride=2), tsm.avg_pool3d(fm, 2, stride=2)
+
+
+def test_convex_ops_match_reference_fixture():
+    ffs, fms = _pooled_features()
+    ssd, amin = tcv.correlate(ffs, fms, 2)
+    np.testing.assert_allclose(ssd.numpy(), _REF["ssd"], rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(amin.numpy(), _REF["ssd_argmin"])
+    mesh = tcv.displacement_mesh(2)
+    d1 = tconvex.coupled_convex(ssd, amin, mesh)
+    np.testing.assert_allclose(d1.numpy(), _REF["disp_soft"], rtol=1e-4, atol=1e-4)
+    ssd2, amin2 = tcv.correlate(fms, ffs, 2)
+    d2 = tconvex.coupled_convex(ssd2, amin2, mesh)
+    h, w, d = d1.shape[1:]
+    scale = torch.tensor([(h - 1) / 2, (w - 1) / 2, (d - 1) / 2]).reshape(3, 1, 1, 1)
+    ic_fwd, _ = twarp.inverse_consistency(d1 / scale, d2 / scale, iters=15)
+    # the fixture's field is in torch's (x, y, z) channel order
+    np.testing.assert_allclose(ic_fwd.numpy(), _REF["ic_fwd"][::-1], rtol=1e-4, atol=1e-5)
+
+
+def test_config_fields_match_jax():
+    """The port's config has the JAX package's fields and defaults."""
+    from convexadam_tpu.pipeline.convex_adam import ConvexAdamConfig as JCfg
+    from convexadam_torch.pipeline.convex_adam import ConvexAdamConfig as TCfg
+
+    assert dataclasses.asdict(TCfg()) == dataclasses.asdict(JCfg())

@@ -1,0 +1,138 @@
+"""The port's plain kernel versions against the JAX package's Pallas kernels.
+
+Each plain version (``convexadam_torch/kernels/*.py``) is what a kernel
+wrapper runs for CPU tensors and what ``chip_smoke.py`` holds the CUDA
+kernel against on the card.  Here it is held against the Pallas kernel it
+replaces, run in interpret mode on the CPU as ``tests/test_pallas_ops.py``
+runs it, at shapes the Pallas guards accept.  Inputs are made from a seed
+with numpy and handed to both.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from convexadam_tpu.core.warp import build_corner_stack
+from convexadam_tpu.ops.cost_volume_pallas import cost_volume_pallas
+from convexadam_tpu.ops.mind_pallas import mind_ssd_stats_pallas
+from convexadam_tpu.ops.warp_pallas import corner_reduce_fwd, corner_reduce_loss_grad
+from convexadam_torch.kernels import LAUNCHES
+from convexadam_torch.kernels.cost_volume import cost_volume
+from convexadam_torch.kernels.mind import mind_ssd_stats
+from convexadam_torch.kernels.warp import sample_trilinear, warp_ssd_loss_grad
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("r,d", [(1, 2), (2, 1)])
+def test_mind_ssd_stats_matches_pallas(rng, r, d):
+    x = rng.standard_normal((16, 16, 20)).astype(np.float32)
+    mind_p, var_p = mind_ssd_stats_pallas(jnp.asarray(x), r, d, interpret=True)
+    mind_t, var_t = mind_ssd_stats(torch.from_numpy(x), r, d)
+    # same operations in the same order; the box divisor and the channel
+    # mean are true divisions on both sides
+    np.testing.assert_allclose(mind_t.numpy(), np.asarray(mind_p), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(var_t.numpy(), np.asarray(var_p), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("q", [1, 2])
+@pytest.mark.parametrize("shape", [(4, 8, 8, 8), (3, 16, 24, 10)])
+def test_cost_volume_matches_pallas(rng, q, shape):
+    fix = rng.standard_normal(shape).astype(np.float32)
+    mov = rng.standard_normal(shape).astype(np.float32)
+    ref = np.asarray(cost_volume_pallas(jnp.asarray(fix), jnp.asarray(mov), q, interpret=True))
+    out = cost_volume(torch.from_numpy(fix), torch.from_numpy(mov), q).numpy()
+    # channel sums in another order than the Pallas jnp.sum: rtol 1e-5
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
+def _pallas_block(vol, pos):
+    """The JAX package's gathered corner block (8C, N) of ``vol`` (C, H, W, D)
+    at absolute voxel positions ``pos`` (3, N): corner stack + take."""
+    C, H, W, D = vol.shape
+    x0 = np.floor(pos).astype(np.int32)
+    xb = np.clip(x0[0] + 1, 0, H)
+    yb = np.clip(x0[1] + 1, 0, W)
+    zb = np.clip(x0[2] + 1, 0, D)
+    lin = (xb * (W + 1) + yb) * (D + 1) + zb
+    stack = build_corner_stack(jnp.asarray(vol)).reshape(8 * C, -1)
+    return jnp.take(stack, jnp.asarray(lin), axis=1)
+
+
+def test_sample_trilinear_matches_corner_reduce_fwd(rng):
+    C, H, W, D, n = 3, 6, 7, 8, 512
+    vol = rng.standard_normal((C, H, W, D)).astype(np.float32)
+    # normalized coordinates reaching past the volume on every side
+    grid = rng.uniform(-1.3, 1.3, (n, 3)).astype(np.float32)
+    pos = np.stack([((grid[:, a] + np.float32(1)) * np.float32(s) - np.float32(1))
+                    * np.float32(0.5) for a, s in enumerate((H, W, D))])
+    p0 = np.floor(pos)
+    fracs = tuple(jnp.asarray(f) for f in (pos - p0))
+    bases = tuple(jnp.asarray(b) for b in p0.astype(np.int32))
+    ref = np.asarray(corner_reduce_fwd(
+        _pallas_block(vol, pos), fracs, bases, (C, H, W, D), interpret=True
+    ))
+    out = sample_trilinear(torch.from_numpy(vol)[None], torch.from_numpy(grid)[None])[0]
+    # weights and corner order as the Pallas kernel: atol 1e-6
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_warp_ssd_loss_grad_matches_pallas(rng, dtype):
+    C, H, W, D = 3, 8, 8, 8
+    n = H * W * D
+    cost_scale = 12.0
+    mov = rng.standard_normal((C, H, W, D)).astype(np.float32)
+    if dtype == "bfloat16":
+        mov = torch.from_numpy(mov).to(torch.bfloat16).float().numpy()
+    fix = rng.standard_normal((C, n)).astype(np.float32)
+    disp = (rng.standard_normal((3, H, W, D)) * 1.5).astype(np.float32)
+    fac = (H / (H - 1.0), W / (W - 1.0), D / (D - 1.0))
+    idx = np.stack(np.meshgrid(*[np.arange(s, dtype=np.float32) for s in (H, W, D)],
+                               indexing="ij")).reshape(3, n)
+    pos = idx + disp.reshape(3, n) * np.asarray(fac, np.float32)[:, None]
+    chain = 2.0 * cost_scale / (C * n)
+    block = _pallas_block(mov, pos)
+    if dtype == "bfloat16":
+        block = block.astype(jnp.bfloat16)
+    ssq_p, dg_p = corner_reduce_loss_grad(
+        block, jnp.asarray(pos), jnp.asarray(fix), jnp.float32(chain), (C, H, W, D),
+        interpret=True,
+    )
+    mov_t = torch.from_numpy(mov).to(getattr(torch, dtype))
+    ssq_t, rows_t = warp_ssd_loss_grad(
+        mov_t, torch.from_numpy(disp), torch.from_numpy(fix), fac, chain
+    )
+    # the sums run over corners and channels in another association than
+    # the Pallas kernel's: 1e-5 relative
+    np.testing.assert_allclose(float(ssq_t), float(np.sum(ssq_p)), rtol=1e-5)
+    dg_p = np.asarray(dg_p)
+    np.testing.assert_allclose(rows_t.numpy(), dg_p, rtol=1e-5, atol=1e-5 * np.abs(dg_p).max())
+
+
+def test_cpu_wrappers_launch_nothing(rng):
+    """CPU tensors take the plain versions: no launch is counted."""
+    before = dict(LAUNCHES)
+    x = torch.from_numpy(rng.standard_normal((8, 8, 8)).astype(np.float32))
+    mind_ssd_stats(x, 1, 1)
+    f = torch.from_numpy(rng.standard_normal((2, 4, 4, 4)).astype(np.float32))
+    cost_volume(f, f, 1)
+    sample_trilinear(f[None], torch.zeros((1, 5, 3)))
+    warp_ssd_loss_grad(f, torch.zeros((3, 4, 4, 4)), f.reshape(2, -1), (1.0, 1.0, 1.0), 1.0)
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("wrapper", ["mind", "cost_volume", "sample", "warp_ssd"])
+def test_wrappers_refuse_other_devices(wrapper):
+    """A tensor that is neither on the CPU nor on CUDA raises: the plain
+    version is taken only for CPU tensors."""
+    m = torch.empty((2, 4, 4, 4), device="meta")
+    calls = {
+        "mind": lambda: mind_ssd_stats(m[0], 1, 1),
+        "cost_volume": lambda: cost_volume(m, m, 1),
+        "sample": lambda: sample_trilinear(m[None], torch.empty((1, 5, 3), device="meta")),
+        "warp_ssd": lambda: warp_ssd_loss_grad(m, m[:3], m.reshape(2, -1), (1.0,) * 3, 1.0),
+    }
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        calls[wrapper]()
