@@ -36,7 +36,7 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM peaks (on-chip-measurement guide): HBM bytes/s, f32 FLOP/s
+# H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
