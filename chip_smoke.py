@@ -12,10 +12,21 @@ Phases, each fatal on failure:
      the main path's shapes and dtypes (and a ragged shape for the MIND and
      sampling kernels), with kernel / plain / library times (CUDA events,
      median of 20 runs after warm-up);
+  3e. the three nearest-neighbour search kernels of the HD95 engine against
+     their plain versions, tolerance 0 at meaningful entries: on a label
+     surface of the phase-4c volumes (K = 4096-8192), on 65536 seeded points
+     in [0, 192)^3 (a large organ's surface at this size) and on a ragged
+     case; the pruned kernel must visit the same tiles as its plain version;
   4. main path: ``convex_adam`` with the default config on the 192^3 headline
      pair (seed 0, shift (5, -4, 3)): the shift must be recovered and every
      kernel launched (2 / 2 / 15 / 80 per registration); the golden 48^3
      fixture must stay inside the JAX package's f32 and bf16 envelopes;
+  4c. evaluation path: ``evaluate_field`` of the registered field on a
+     synthetic 13-organ label pair (seed 0, the same shift) with 20
+     keypoints: Dice > 0.9 and HD95 <= 2 voxels on every label, 4 x 13
+     pruned-search launches; with the pruned search switched off, identical
+     HD95 from 13 dual and 26 tiled launches; on the zero field, HD95 equal
+     to the host scipy-EDT ``hd95`` to 1e-5; evaluation and host times;
   5. output: one JSON line per result, ``{"kernels": [...]}`` second to last,
      then ``{"ok": true, "device": {...}}`` last.
 
@@ -45,18 +56,33 @@ HEADLINE_SHIFT = (5, -4, 3)
 EXPECTED_LAUNCHES = {
     "mind_ssd_stats": 2, "cost_volume": 2, "sample_trilinear": 15, "warp_ssd_loss_grad": 80,
 }
+L2R_LABELS = 13  # the organ count of Learn2Reg's Abdomen CT-CT task
+L2R_MARGIN = 36  # voxels from every face: inside the crop phase 4 checks
+EXPECTED_EVAL_LAUNCHES = {"nearest_sq_pruned": 4 * L2R_LABELS, "nearest_sq_dual": 0,
+                          "nearest_sq": 0}
+EXPECTED_TILED_EVAL_LAUNCHES = {"nearest_sq_pruned": 0, "nearest_sq_dual": L2R_LABELS,
+                                "nearest_sq": 2 * L2R_LABELS}
 REPLACES = {
     "mind_ssd_stats": "convexadam_tpu/ops/mind_pallas.py:196",
     "cost_volume": "convexadam_tpu/ops/cost_volume_pallas.py:96",
     "sample_trilinear": "convexadam_tpu/ops/warp_pallas.py:163",
     "warp_ssd_loss_grad": "convexadam_tpu/ops/warp_pallas.py:268",
+    "nearest_sq": "convexadam_tpu/ops/edt_pallas.py:79",
+    "nearest_sq_dual": "convexadam_tpu/ops/edt_pallas.py:181",
+    "nearest_sq_pruned": "convexadam_tpu/ops/edt_pallas.py:290",
 }
 SOURCES = {
     "mind_ssd_stats": "convexadam_torch/csrc/mind.cu",
     "cost_volume": "convexadam_torch/csrc/cost_volume.cu",
     "sample_trilinear": "convexadam_torch/csrc/warp.cu",
     "warp_ssd_loss_grad": "convexadam_torch/csrc/warp.cu",
+    "nearest_sq": "convexadam_torch/csrc/edt.cu",
+    "nearest_sq_dual": "convexadam_torch/csrc/edt.cu",
+    "nearest_sq_pruned": "convexadam_torch/csrc/edt.cu",
 }
+# FP32 operations per distance cell of the search kernels (three
+# multiply-adds for the cross term, the two norms' add, the min)
+CELL_FLOPS = 8
 
 
 def cuda_ms(torch, fn, warmup: int = 3, reps: int = 20) -> float:
@@ -96,6 +122,50 @@ def headline_pair(torch, resize_trilinear, shape=HEADLINE_SHAPE, shift=HEADLINE_
     return vol, np.roll(vol, shift, axis=(0, 1, 2))
 
 
+def l2r_label_pair(shape=HEADLINE_SHAPE, shift=HEADLINE_SHIFT, n_labels=L2R_LABELS, seed=0):
+    """A synthetic Learn2Reg-like label pair: ``n_labels`` non-overlapping
+    ellipsoidal organs with semi-axes of 6-20 voxels, each at least
+    ``L2R_MARGIN`` voxels from every face (so ``np.roll`` wraps nothing),
+    and the same labels rolled by ``shift`` as the moving volume."""
+    rng = np.random.default_rng(seed)
+    seg = np.zeros(shape, np.int32)
+    placed = []
+    for _ in range(100000):
+        if len(placed) == n_labels:
+            break
+        ax = rng.integers(6, 21, 3)
+        c = np.array([rng.integers(L2R_MARGIN + a, s - L2R_MARGIN - a) for a, s in zip(ax, shape)])
+        if any(np.linalg.norm(c - c2) <= ax.max() + a2 + 2 for c2, a2 in placed):
+            continue
+        placed.append((c, ax.max()))
+        lo, hi = c - ax, c + ax + 1
+        zz, yy, xx = np.ogrid[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        inside = (((zz - c[0]) / ax[0]) ** 2 + ((yy - c[1]) / ax[1]) ** 2
+                  + ((xx - c[2]) / ax[2]) ** 2) <= 1.0
+        seg[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]][inside] = len(placed)
+    if len(placed) != n_labels:
+        raise RuntimeError(f"placed only {len(placed)} of {n_labels} organs")
+    return seg, np.roll(seg, shift, axis=(0, 1, 2))
+
+
+def search_cells(name, kq, kt, nq, nt, hq=0, ht=0, tiles=0) -> int:
+    """Distance cells a search kernel evaluates on these counts: whole
+    tiles of its live query blocks x live target tiles (the dual kernel
+    skips the dead head x head corner), or the pruned kernel's visited
+    tiles."""
+    from convexadam_torch.kernels.edt import PRUNED_BLOCK, TILE
+
+    if name == "nearest_sq_pruned":
+        return int(tiles) * PRUNED_BLOCK * PRUNED_BLOCK
+    qb = -(-min(nq, kq) // TILE)
+    tb = -(-min(nt, kt) // TILE)
+    if name == "nearest_sq":
+        return qb * tb * TILE * TILE
+    live = sum(1 for i in range(qb) for j in range(tb)
+               if (i + 1) * TILE > hq or (j + 1) * TILE > ht)
+    return live * TILE * TILE
+
+
 def kernel_record(name, shape, dtype, err, tol, k_ms, p_ms, lib_ms, nbytes, flops):
     b_ms, b_by = bound_ms(nbytes, flops)
     return {
@@ -109,6 +179,201 @@ def kernel_record(name, shape, dtype, err, tol, k_ms, p_ms, lib_ms, nbytes, flop
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def search_phase(torch, dev, seg_f, seg_m):
+    """Phase 3e: the three search kernels against their plain versions in
+    the roles the HD95 engine gives them, tolerance 0 at meaningful entries
+    (exact integer arithmetic on both sides).  Returns the records of the
+    label-surface case (the evaluation's shapes) and every case's numbers."""
+    from convexadam_torch.core.edt import (
+        _caps_offsets,
+        label_buffers,
+        suggest_hd95_caps,
+        surface_lists,
+    )
+    from convexadam_torch.kernels import edt as ke
+
+    # the largest label surface of the phase-4c pair, as the engine buffers it
+    groups, gcap = suggest_hd95_caps(seg_f, seg_m, L2R_LABELS)
+    caps = [0] * (L2R_LABELS + 1)
+    for labs, k in groups:
+        for lab in labs:
+            caps[lab] = k
+    pre = surface_lists(torch.from_numpy(seg_f).to(dev), torch.from_numpy(seg_m).to(dev),
+                        L2R_LABELS, gcap)
+    bufs = label_buffers(pre, L2R_LABELS, tuple(caps))
+    lab = int(np.argmax(bufs.n_inner_m.cpu().numpy()[1:])) + 1
+    k, off = caps[lab], _caps_offsets(caps)[0][lab]
+
+    def part(b):
+        return b[:, off:off + k].contiguous()
+
+    cases = {"surface": dict(
+        q=part(bufs.inner_m), t=part(bufs.inner_f), t_out=part(bufs.outer_f),
+        nq=int(bufs.n_inner_m[lab]), nt=int(bufs.n_inner_f[lab]),
+        hq=min(int(bufs.n_inside_m[lab]), k), ht=min(int(bufs.n_inside_f[lab]), k),
+        nt_out=int(bufs.n_outer_f[lab]),
+    )}
+    rng = np.random.default_rng(0)
+
+    def cloud(K, n, extent):
+        flat = np.sort(rng.choice(extent ** 3, size=n, replace=False))
+        pts = np.full((3, K), ke.COORD_PAD, np.float32)
+        pts[:, :n] = np.stack(np.unravel_index(flat, (extent,) * 3))
+        return torch.from_numpy(pts).to(dev)
+
+    # a large organ's surface at 192^3, and a ragged case (K and the counts
+    # not multiples of any block)
+    for name, K, nq, nt, hq, ht, extent in (("large", 65536, 60000, 58000, 20000, 15000, 192),
+                                             ("ragged", 5000, 4321, 4777, 1234, 2345, 64)):
+        t = cloud(K, nt, extent)
+        cases[name] = dict(q=cloud(K, nq, extent), t=t, t_out=t, nq=nq, nt=nt, hq=hq, ht=ht,
+                           nt_out=nt)
+
+    def err_at(a, b, lo, hi):
+        return float((a[lo:hi] - b[lo:hi]).abs().max()) if hi > lo else 0.0
+
+    records, detail = [], []
+    for cname, c in cases.items():
+        q, t, t_out = c["q"], c["t"], c["t_out"]
+        nq, nt, hq, ht, nto = c["nq"], c["nt"], c["hq"], c["ht"], c["nt_out"]
+        kq, kt = q.shape[1], t.shape[1]
+        # the counts live on the card, as the engine passes them
+        dnq, dnt, dhq, dht, dnto = (torch.tensor([v], dtype=torch.int32, device=dev)
+                                    for v in (nq, nt, hq, ht, nto))
+        runs = {
+            "nearest_sq": (lambda: ke.nearest_sq(q, t_out, dhq, dnto),
+                           lambda: ke.nearest_sq_plain(q, t_out, dhq, dnto)),
+            "nearest_sq_dual": (lambda: ke.nearest_sq_dual(q, t, dnq, dnt, dhq, dht),
+                                lambda: ke.nearest_sq_dual_plain(q, t, dnq, dnt, dhq, dht)),
+            "nearest_sq_pruned": (
+                lambda: ke.nearest_sq_pruned(q, t, dhq, dnq, dnt, with_tiles=True),
+                lambda: ke.nearest_sq_pruned_plain(q, t, dhq, dnq, dnt, with_tiles=True)),
+        }
+        for name, (kern, plain) in runs.items():
+            ko, po = kern(), plain()
+            torch.cuda.synchronize()
+            tiles = 0
+            if name == "nearest_sq":
+                err = err_at(ko, po, 0, hq)
+                cells = search_cells(name, kq, t_out.shape[1], hq, nto)
+                nbytes = 4 * (3 * kq + 3 * t_out.shape[1] + kq)
+            elif name == "nearest_sq_dual":
+                err = max(err_at(ko[0], po[0], hq, nq), err_at(ko[1], po[1], ht, nt))
+                cells = search_cells(name, kq, kt, nq, nt, hq, ht)
+                nbytes = 4 * (3 * kq + 3 * kt + kq + kt)
+            else:
+                err = err_at(ko[0], po[0], hq, nq)
+                check(torch.equal(ko[1], po[1]), f"{name} {cname}: kernel and plain visit "
+                      "different tiles")
+                tiles = int(ko[1].sum())
+                cells = search_cells(name, kq, kt, nq, nt, tiles=tiles)
+                gi, gj = ko[1].numel(), -(-kt // ke.PRUNED_BLOCK)
+                nbytes = 4 * (3 * kq + 3 * kt + kq) + 8 * gi * gj + 4 * gi
+            tol = 0.0  # exact integer distances on both sides
+            check(err <= tol, f"{name} {cname}: max err {err} > {tol} at meaningful entries")
+            row = {"case": cname, "name": name, "K": [kq, kt], "nq": nq, "nt": nt, "hq": hq,
+                   "ht": ht, "nt_out": nto, "max_abs_err": err, "cells": cells, "tiles": tiles}
+            print(f"{name} {cname} K=({kq}, {kt}): max_abs_err {err:.1e} (tol 0), "
+                  f"{cells} cells" + (f", {tiles} tiles" if tiles else ""), flush=True)
+            if cname != "ragged":
+                row["ms"] = cuda_ms(torch, kern)
+                row["plain_ms"] = cuda_ms(torch, plain)
+                row["bound_ms"], row["bound_by"] = bound_ms(nbytes, CELL_FLOPS * cells)
+                print(f"  {name} {cname}: kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                      f"({row['bound_by']})", flush=True)
+            if cname == "surface":
+                records.append(kernel_record(
+                    name, [kq, kt], "float32", err, tol, row["ms"], row["plain_ms"], None,
+                    nbytes, CELL_FLOPS * cells,
+                ))
+            detail.append(row)
+    return records, detail
+
+
+def evaluation_phase(torch, field, seg_f, seg_m, results):
+    """Phase 4c: ``evaluate_field`` on the card, its launch counts on both
+    search branches, and its HD95 against the host scipy-EDT ``hd95``."""
+    import convexadam_torch.core.edt as tedt
+    from convexadam_torch import evaluate_field
+    from convexadam_torch.core.metrics import hd95
+    from convexadam_torch.kernels import LAUNCHES, reset_launches
+
+    rng = np.random.default_rng(1)
+    c = L2R_MARGIN
+    kf = rng.uniform(c, HEADLINE_SHAPE[0] - c, (20, 3)).astype(np.float32)
+    km = kf + np.asarray(HEADLINE_SHIFT, np.float32)
+
+    def run():
+        return evaluate_field(field, seg_f, seg_m, L2R_LABELS, kf, km, device="cuda")
+
+    torch.cuda.synchronize()
+    reset_launches()
+    ev = run()
+    launches = dict(LAUNCHES)
+    print(f"launches per evaluation: {launches}", flush=True)
+    for name, want in EXPECTED_EVAL_LAUNCHES.items():
+        check(launches[name] == want, f"{name}: {launches[name]} launches, expected {want}")
+    check(ev["dice"].shape == (L2R_LABELS,) and bool((ev["dice"] > 0.9).all()),
+          f"registered Dice {ev['dice']} not > 0.9 on every label")
+    check(bool((ev["hd95"] <= 2.0).all()), f"registered HD95 {ev['hd95']} above 2 voxels")
+    check(bool(np.isfinite(ev["tre"]).all()) and np.isfinite(ev["sdlogj"]), "non-finite metrics")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+
+    # the other search branch, as the JAX tests force it
+    enabled = tedt._pruned_search_enabled
+    tedt._pruned_search_enabled = lambda K: False
+    try:
+        reset_launches()
+        ev_tiled = run()
+        launches_tiled = dict(LAUNCHES)
+    finally:
+        tedt._pruned_search_enabled = enabled
+    print(f"launches per evaluation, pruned search off: {launches_tiled}", flush=True)
+    for name, want in EXPECTED_TILED_EVAL_LAUNCHES.items():
+        check(launches_tiled[name] == want,
+              f"{name}: {launches_tiled[name]} launches with the pruned search off, expected {want}")
+    check(np.array_equal(ev_tiled["hd95"], ev["hd95"]),
+          f"HD95 differs between the branches: {ev['hd95']} vs {ev_tiled['hd95']}")
+
+    # zero field: the engine against the host EDT loop on the unregistered pair
+    zero = np.zeros(HEADLINE_SHAPE + (3,), np.float32)
+    ev0 = evaluate_field(zero, seg_f, seg_m, L2R_LABELS, device="cuda")
+    zero_times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        evaluate_field(zero, seg_f, seg_m, L2R_LABELS, device="cuda")
+        zero_times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    host = hd95(seg_f, seg_m, L2R_LABELS)
+    host_s = time.perf_counter() - t0
+    herr = float(np.abs(ev0["hd95"] - host).max())
+    check(herr <= 1e-5, f"zero-field HD95 differs from the host hd95 by {herr}")
+    res = {
+        "labels": L2R_LABELS, "dice": ev["dice"].tolist(), "dice30": ev["dice30"],
+        "hd95": ev["hd95"].tolist(), "tre": ev["tre"].tolist(), "tre30": ev["tre30"],
+        "sdlogj": ev["sdlogj"], "neg_jac_frac": ev["neg_jac_frac"],
+        "evaluate_s_median": float(np.median(times)), "evaluate_s": times,
+        "zero_field_hd95": ev0["hd95"].tolist(), "host_hd95": host.tolist(),
+        "zero_field_vs_host_max_abs_err": herr,
+        "zero_field_evaluate_s_median": float(np.median(zero_times)),
+        "zero_field_evaluate_s": zero_times, "host_hd95_s": host_s,
+        "launches": launches, "launches_pruned_off": launches_tiled,
+    }
+    print(f"evaluate_field 192^3, {L2R_LABELS} labels: {res['evaluate_s_median']:.4f} s "
+          f"(median of 3); zero field {res['zero_field_evaluate_s_median']:.4f} s; host hd95 "
+          f"{host_s:.2f} s; min Dice {min(res['dice']):.4f}, max HD95 {max(res['hd95']):.4f}, "
+          f"zero-field HD95 vs host {herr:.1e}", flush=True)
+    results["evaluation"] = res
+    return launches, launches_tiled
 
 
 def main() -> int:
@@ -159,6 +424,7 @@ def main() -> int:
     results["build_s"] = build_s
 
     vol_np, mov_np = headline_pair(torch, resize_trilinear)
+    seg_f, seg_m = l2r_label_pair()
     vol = torch.from_numpy(vol_np).to(dev)
     records = []
 
@@ -269,6 +535,11 @@ def main() -> int:
     ))
     del ck, cp, feat_f, feat_m
 
+    # 3e. the HD95 engine's nearest-neighbour searches
+    search_records, search_detail = search_phase(torch, dev, seg_f, seg_m)
+    records += search_records
+    results["searches"] = search_detail
+
     # 4a. main path: default config on the headline pair
     convex_adam(vol_np, mov_np, device="cuda")  # warm-up
     torch.cuda.synchronize()
@@ -317,14 +588,25 @@ def main() -> int:
         reg[f"golden48_{dtype}"] = {"median_epe": med, "p99_epe": p99, "max_epe": float(epe.max())}
         print(f"golden 48^3 {dtype}: median {med:.4f}, p99 {p99:.4f}", flush=True)
 
-    # 5. output
+    # 4c. evaluation path: the registered field on the 13-organ label pair
+    eval_launches, tiled_launches = evaluation_phase(torch, out, seg_f, seg_m, results)
+
+    # 5. output: each kernel's launches on the path that runs it
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
-        rec["launches_per_registration"] = launches[rec["name"]]
+        name = rec["name"]
+        if name in EXPECTED_LAUNCHES:
+            rec["launches"] = rec["launches_per_registration"] = launches[name]
+        elif name == "nearest_sq_pruned":
+            rec["launches"] = rec["launches_per_evaluation"] = eval_launches[name]
+        else:
+            rec["launches"] = tiled_launches[name]
+            rec["launches_per_evaluation_pruned_off"] = tiled_launches[name]
     results["registration"] = reg
     results["kernels"] = records
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(results, indent=1))
     print(json.dumps({"registration": reg}))
+    print(json.dumps({"evaluation": {k: v for k, v in results["evaluation"].items()
+                                     if not isinstance(v, list)}}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of ConvexAdam for one NVIDIA H100.
 
 The main path is the default MIND registration
-(:func:`convexadam_torch.pipeline.convex_adam.convex_adam`).  Its four hot
+(:func:`convexadam_torch.pipeline.convex_adam.convex_adam`); the Learn2Reg
+evaluation of a registered case is :func:`evaluate_field`.  Their hot
 kernels are hand-written CUDA for ``sm_90a`` under ``csrc/``, wrapped in
 ``kernels/``; each wrapper runs its plain PyTorch version only for tensors
 that lie on the CPU.
@@ -31,3 +32,8 @@ def _resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev
+
+
+from convexadam_torch.selfconfig.l2r import evaluate_field  # noqa: E402
+
+__all__ = ["evaluate_field"]

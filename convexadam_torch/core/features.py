@@ -13,7 +13,10 @@ import torch
 
 from convexadam_torch.kernels.mind import _mind_shift_pairs, mind_ssd_stats, shifted_replicate
 
-__all__ = ["MIND_CHANNEL_PERMUTATION", "mindssc", "shifted_replicate", "_mind_shift_pairs"]
+__all__ = [
+    "MIND_CHANNEL_PERMUTATION", "label_counts", "mindssc", "shifted_replicate",
+    "_mind_shift_pairs",
+]
 
 # the reference's channel order "to have same ordering as C++ code"
 MIND_CHANNEL_PERMUTATION = (6, 8, 1, 11, 2, 10, 0, 7, 9, 4, 5, 3)
@@ -42,3 +45,11 @@ def mindssc(
     var = torch.clamp(var, gm * 0.001, gm * 1000.0)
     mind = torch.exp(-(mind.float() / var)).to(dtype)
     return mind[list(MIND_CHANNEL_PERMUTATION)]
+
+
+def label_counts(seg: torch.Tensor, num_labels: int) -> torch.Tensor:
+    """Per-label voxel counts of the labels ``0 .. num_labels - 1`` (other
+    values are not counted) → (num_labels,) int32."""
+    flat = seg.reshape(-1).long()
+    keep = (flat >= 0) & (flat < num_labels)
+    return torch.bincount(flat[keep], minlength=num_labels).to(torch.int32)

@@ -1,5 +1,5 @@
-"""Coordinate conventions, trilinear resizing, inverse consistency and the
-Adam data term.
+"""Coordinate conventions, grid sampling and warping, trilinear resizing,
+inverse consistency and the Adam data term.
 
 Counterpart of ``convexadam_tpu/core/warp.py``.  Coordinates are kept in
 array order: channel 0 indexes axis 0 (H) and channel 2 the innermost axis
@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 from convexadam_torch.kernels.warp import sample_trilinear, warp_ssd_loss_grad
 
@@ -45,6 +46,80 @@ def identity_grid_normalized(
     ]
     gh, gw, gd = torch.meshgrid(*axes, indexing="ij")
     return torch.stack([gh, gw, gd], dim=-1)
+
+
+def grid_sample_3d(
+    vol: torch.Tensor,
+    grid: torch.Tensor,
+    align_corners: bool = False,
+    padding_mode: str = "zeros",
+    mode: str = "bilinear",
+) -> torch.Tensor:
+    """Sample ``vol`` (C, H, W, D) at normalized array-order coordinates
+    ``grid`` (..., 3) → (C, ...).
+
+    ``F.grid_sample(vol[None], grid_torch[None], mode, padding_mode,
+    align_corners)`` with ``grid_torch`` the grid with its last axis
+    reversed.  Nearest mode is written out instead, in the JAX package's
+    operation order (:func:`unnormalize_coord`, then ``torch.round``, which
+    rounds half to even as ``jnp.round`` does): a half-voxel tie that rounds
+    the other way would change a warped label.
+    """
+    C, H, W, D = vol.shape
+    out_shape = tuple(grid.shape[:-1])
+    if padding_mode not in ("zeros", "border"):
+        raise ValueError(f"unsupported padding_mode: {padding_mode}")
+    dt = torch.promote_types(vol.dtype, grid.dtype)
+    g = grid.reshape(-1, 3).to(dt)
+    if mode == "nearest":
+        idx, inb = [], None
+        for a, n in enumerate((H, W, D)):
+            x = unnormalize_coord(g[:, a], n, align_corners)
+            if padding_mode == "border":
+                x = torch.clamp(x, 0.0, n - 1)
+            i = torch.round(x).long()
+            ok = (i >= 0) & (i < n)
+            inb = ok if inb is None else inb & ok
+            idx.append(i.clamp(0, n - 1))
+        out = vol.reshape(C, -1).to(dt)[:, (idx[0] * W + idx[1]) * D + idx[2]]
+        if padding_mode == "zeros":
+            out = torch.where(inb[None, :], out, 0.0)
+        return out.reshape((C,) + out_shape)
+    if mode != "bilinear":
+        raise ValueError(f"unsupported mode: {mode}")
+    out = F.grid_sample(
+        vol[None].to(dt), g.flip(-1).reshape(1, 1, 1, -1, 3), mode="bilinear",
+        padding_mode=padding_mode, align_corners=align_corners,
+    )
+    return out.reshape((C,) + out_shape)
+
+
+def warp_with_displacement(
+    vol: torch.Tensor,
+    disp_voxels: torch.Tensor,
+    align_corners: bool = False,
+    padding_mode: str = "zeros",
+    mode: str = "bilinear",
+) -> torch.Tensor:
+    """Warp ``vol`` (C, H, W, D) by a voxel displacement field (3, H, W, D).
+
+    The grid is built as the reference's Adam stage builds it: the identity
+    with ``align_corners`` spacing plus the displacement normalized by
+    ``(n - 1) / 2`` (an align_corners=True normalization), sampled with
+    ``align_corners``; the convention mismatch is the reference's.
+    """
+    C, H, W, D = vol.shape
+    scale = torch.tensor(
+        [(H - 1) / 2.0, (W - 1) / 2.0, (D - 1) / 2.0], dtype=disp_voxels.dtype,
+        device=disp_voxels.device,
+    ).reshape(3, 1, 1, 1)
+    grid = identity_grid_normalized(
+        (H, W, D), align_corners, device=disp_voxels.device, dtype=disp_voxels.dtype
+    )
+    grid = grid + (disp_voxels / scale).permute(1, 2, 3, 0)
+    return grid_sample_3d(
+        vol, grid, align_corners=align_corners, padding_mode=padding_mode, mode=mode
+    )
 
 
 def _linear_resize_axis(x: torch.Tensor, axis: int, out_size: int, align_corners: bool):

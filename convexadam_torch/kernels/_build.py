@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-KERNEL_SOURCES = ("mind", "cost_volume", "warp")
+KERNEL_SOURCES = ("mind", "cost_volume", "warp", "edt")
 
 _LIBS: dict = {}
 _ENTRIES: dict = {}
