@@ -13,8 +13,9 @@ Phases, each fatal on failure:
      sampling kernels), with kernel / plain / library times (CUDA events,
      median of 20 runs after warm-up);
   3e. the three nearest-neighbour search kernels of the HD95 engine against
-     their plain versions, tolerance 0 at meaningful entries: on a label
-     surface of the phase-4c volumes (K = 4096-8192), on 65536 seeded points
+     their plain versions, tolerance 0 at meaningful entries: on the largest
+     label surface of the phase-4c volumes (the liver-sized organ's, K =
+     16384), on 65536 seeded points
      in [0, 192)^3 (a large organ's surface at this size) and on a ragged
      case; the pruned kernel must visit the same tiles as its plain version;
   4. main path: ``convex_adam`` with the default config on the 192^3 headline
@@ -22,7 +23,8 @@ Phases, each fatal on failure:
      kernel launched (2 / 2 / 15 / 80 per registration); the golden 48^3
      fixture must stay inside the JAX package's f32 and bf16 envelopes;
   4c. evaluation path: ``evaluate_field`` of the registered field on a
-     synthetic 13-organ label pair (seed 0, the same shift) with 20
+     synthetic 13-organ label pair (seed 0, the same shift; one liver-sized
+     organ, twelve of 6-20 voxel semi-axes) with 20
      keypoints: Dice > 0.9 and HD95 <= 2 voxels on every label, 4 x 13
      pruned-search launches; with the pruned search switched off, identical
      HD95 from 13 dual and 26 tiled launches; on the zero field, HD95 equal
@@ -58,6 +60,7 @@ EXPECTED_LAUNCHES = {
 }
 L2R_LABELS = 13  # the organ count of Learn2Reg's Abdomen CT-CT task
 L2R_MARGIN = 36  # voxels from every face: inside the crop phase 4 checks
+L2R_LARGE_AXES = (35, 41)  # semi-axis range of the liver-sized organ
 EXPECTED_EVAL_LAUNCHES = {"nearest_sq_pruned": 4 * L2R_LABELS, "nearest_sq_dual": 0,
                           "nearest_sq": 0}
 EXPECTED_TILED_EVAL_LAUNCHES = {"nearest_sq_pruned": 0, "nearest_sq_dual": L2R_LABELS,
@@ -124,16 +127,18 @@ def headline_pair(torch, resize_trilinear, shape=HEADLINE_SHAPE, shift=HEADLINE_
 
 def l2r_label_pair(shape=HEADLINE_SHAPE, shift=HEADLINE_SHIFT, n_labels=L2R_LABELS, seed=0):
     """A synthetic Learn2Reg-like label pair: ``n_labels`` non-overlapping
-    ellipsoidal organs with semi-axes of 6-20 voxels, each at least
-    ``L2R_MARGIN`` voxels from every face (so ``np.roll`` wraps nothing),
-    and the same labels rolled by ``shift`` as the moving volume."""
+    ellipsoidal organs, each at least ``L2R_MARGIN`` voxels from every face
+    (so ``np.roll`` wraps nothing), and the same labels rolled by ``shift``
+    as the moving volume.  The first organ is liver-sized (semi-axes of
+    ``L2R_LARGE_AXES`` voxels, a surface of more than 16384 points), the
+    others have semi-axes of 6-20 voxels."""
     rng = np.random.default_rng(seed)
     seg = np.zeros(shape, np.int32)
     placed = []
     for _ in range(100000):
         if len(placed) == n_labels:
             break
-        ax = rng.integers(6, 21, 3)
+        ax = rng.integers(*(L2R_LARGE_AXES if not placed else (6, 21)), 3)
         c = np.array([rng.integers(L2R_MARGIN + a, s - L2R_MARGIN - a) for a, s in zip(ax, shape)])
         if any(np.linalg.norm(c - c2) <= ax.max() + a2 + 2 for c2, a2 in placed):
             continue
@@ -598,8 +603,14 @@ def main() -> int:
             rec["launches"] = rec["launches_per_registration"] = launches[name]
         elif name == "nearest_sq_pruned":
             rec["launches"] = rec["launches_per_evaluation"] = eval_launches[name]
+            rec["launches_run"] = "evaluate_field"
         else:
+            # the default branch takes the pruned search at every K up to
+            # 524288, so these two run only in the evaluation with it
+            # switched off: their launches are that run's
             rec["launches"] = tiled_launches[name]
+            rec["launches_run"] = "evaluate_field with the pruned search switched off"
+            rec["launches_per_evaluation"] = eval_launches[name]
             rec["launches_per_evaluation_pruned_off"] = tiled_launches[name]
     results["registration"] = reg
     results["kernels"] = records

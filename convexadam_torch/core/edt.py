@@ -33,6 +33,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from convexadam_torch import _resolve_device
 from convexadam_torch.core.features import label_counts
@@ -43,9 +44,12 @@ from convexadam_torch.kernels.edt import (
     nearest_sq_pruned,
 )
 
-#: Per-axis extent limit of the engine: label buffers move coordinates as one
-#: packed int32 (z<<20 | y<<10 | x), 10 bits per axis.  The evaluator falls
-#: back to the host :func:`convexadam_torch.core.metrics.hd95` beyond it.
+#: Per-axis extent limit of the engine.  Label buffers move coordinates as one
+#: packed int32 (z<<20 | y<<10 | x), 10 bits per axis, and the searches'
+#: FP32 distances are exact only while coordinates stay below 1024: then
+#: |q|^2 + |t|^2 <= 2 * 3 * 1023^2 < 2^24.  Wider packing alone would not lift
+#: it.  The evaluator raises beyond it on the card and uses the host
+#: :func:`convexadam_torch.core.metrics.hd95` only when asked for the CPU.
 MAX_PACKED_EXTENT = 1024
 
 
@@ -536,14 +540,16 @@ def suggest_hd95_caps(
 
 def _hd95_bucketed(seg_fixed, seg_moving, num_labels: int, groups, global_surface: int,
                    missing_value: float) -> torch.Tensor:
-    pre = surface_lists(seg_fixed, seg_moving, num_labels, global_surface)
     caps_l = [0] * (num_labels + 1)
     for labs, k in groups:
         for lab in labs:
             caps_l[lab] = k
     caps = tuple(caps_l)
-    bufs = label_buffers(pre, num_labels, caps)
-    parts = [hd95_from_buffers(bufs, caps, k, missing_value, labs) for labs, k in groups]
+    with record_function("hd95.surface_buffers"):
+        pre = surface_lists(seg_fixed, seg_moving, num_labels, global_surface)
+        bufs = label_buffers(pre, num_labels, caps)
+    with record_function("hd95.searches"):
+        parts = [hd95_from_buffers(bufs, caps, k, missing_value, labs) for labs, k in groups]
     order = [lab for labs, _ in groups for lab in labs]
     inv = [0] * len(order)
     for i, lab in enumerate(order):
@@ -557,14 +563,6 @@ def _labels_on(seg, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(seg)).to(device)
 
 
-def _device_of(seg, device) -> torch.device:
-    """The device of a tensor unless one is asked for; numpy inputs run on
-    the card unless ``device="cpu"``."""
-    if device is None and isinstance(seg, torch.Tensor):
-        return seg.device
-    return _resolve_device(device)
-
-
 def hd95_device_sized(
     seg_fixed,
     seg_moving,
@@ -575,12 +573,14 @@ def hd95_device_sized(
     """:func:`hd95_device` with caps measured exactly from the two volumes
     (:func:`suggest_hd95_caps`, on the host) and per-size label buckets:
     nothing truncates, and small organs pay small searches.  Volumes are
-    numpy arrays or tensors; extents are limited to
-    :data:`MAX_PACKED_EXTENT` per axis.  Returns (num_labels,) float32."""
-    dev = _device_of(seg_fixed, device)
-    host_f = seg_fixed.cpu().numpy() if isinstance(seg_fixed, torch.Tensor) else seg_fixed
-    host_m = seg_moving.cpu().numpy() if isinstance(seg_moving, torch.Tensor) else seg_moving
-    groups, global_cap = suggest_hd95_caps(host_f, host_m, num_labels)
+    numpy arrays or tensors, moved to ``device`` (``cuda`` unless
+    ``device="cpu"``); extents are limited to :data:`MAX_PACKED_EXTENT` per
+    axis.  Returns (num_labels,) float32."""
+    dev = _resolve_device(device)
+    with record_function("hd95.host_caps"):
+        host_f = seg_fixed.cpu().numpy() if isinstance(seg_fixed, torch.Tensor) else seg_fixed
+        host_m = seg_moving.cpu().numpy() if isinstance(seg_moving, torch.Tensor) else seg_moving
+        groups, global_cap = suggest_hd95_caps(host_f, host_m, num_labels)
     return _hd95_bucketed(
         _labels_on(seg_fixed, dev), _labels_on(seg_moving, dev), num_labels, groups,
         global_cap, missing_value,
@@ -604,8 +604,9 @@ def hd95_device(
     ``min(N, 65536)``) and all surfaces fit ``global_surface`` (default
     ``4 * max_surface``); an overflowing surface is cut to its first K
     points in raster order.  ``labels`` restricts the evaluation to a subset
-    (default ``1 .. num_labels``).  Returns (len(labels),) float32."""
-    dev = _device_of(seg_fixed, device)
+    (default ``1 .. num_labels``).  Volumes run on ``device``, ``cuda``
+    unless ``device="cpu"``.  Returns (len(labels),) float32."""
+    dev = _resolve_device(device)
     seg_fixed = _labels_on(seg_fixed, dev)
     seg_moving = _labels_on(seg_moving, dev)
     H, W, D = seg_fixed.shape

@@ -14,6 +14,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from convexadam_torch import _resolve_device
 from convexadam_torch.core.edt import MAX_PACKED_EXTENT, hd95_device_sized
@@ -51,38 +52,57 @@ def evaluate_field(
     the worst 30%); arrays come back as numpy.
 
     HD95 runs on the device engine (:func:`hd95_device_sized`) whenever every
-    axis is at most :data:`MAX_PACKED_EXTENT`, and on the host scipy EDT loop
-    beyond it.  (The JAX package takes the engine only on a TPU backend; both
-    give the same numbers.)
+    axis is at most :data:`MAX_PACKED_EXTENT`.  Beyond it the engine's exact
+    FP32 distances do not hold: on the card that raises, before any work;
+    with ``device="cpu"`` the host scipy EDT loop scores HD95, as the JAX
+    package does off the TPU.  (The JAX package takes the engine only on a
+    TPU backend; both give the same numbers.)
     """
     dev = _resolve_device(device)
-    d = _on(disp, dev, torch.float32).permute(3, 0, 1, 2).contiguous()
+    beyond = (
+        compute_hd95 and seg_fixed is not None and num_labels > 0
+        and max(seg_fixed.shape) > MAX_PACKED_EXTENT
+    )
+    if beyond and dev.type != "cpu":
+        raise ValueError(
+            f"HD95 on {dev} supports extents <= {MAX_PACKED_EXTENT} per axis "
+            f"(got {tuple(seg_fixed.shape)}); pass compute_hd95=False or device='cpu'"
+        )
     out: dict = {}
-    det = jacobian_determinant(d)
-    logj = torch.log(torch.clamp(det + 3.0, 1e-9, 1e9))
-    out["sdlogj"] = float(torch.std(logj.double(), correction=0))
-    out["neg_jac_frac"] = float((det < 0).double().mean())
+    # the ranges cost nothing without a profiler; they let
+    # scripts/profile_torch_evaluation.py split this entry's time by stage
+    with record_function("evaluate_field.jacobian"):
+        d = _on(disp, dev, torch.float32).permute(3, 0, 1, 2).contiguous()
+        det = jacobian_determinant(d)
+        logj = torch.log(torch.clamp(det + 3.0, 1e-9, 1e9))
+        out["sdlogj"] = float(torch.std(logj.double(), correction=0))
+        out["neg_jac_frac"] = float((det < 0).double().mean())
     if seg_fixed is not None and num_labels > 0:
-        seg_f = _on(seg_fixed, dev)
-        warped = warp_with_displacement(
-            _on(seg_moving, dev, torch.float32)[None], d, mode="nearest"
-        )[0].round().to(torch.int32)
-        dice = dice_coeff(seg_f, warped, num_labels + 1).cpu().numpy()
+        with record_function("evaluate_field.warp_dice"):
+            seg_f = _on(seg_fixed, dev)
+            warped = warp_with_displacement(
+                _on(seg_moving, dev, torch.float32)[None], d, mode="nearest"
+            )[0].round().to(torch.int32)
+            dice = dice_coeff(seg_f, warped, num_labels + 1).cpu().numpy()
         out["dice"] = dice
         k = max(1, int((num_labels + 1) * 0.3))
         out["dice30"] = float(np.sort(dice)[:k].mean())
         if compute_hd95:
-            if max(seg_f.shape) <= MAX_PACKED_EXTENT:
-                out["hd95"] = hd95_device_sized(seg_f, warped, num_labels).cpu().numpy()
-            else:
-                out["hd95"] = hd95(seg_f.cpu().numpy(), warped.cpu().numpy(), num_labels)
+            with record_function("evaluate_field.hd95"):
+                if beyond:
+                    out["hd95"] = hd95(seg_f.numpy(), warped.numpy(), num_labels)
+                else:
+                    out["hd95"] = hd95_device_sized(
+                        seg_f, warped, num_labels, device=dev
+                    ).cpu().numpy()
     if kpts_fixed is not None:
-        tre = keypoint_tre(
-            d,
-            _on(kpts_fixed, dev, torch.float32),
-            _on(kpts_moving, dev, torch.float32),
-            None if spacing is None else _on(spacing, dev, torch.float32),
-        ).cpu().numpy()
+        with record_function("evaluate_field.tre"):
+            tre = keypoint_tre(
+                d,
+                _on(kpts_fixed, dev, torch.float32),
+                _on(kpts_moving, dev, torch.float32),
+                None if spacing is None else _on(spacing, dev, torch.float32),
+            ).cpu().numpy()
         out["tre"] = tre
         k = max(1, int(len(tre) * 0.3))
         out["tre30"] = float(np.sort(tre)[-k:].mean())

@@ -9,15 +9,19 @@ It registers the 192^3 headline pair of ``chip_smoke.py`` (seed 0, shift
 (5, -4, 3), default config) and scores the field on ``chip_smoke.py``'s
 13-organ label pair, reporting
 
-* the host-clock time of each stage of ``evaluate_field`` (median of
-  ``--runs``, each stage ending in ``torch.cuda.synchronize()``): Jacobian
-  metrics, label warp + Dice, the host cap sizing (``suggest_hd95_caps``,
-  with the copies of both label volumes to the host), the surface lists and
-  label buffers, the per-label searches and percentiles, keypoint TRE; and
-  ``evaluate_field`` itself;
-* one ``evaluate_field`` under ``torch.profiler``: device time by kernel
-  name (the search kernels listed apart, per launch) and the device-busy
-  share (summed device time over the profiled wall time).
+* ``evaluate_field`` itself on the host clock (median of ``--runs`` after a
+  warm-up);
+* one ``evaluate_field`` under ``torch.profiler``, split by the
+  ``record_function`` ranges of the entry (``evaluate_field.*``: Jacobian
+  metrics, label warp + Dice, HD95, keypoint TRE; inside HD95, ``hd95.*``:
+  the host cap sizing with the copies of both label volumes, the surface
+  lists and label buffers, the per-label searches and percentiles): each
+  range's host time and the device time of the kernels launched inside it.
+  A range's host time includes any wait for the card inside it; a range
+  that ends without a wait hands its device work on to the next.
+* the same trace's device time by kernel name (the search kernels listed
+  apart, per launch) and the device-busy share (summed device time over
+  the profiled wall time).
 
 It prints a JSON line and writes ``chiprun_out/profile_torch_evaluation.json``.
 """
@@ -49,9 +53,7 @@ def main() -> int:
         return 2
     from chip_smoke import HEADLINE_SHIFT, L2R_LABELS, L2R_MARGIN, headline_pair, l2r_label_pair
     from convexadam_torch import evaluate_field
-    from convexadam_torch.core import edt
-    from convexadam_torch.core.metrics import dice_coeff, jacobian_determinant, keypoint_tre
-    from convexadam_torch.core.warp import resize_trilinear, warp_with_displacement
+    from convexadam_torch.core.warp import resize_trilinear
     from convexadam_torch.kernels import _build
     from convexadam_torch.pipeline.convex_adam import convex_adam
 
@@ -60,67 +62,23 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     _build.build_all()
-    dev = torch.device("cuda")
     vol_np, mov_np = headline_pair(torch, resize_trilinear)
     field = convex_adam(vol_np, mov_np, device="cuda")
     seg_f, seg_m = l2r_label_pair()
     rng = np.random.default_rng(1)
     kf = rng.uniform(L2R_MARGIN, seg_f.shape[0] - L2R_MARGIN, (20, 3)).astype(np.float32)
     km = kf + np.asarray(HEADLINE_SHIFT, np.float32)
-    n = L2R_LABELS
-
-    def stages():
-        t = [time.perf_counter()]
-
-        def mark():
-            torch.cuda.synchronize()
-            t.append(time.perf_counter())
-
-        d = torch.from_numpy(field).to(dev).permute(3, 0, 1, 2).contiguous()
-        det = jacobian_determinant(d)
-        float(torch.std(torch.log(torch.clamp(det + 3.0, 1e-9, 1e9)).double(), correction=0))
-        float((det < 0).double().mean())
-        mark()
-        sf = torch.from_numpy(seg_f).to(dev)
-        warped = warp_with_displacement(
-            torch.from_numpy(seg_m).to(dev, torch.float32)[None], d, mode="nearest"
-        )[0].round().to(torch.int32)
-        dice_coeff(sf, warped, n + 1).cpu().numpy()
-        mark()
-        groups, gcap = edt.suggest_hd95_caps(sf.cpu().numpy(), warped.cpu().numpy(), n)
-        mark()
-        caps = [0] * (n + 1)
-        for labs, k in groups:
-            for lab in labs:
-                caps[lab] = k
-        pre = edt.surface_lists(sf, warped, n, gcap)
-        bufs = edt.label_buffers(pre, n, tuple(caps))
-        mark()
-        for labs, k in groups:
-            edt.hd95_from_buffers(bufs, tuple(caps), k, 30.0, labs).cpu()
-        mark()
-        keypoint_tre(d, torch.from_numpy(kf).to(dev), torch.from_numpy(km).to(dev)).cpu()
-        mark()
-        names = ("jacobian_s", "warp_dice_s", "host_caps_s", "surface_buffers_s",
-                 "searches_s", "tre_s")
-        out = {k: t[i + 1] - t[i] for i, k in enumerate(names)}
-        out["sum_s"] = t[-1] - t[0]
-        return out
 
     def evaluate():
-        return evaluate_field(field, seg_f, seg_m, n, kf, km, device="cuda")
+        return evaluate_field(field, seg_f, seg_m, L2R_LABELS, kf, km, device="cuda")
 
-    stages()  # warm-up
-    evaluate()
-    runs = [stages() for _ in range(args.runs)]
-    median = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+    evaluate()  # warm-up
     ev_times = []
     for _ in range(args.runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         evaluate()
         ev_times.append(time.perf_counter() - t0)
-    median["evaluate_field_s"] = float(np.median(ev_times))
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -130,11 +88,17 @@ def main() -> int:
         evaluate()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device events only (kernels, memcpy, memset), as in
-    # scripts/profile_torch_registration.py
+    stages = {}
     rows = []
     device_us = 0.0
     for e in prof.key_averages():
+        if e.key.startswith(("evaluate_field.", "hd95.")):
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                stages[e.key] = {"host_ms": e.cpu_time_total / 1e3,
+                                 "device_ms": e.device_time_total / 1e3}
+            continue
+        # device events only (kernels, memcpy, memset), as in
+        # scripts/profile_torch_registration.py
         if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
             continue
         dev_us = e.self_device_time_total
@@ -149,9 +113,9 @@ def main() -> int:
     }
     res = {
         "card": smi,
-        "stages_median_s": median,
-        "stages_runs": runs,
+        "evaluate_field_s_median": float(np.median(ev_times)),
         "evaluate_field_s": ev_times,
+        "stages": stages,
         "profiled_wall_s": wall,
         "device_busy_ms": device_us / 1e3,
         "device_busy_share": device_us / 1e6 / wall,
@@ -162,7 +126,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "profile_torch_evaluation.json").write_text(json.dumps(res, indent=1))
     print(f"card: {smi}")
-    print(json.dumps({k: res[k] for k in ("stages_median_s", "profiled_wall_s",
+    print(json.dumps({k: res[k] for k in ("evaluate_field_s_median", "stages", "profiled_wall_s",
                                           "device_busy_ms", "device_busy_share",
                                           "own_kernels")}))
     for r in rows[:25]:

@@ -257,11 +257,21 @@ def test_hd95_device_matches_jax_and_host(max_surface):
     s1, s2 = _smooth_labels(0), _smooth_labels(1)
     for a, b in ((s1, s2), (np.where(s1 == 3, 2, s1), s2)):
         got = tedt.hd95_device(torch.from_numpy(a), torch.from_numpy(b), 3,
-                               max_surface=max_surface).numpy()
+                               max_surface=max_surface, device="cpu").numpy()
         ref = np.asarray(hd95_device(jnp.asarray(a), jnp.asarray(b), 3, max_surface=max_surface))
         np.testing.assert_allclose(got, ref, atol=1e-5)
         np.testing.assert_allclose(got, host_hd95(a, b, 3), atol=1e-5)
     assert got[2] == 30.0
+
+
+@pytest.mark.parametrize("entry", ["hd95_device", "hd95_device_sized"])
+def test_hd95_entries_default_to_cuda(monkeypatch, entry):
+    """As every entry of the port: a CPU tensor without ``device="cpu"``
+    still asks for the card, and raises where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seg = torch.zeros((8, 8, 8), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(tedt, entry)(seg, seg, 1)
 
 
 def test_hd95_branches_agree(monkeypatch):

@@ -183,6 +183,22 @@ def test_evaluate_field_host_fallback_beyond_extent(monkeypatch):
     assert host["hd95"].dtype == np.float64 and dev["hd95"].dtype == np.float32
 
 
+def test_evaluate_field_beyond_extent_raises_on_the_card(monkeypatch):
+    """On the card HD95 beyond the engine's extent limit raises before any
+    work: nothing moves to the host EDT loop."""
+    import convexadam_torch.selfconfig.l2r as l2r
+
+    disp, seg_f, seg_m, _, _ = _case(1, (20, 18, 16), 3)
+    monkeypatch.setattr(l2r, "MAX_PACKED_EXTENT", 8)
+    monkeypatch.setattr(l2r, "_resolve_device", lambda device: torch.device("cuda"))
+    with pytest.raises(ValueError, match="extents <= 8"):
+        evaluate_field(disp, seg_f, seg_m, 3)
+    # without HD95 the limit does not apply
+    monkeypatch.setattr(l2r, "_resolve_device", lambda device: torch.device("cpu"))
+    out = evaluate_field(disp, seg_f, seg_m, 3, compute_hd95=False)
+    assert "hd95" not in out and out["dice"].shape == (3,)
+
+
 def test_evaluate_field_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
