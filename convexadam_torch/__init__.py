@@ -1,8 +1,11 @@
 """PyTorch + CUDA port of ConvexAdam for one NVIDIA H100.
 
 The main path is the default MIND registration
-(:func:`convexadam_torch.pipeline.convex_adam.convex_adam`); the Learn2Reg
-evaluation of a registered case is :func:`evaluate_field`.  Their hot
+(:func:`convexadam_torch.pipeline.convex_adam.convex_adam`); the nnU-Net
+semantic registration of two label volumes is
+:func:`convex_adam_semantic_torch`, the self-configuring grid's nine-variant
+run :func:`convex_adam_multi_output`, and the Learn2Reg evaluation of a
+registered case :func:`evaluate_field`.  Their hot
 kernels are hand-written CUDA for ``sm_90a`` under ``csrc/``, wrapped in
 ``kernels/``; each wrapper runs its plain PyTorch version only for tensors
 that lie on the CPU.
@@ -34,6 +37,10 @@ def _resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     return dev
 
 
+from convexadam_torch.pipeline.convex_adam import (  # noqa: E402
+    convex_adam_multi_output,
+    convex_adam_semantic_torch,
+)
 from convexadam_torch.selfconfig.l2r import evaluate_field  # noqa: E402
 
-__all__ = ["evaluate_field"]
+__all__ = ["convex_adam_multi_output", "convex_adam_semantic_torch", "evaluate_field"]

@@ -2,10 +2,15 @@
 
 Counterpart of ``convexadam_tpu/core/adam.py``.  The only trainable tensor
 is a low-resolution displacement grid.  Each iteration smooths the raw grid,
-adds the diffusion regulariser to the fused warp + SSD data term
-(:func:`convexadam_torch.core.warp.warp_ssd_mean_loss`, one kernel launch),
-back-propagates with ordinary autograd, and takes a ``torch.optim.Adam``
-step with ``lr=1``.
+adds the diffusion regulariser to the warp + SSD data term, back-propagates
+with ordinary autograd, and takes a ``torch.optim.Adam`` step with ``lr=1``.
+
+Two gradient steps share that loop body (:func:`_adam_loop`), as in the JAX
+module: :func:`_grad_step_fused`, whose data term is the fused kernel
+(:func:`convexadam_torch.core.warp.warp_ssd_mean_loss`, one launch), and
+:func:`_grad_step_autodiff`, which differentiates the unfused data term
+through the sampler's forward and backward kernels.
+:func:`adam_instance_optimisation` takes the fused step on every device.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from convexadam_torch.core.smoothing import box_smooth_repeated, gaussian_smooth, kovesi_spline
-from convexadam_torch.core.warp import warp_ssd_mean_loss
+from convexadam_torch.core.warp import warp_ssd_mean_loss, warp_ssd_mean_loss_unfused
 
 # stage-2 "shift-spline" smoother bank: two Gaussians and six Kovesi
 # box-cascade splines, indexed by ``avg_n``
@@ -55,6 +60,49 @@ def diffusion_regularizer(disp: torch.Tensor) -> torch.Tensor:
     return (dh * dh).mean() + (dw * dw).mean() + (dd * dd).mean()
 
 
+def _value_and_grad(data_term, w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale):
+    """``(loss, smoothed field, d loss / d w)`` of smoother → regulariser +
+    ``data_term``, all detached."""
+    ds = smooth_fn(w)
+    reg = lambda_weight * diffusion_regularizer(ds)
+    loss = data_term(mov, ds, fix_flat, cost_scale) + reg
+    (g,) = torch.autograd.grad(loss, w)
+    return loss.detach(), ds.detach(), g
+
+
+def _grad_step_fused(w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale):
+    """One gradient evaluation with the fused data-term kernel."""
+    return _value_and_grad(
+        warp_ssd_mean_loss, w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale
+    )
+
+
+def _grad_step_autodiff(w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale):
+    """One gradient evaluation through the differentiable warp: the
+    sampler's forward kernel, then its coordinate-gradient kernel."""
+    return _value_and_grad(
+        warp_ssd_mean_loss_unfused, w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale
+    )
+
+
+def _adam_loop(grad_fn, disp_init, niter, snapshot_iters=()):
+    """``niter`` Adam steps (``lr=1``) of ``w`` from ``disp_init`` with the
+    gradient ``grad_fn(w) -> (loss, smoothed field, grad)``.  Returns the
+    smoothed field of the last loop body and the snapshot stack of
+    :func:`adam_instance_optimisation`."""
+    w = disp_init.float().clone().requires_grad_(True)
+    opt = torch.optim.Adam([w], lr=1.0, betas=(0.9, 0.999), eps=1e-8)
+    final = torch.zeros_like(w, requires_grad=False)
+    snaps = torch.zeros((len(snapshot_iters),) + tuple(w.shape), dtype=torch.float32, device=w.device)
+    for it in range(niter):
+        _, final, w.grad = grad_fn(w)
+        opt.step()
+        for si, k in enumerate(snapshot_iters):
+            if k - 1 == it:
+                snaps[si] = final
+    return final, snaps
+
+
 def adam_instance_optimisation(
     feat_fix: torch.Tensor,
     feat_mov: torch.Tensor,
@@ -73,7 +121,8 @@ def adam_instance_optimisation(
     voxels.  Returns ``(final, snapshots)``: the smoothed field computed in
     the last loop body, before its update (the reference's output), and a
     (len(snapshot_iters), 3, h, w, d) stack whose entry for ``k`` is the
-    smoothed field of loop body ``k - 1``.
+    smoothed field of loop body ``k - 1``.  Every step is
+    :func:`_grad_step_fused`.
     """
     if sample_stride != 1:
         raise NotImplementedError(
@@ -83,19 +132,8 @@ def adam_instance_optimisation(
     fix_flat = feat_fix.float().reshape(C, -1).contiguous()
     mov = feat_mov.contiguous()
     smooth_fn = resolve_smoother(smoother)
-    w = disp_init.float().clone().requires_grad_(True)
-    opt = torch.optim.Adam([w], lr=1.0, betas=(0.9, 0.999), eps=1e-8)
-    final = torch.zeros_like(w, requires_grad=False)
-    snaps = torch.zeros((len(snapshot_iters),) + tuple(w.shape), dtype=torch.float32, device=w.device)
-    for it in range(niter):
-        opt.zero_grad(set_to_none=True)
-        ds = smooth_fn(w)
-        reg = lambda_weight * diffusion_regularizer(ds)
-        loss = warp_ssd_mean_loss(mov, ds, fix_flat, cost_scale) + reg
-        loss.backward()
-        opt.step()
-        final = ds.detach()
-        for si, k in enumerate(snapshot_iters):
-            if k - 1 == it:
-                snaps[si] = final
-    return final, snaps
+
+    def grad_fn(w):
+        return _grad_step_fused(w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale)
+
+    return _adam_loop(grad_fn, disp_init, niter, snapshot_iters)

@@ -7,7 +7,9 @@ between the fixed features and the moving features shifted by each of the
 ``(2q+1)**3`` integer displacements (zeros outside), flat index
 ``k = kd*K**2 + kw*K + kh``.  It is made by the ``cost_volume`` kernel in
 float32 whatever the features' dtype, then smoothed by zero-padded 3^3 box
-passes; the argmin takes the first minimum.
+passes with the reference's rounding (:func:`window_mean3d`: one-hot
+semantic features give exactly tied costs, and the argmin takes the first
+minimum).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from convexadam_torch.core.smoothing import avg_pool3d
+from convexadam_torch.core.smoothing import window_mean3d
 from convexadam_torch.kernels.cost_volume import cost_volume
 
 
@@ -47,5 +49,5 @@ def correlate(
         )
     ssd = cost_volume(feat_fix.float().contiguous(), feat_mov.float().contiguous(), disp_hw)
     for _ in range(smooth_passes):
-        ssd = avg_pool3d(ssd, 3, stride=1, padding=1)
+        ssd = window_mean3d(ssd, 3, stride=1, padding=1)
     return ssd, torch.argmin(ssd, dim=0)

@@ -6,9 +6,13 @@ Counterpart of ``convexadam_tpu/core/smoothing.py``.  Two border semantics:
   ``count_include_pad=True`` the divisor is always ``k**3``;
 * ``avg_pool3d_replicate(x, k)`` -- replicate padding by ``k // 2``.
 
-Box filters are separable window sums over the last three axes, taken in
-H, W, D order with the window offsets ``j`` added in ascending order, so the
-results follow the JAX package's summation order.
+Overlapping box filters are separable window sums over the last three axes,
+taken in H, W, D order with the window offsets ``j`` added in ascending
+order, as the JAX package sums them; they are differentiable with a
+deterministic backward, so the Adam smoothers use them.  Non-overlapping
+pooling, and the cost volume's box passes (:func:`window_mean3d`), are
+``F.avg_pool3d`` itself: the reference's rounding, which decides the
+argmin ties of one-hot semantic features.
 """
 
 from __future__ import annotations
@@ -36,6 +40,19 @@ def _window_sum_axis(x: torch.Tensor, axis: int, k: int, stride: int, pad: int) 
     return acc
 
 
+def window_mean3d(x: torch.Tensor, kernel: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """``F.avg_pool3d`` (zero padding, ``count_include_pad=True``) over the
+    last three axes of ``x`` (any leading dims), computed in float32 and
+    returned in ``x``'s dtype.  Each output adds its window's ``k**3`` terms
+    in window order and divides by ``k**3``: the reference's rounding, bit
+    for bit.  Its CUDA backward adds with atomics, so gradient loops use
+    :func:`avg_pool3d`'s separable sums instead."""
+    y = F.avg_pool3d(
+        x.float().reshape(1, -1, *x.shape[-3:]), kernel, stride=stride, padding=padding
+    )
+    return y.reshape(*x.shape[:-3], *y.shape[-3:]).to(x.dtype)
+
+
 def avg_pool3d(
     x: torch.Tensor,
     kernel: int,
@@ -45,20 +62,16 @@ def avg_pool3d(
 ) -> torch.Tensor:
     """``F.avg_pool3d`` over the last three axes of ``x`` (any leading dims).
 
-    The non-overlapping case (``stride == kernel``, no padding) is a
-    reshape-sum accumulated in float32 and returned in ``x``'s dtype; the
-    overlapping case is the separable window sum of the module docstring.
+    The non-overlapping case (``stride == kernel``, no padding) is
+    :func:`window_mean3d`, accumulated in float32 and returned in ``x``'s
+    dtype; the overlapping case is the separable window sum of the module
+    docstring.
     """
     if stride is None:
         stride = kernel
     nd = x.ndim
     if stride == kernel and padding == 0:
-        k = kernel
-        h, w, d = (s // k for s in x.shape[-3:])
-        xc = x[..., : h * k, : w * k, : d * k].float()
-        xr = xc.reshape(*x.shape[:-3], h, k, w, k, d, k)
-        out = xr.sum(dim=(-5, -3, -1)) * (1.0 / float(k**3))
-        return out.to(x.dtype)
+        return window_mean3d(x, kernel, kernel)
     out = x
     for ax in (nd - 3, nd - 2, nd - 1):
         out = _window_sum_axis(out, ax, kernel, stride, padding)

@@ -1,5 +1,6 @@
-"""Coordinate conventions, grid sampling and warping, trilinear resizing,
-inverse consistency and the Adam data term.
+"""Coordinate conventions, grid sampling and warping (differentiable),
+trilinear resizing, ``map_coordinates``, inverse consistency, composition
+and the Adam data term.
 
 Counterpart of ``convexadam_tpu/core/warp.py``.  Coordinates are kept in
 array order: channel 0 indexes axis 0 (H) and channel 2 the innermost axis
@@ -17,7 +18,12 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from convexadam_torch.kernels.warp import sample_trilinear, warp_ssd_loss_grad
+from convexadam_torch.kernels.warp import (
+    _grid_corners,
+    sample_trilinear,
+    sample_trilinear_bwd,
+    warp_ssd_loss_grad,
+)
 
 
 def unnormalize_coord(g, size: int, align_corners: bool):
@@ -94,6 +100,21 @@ def grid_sample_3d(
     return out.reshape((C,) + out_shape)
 
 
+def _displaced_grid(shape, disp_voxels: torch.Tensor, align_corners: bool) -> torch.Tensor:
+    """The reference Adam stage's sampling grid (H, W, D, 3): the identity
+    with ``align_corners`` spacing plus the displacement normalized by
+    ``(n - 1) / 2`` (an align_corners=True normalization)."""
+    H, W, D = shape
+    scale = torch.tensor(
+        [(H - 1) / 2.0, (W - 1) / 2.0, (D - 1) / 2.0], dtype=disp_voxels.dtype,
+        device=disp_voxels.device,
+    ).reshape(3, 1, 1, 1)
+    grid = identity_grid_normalized(
+        (H, W, D), align_corners, device=disp_voxels.device, dtype=disp_voxels.dtype
+    )
+    return grid + (disp_voxels / scale).permute(1, 2, 3, 0)
+
+
 def warp_with_displacement(
     vol: torch.Tensor,
     disp_voxels: torch.Tensor,
@@ -103,23 +124,63 @@ def warp_with_displacement(
 ) -> torch.Tensor:
     """Warp ``vol`` (C, H, W, D) by a voxel displacement field (3, H, W, D).
 
-    The grid is built as the reference's Adam stage builds it: the identity
-    with ``align_corners`` spacing plus the displacement normalized by
-    ``(n - 1) / 2`` (an align_corners=True normalization), sampled with
-    ``align_corners``; the convention mismatch is the reference's.
+    The grid is :func:`_displaced_grid`, sampled with ``align_corners``; the
+    convention mismatch is the reference's.
     """
-    C, H, W, D = vol.shape
-    scale = torch.tensor(
-        [(H - 1) / 2.0, (W - 1) / 2.0, (D - 1) / 2.0], dtype=disp_voxels.dtype,
-        device=disp_voxels.device,
-    ).reshape(3, 1, 1, 1)
-    grid = identity_grid_normalized(
-        (H, W, D), align_corners, device=disp_voxels.device, dtype=disp_voxels.dtype
-    )
-    grid = grid + (disp_voxels / scale).permute(1, 2, 3, 0)
+    grid = _displaced_grid(vol.shape[1:], disp_voxels, align_corners)
     return grid_sample_3d(
         vol, grid, align_corners=align_corners, padding_mode=padding_mode, mode=mode
     )
+
+
+class _SampleTrilinear(torch.autograd.Function):
+    """:func:`sample_trilinear` (zeros padding, ``align_corners=False``),
+    differentiable in the volume and the grid.
+
+    The grid cotangent is one :func:`sample_trilinear_bwd` launch chained
+    through the unnormalization (``size / 2`` per axis).  The volume
+    cotangent, only when asked for, is a plain scatter-add of ``ct * w`` over
+    the 8 corners, as the JAX package computes it outside its kernels.
+    """
+
+    @staticmethod
+    def forward(ctx, vol, grid):
+        ctx.save_for_backward(vol, grid)
+        return sample_trilinear(vol, grid)
+
+    @staticmethod
+    def backward(ctx, ct):
+        vol, grid = ctx.saved_tensors
+        B, C, H, W, D = vol.shape
+        ct = ct.float().contiguous()
+        dvol = dgrid = None
+        if ctx.needs_input_grad[1]:
+            rows = sample_trilinear_bwd(vol, grid, ct, 1.0)
+            half = torch.tensor([H / 2.0, W / 2.0, D / 2.0], device=rows.device)
+            dgrid = rows.transpose(1, 2) * half
+        if ctx.needs_input_grad[0]:
+            dflat = torch.zeros((B, C, H * W * D), dtype=torch.float32, device=vol.device)
+            for lin, w in _grid_corners(vol, grid, grads=False):
+                for b in range(B):
+                    dflat[b].index_add_(1, lin[b], ct[b] * w[b])
+            dvol = dflat.reshape(vol.shape).to(vol.dtype)
+        return dvol, dgrid
+
+
+def warp_with_displacement_stacked(vol: torch.Tensor, disp_voxels: torch.Tensor) -> torch.Tensor:
+    """Differentiable trilinear warp of ``vol`` (C, H, W, D) float32 or
+    bfloat16 by ``disp_voxels`` (3, H, W, D) → (C, H, W, D) float32 (zeros
+    padding, ``align_corners=False``, the grid of :func:`_displaced_grid`).
+
+    Counterpart of the JAX package's ``warp_with_displacement_stacked``,
+    which takes a prebuilt corner stack and its shape; this one takes the
+    volume itself, since the kernels gather its corners directly.  The
+    gradient in ``disp_voxels`` launches :func:`sample_trilinear_bwd`.
+    """
+    C, H, W, D = vol.shape
+    grid = _displaced_grid((H, W, D), disp_voxels, False).reshape(1, -1, 3)
+    out = _SampleTrilinear.apply(vol.contiguous()[None], grid.contiguous())
+    return out.reshape(C, H, W, D)
 
 
 def _linear_resize_axis(x: torch.Tensor, axis: int, out_size: int, align_corners: bool):
@@ -157,6 +218,49 @@ def resize_trilinear(
     return x
 
 
+def map_coordinates_trilinear(
+    vol: torch.Tensor, coords: torch.Tensor, mode: str = "constant"
+) -> torch.Tensor:
+    """``scipy.ndimage.map_coordinates(vol, coords, order=1)`` of ``vol``
+    (H, W, D) at voxel coordinates ``coords`` (3, ...) → (...).
+
+    scipy's borders: with ``mode="constant"`` a point outside ``[0, n - 1]``
+    on any axis is 0 (no blending with the interior); ``"nearest"`` clamps.
+    """
+    H, W, D = vol.shape
+    out_shape = tuple(coords.shape[1:])
+    c = coords.reshape(3, -1)
+    if mode == "constant":
+        inb = (
+            (c[0] >= 0) & (c[0] <= H - 1) & (c[1] >= 0) & (c[1] <= W - 1)
+            & (c[2] >= 0) & (c[2] <= D - 1)
+        )
+    elif mode != "nearest":
+        raise ValueError(f"unsupported mode: {mode}")
+    axes = []
+    for a, n in enumerate((H, W, D)):
+        x = torch.clamp(c[a], 0.0, n - 1)
+        x0 = torch.floor(x)
+        axes.append((x0.long(), x - x0))
+    (x0, fx), (y0, fy), (z0, fz) = axes
+    flat = vol.reshape(-1)
+    acc = torch.zeros((c.shape[1],), dtype=vol.dtype, device=vol.device)
+    for dx in (0, 1):
+        wx = fx if dx else (1.0 - fx)
+        xi = torch.clamp(x0 + dx, max=H - 1)
+        for dy in (0, 1):
+            wy = fy if dy else (1.0 - fy)
+            yi = torch.clamp(y0 + dy, max=W - 1)
+            for dz in (0, 1):
+                wz = fz if dz else (1.0 - fz)
+                zi = torch.clamp(z0 + dz, max=D - 1)
+                corner = flat[(xi * W + yi) * D + zi]
+                acc = acc + corner * (wx * wy * wz).to(vol.dtype)
+    if mode == "constant":
+        acc = torch.where(inb, acc, 0.0)
+    return acc.reshape(out_shape)
+
+
 def inverse_consistency(
     disp1: torch.Tensor, disp2: torch.Tensor, iters: int = 20
 ) -> "tuple[torch.Tensor, torch.Tensor]":
@@ -178,6 +282,18 @@ def inverse_consistency(
         s2 = out[1].reshape((3,) + shape)  # d1 ∘ (id + d2)
         d1, d2 = 0.5 * (d1 - s1), 0.5 * (d2 - s2)
     return d1, d2
+
+
+def compose_displacements(
+    disp_1st: torch.Tensor, disp_2nd: torch.Tensor, align_corners: bool = False
+) -> torch.Tensor:
+    """``disp_2nd + disp_1st ∘ (id + disp_2nd)`` for fields (3, H, W, D) in
+    normalized units (the reference's ``combineDeformation3d``)."""
+    identity = identity_grid_normalized(
+        tuple(disp_2nd.shape[1:]), align_corners, device=disp_2nd.device, dtype=disp_2nd.dtype
+    )
+    g = identity + disp_2nd.permute(1, 2, 3, 0)
+    return disp_2nd + grid_sample_3d(disp_1st, g, align_corners=align_corners)
 
 
 class _WarpSSDLoss(torch.autograd.Function):
@@ -221,3 +337,19 @@ def warp_ssd_mean_loss(
     (size - 1)`` with zeros outside.  Differentiable in ``disp``.
     """
     return _WarpSSDLoss.apply(disp, mov, fix_flat, float(cost_scale))
+
+
+def warp_ssd_mean_loss_unfused(
+    mov: torch.Tensor, disp: torch.Tensor, fix_flat: torch.Tensor, cost_scale: float
+) -> torch.Tensor:
+    """The same data term as :func:`warp_ssd_mean_loss`, composed of the
+    differentiable warp :func:`warp_with_displacement_stacked` and plain
+    reductions: ``mean(mean_c((warped - fix)^2) * cost_scale)``.  Its
+    gradient launches the sampler's forward and backward kernels, one each;
+    the positions come through the normalized grid, as the JAX package's
+    unfused path composes them.
+    """
+    C = mov.shape[0]
+    warped = warp_with_displacement_stacked(mov, disp).reshape(C, -1)
+    cost = ((warped - fix_flat) ** 2).mean(dim=0) * cost_scale
+    return cost.mean()

@@ -1,10 +1,11 @@
-// Trilinear sampling kernels: the inverse-consistency sampler and the fused
-// data term of the Adam loop.
+// Trilinear sampling kernels: the inverse-consistency sampler, its
+// coordinate gradient, and the fused data term of the Adam loop.
 //
 // sample_trilinear replaces the TPU kernel convexadam_tpu/ops/warp_pallas.py:
 // corner_reduce_fwd -> _fwd_kernel.  It is grid_sample (trilinear, zeros
 // padding, align_corners=False) with normalized coordinates in array order:
-// out[b, c, n] = sum over the 8 corners of vol[b, c, corner] * weight.
+// out[b, c, n] = sum over the 8 corners of vol[b, c, corner] * weight, for a
+// float32 or bfloat16 volume (read as stored, summed in float32).
 // Bound on the H100: launches.  Inverse consistency samples 2 x 3 channels
 // at 2 x 32^3 points, 2.4 MB of traffic or under 1 us at 3.35 TB/s, far
 // below a launch.  Design: one thread per (b, n) sample point computes the
@@ -13,6 +14,22 @@
 // are added in the JAX package's order (dx, dy, dz nested).  The TPU kernel
 // took a pre-gathered (8C, N) block that batched 6 channels at 2N points and
 // threw half away; here each direction samples only its own 3 channels.
+//
+// sample_trilinear_bwd replaces the TPU kernel convexadam_tpu/ops/
+// warp_pallas.py: corner_reduce_bwd -> _bwd_kernel, the coordinate half of
+// the sampler's vector-Jacobian product: for a cotangent ct (B, C, N) it
+// writes rows[b, a, n] = sum_c ct[b, c, n] * scale * d sample[b, c, n] /
+// d position_a, the derivative with respect to the voxel position on axis
+// a (the caller chains it through the unnormalization, size / 2).  Bound on
+// the H100: bytes.  At the semantic Adam grid, 14 channels x 96 x 80 x 128
+// in bfloat16, it must read the volume (27.5 MB), the cotangent (55.1 MB)
+// and the grid (11.8 MB) and write the rows (11.8 MB): about 106 MB or
+// 32 us at 3.35 TB/s.  Design: as warp_ssd_loss_grad, one thread per point
+// computes the 8 derivative weights once and gathers the 8 corners of every
+// channel straight from the volume (no corner stack); per channel it forms
+// the three directional derivatives from the same 8 loads and adds
+// ct * scale times them to three float32 accumulators, channel by channel
+// in a fixed order, so the result is deterministic (no atomics).
 //
 // warp_ssd_loss_grad replaces the TPU kernel convexadam_tpu/ops/
 // warp_pallas.py: corner_reduce_loss_grad -> _fused_loss_kernel.  For every
@@ -99,8 +116,9 @@ __device__ __forceinline__ float unnormalize(float g, int size) {
   return __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.f), (float)size), 1.f), 0.5f);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(NT)
-sample_trilinear_kernel(const float* __restrict__ vol, const float* __restrict__ grid,
+sample_trilinear_kernel(const T* __restrict__ vol, const float* __restrict__ grid,
                         float* __restrict__ out, int B, int C, int H, int W, int D, int N) {
   const long long t = (long long)blockIdx.x * NT + threadIdx.x;
   if (t >= (long long)B * N) return;
@@ -113,12 +131,51 @@ sample_trilinear_kernel(const float* __restrict__ vol, const float* __restrict__
   corners(ax, ay, az, H, W, D, cr, nullptr, nullptr, nullptr);
   const size_t hwd = (size_t)H * W * D;
   for (int c = 0; c < C; ++c) {
-    const float* v = vol + ((size_t)b * C + c) * hwd;
-    float acc = __fmul_rn(v[cr.off[0]], cr.w[0]);
+    const T* v = vol + ((size_t)b * C + c) * hwd;
+    float acc = __fmul_rn(Io<T>::ld(v + cr.off[0]), cr.w[0]);
 #pragma unroll
-    for (int k = 1; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(v[cr.off[k]], cr.w[k]));
+    for (int k = 1; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(Io<T>::ld(v + cr.off[k]), cr.w[k]));
     out[((size_t)b * C + c) * N + n] = acc;
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+sample_trilinear_bwd_kernel(const T* __restrict__ vol, const float* __restrict__ grid,
+                            const float* __restrict__ ct, float* __restrict__ rows, int B,
+                            int C, int H, int W, int D, int N, float scale) {
+  const long long t = (long long)blockIdx.x * NT + threadIdx.x;
+  if (t >= (long long)B * N) return;
+  const int b = (int)(t / N), n = (int)(t % N);
+  const float* g = grid + t * 3;
+  const Axis ax = split(unnormalize(g[0], H));
+  const Axis ay = split(unnormalize(g[1], W));
+  const Axis az = split(unnormalize(g[2], D));
+  Corners cr;
+  float gx[8], gy[8], gz[8];
+  corners(ax, ay, az, H, W, D, cr, gx, gy, gz);
+  const size_t hwd = (size_t)H * W * D;
+  float dx = 0.f, dy = 0.f, dz = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const size_t bc = (size_t)b * C + c;
+    const T* v = vol + bc * hwd;
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const float val = Io<T>::ld(v + cr.off[k]);
+      sx = __fadd_rn(sx, __fmul_rn(val, gx[k]));
+      sy = __fadd_rn(sy, __fmul_rn(val, gy[k]));
+      sz = __fadd_rn(sz, __fmul_rn(val, gz[k]));
+    }
+    const float cs = __fmul_rn(ct[bc * N + n], scale);
+    dx = __fadd_rn(dx, __fmul_rn(cs, sx));
+    dy = __fadd_rn(dy, __fmul_rn(cs, sy));
+    dz = __fadd_rn(dz, __fmul_rn(cs, sz));
+  }
+  float* r = rows + (size_t)b * 3 * N;
+  r[n] = dx;
+  r[N + n] = dy;
+  r[2 * N + n] = dz;
 }
 
 // fixed-order reduction of one value per thread over a CTA of NT threads
@@ -215,14 +272,41 @@ int launch_ssd(const void* mov, const void* disp, const void* fix, void* rows, v
 // Number of per-CTA partials warp_ssd_loss_grad writes for N points.
 extern "C" int warp_ssd_num_partials(int N) { return (N + NT - 1) / NT; }
 
-// vol (B, C, H, W, D), grid (B, N, 3) and out (B, C, N), all float32.
+// vol (B, C, H, W, D) float32 (bf16 == 0) or bfloat16 (bf16 == 1); grid
+// (B, N, 3) and out (B, C, N) float32.
 extern "C" int sample_trilinear(const void* vol, const void* grid, void* out, int B, int C,
-                                int H, int W, int D, int N, void* stream) {
+                                int H, int W, int D, int N, int bf16, void* stream) {
   const long long total = (long long)B * N;
   const unsigned blocks = (unsigned)((total + NT - 1) / NT);
-  sample_trilinear_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(vol), static_cast<const float*>(grid), static_cast<float*>(out),
-      B, C, H, W, D, N);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(grid);
+  float* o = static_cast<float*>(out);
+  if (bf16)
+    sample_trilinear_kernel<__nv_bfloat16><<<blocks, NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(vol), g, o, B, C, H, W, D, N);
+  else
+    sample_trilinear_kernel<float><<<blocks, NT, 0, s>>>(static_cast<const float*>(vol), g, o,
+                                                         B, C, H, W, D, N);
+  return (int)cudaGetLastError();
+}
+
+// vol (B, C, H, W, D) float32 (bf16 == 0) or bfloat16 (bf16 == 1); grid
+// (B, N, 3), ct (B, C, N) and rows (B, 3, N) float32.
+extern "C" int sample_trilinear_bwd(const void* vol, const void* grid, const void* ct,
+                                    void* rows, int B, int C, int H, int W, int D, int N,
+                                    float scale, int bf16, void* stream) {
+  const long long total = (long long)B * N;
+  const unsigned blocks = (unsigned)((total + NT - 1) / NT);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(grid);
+  const float* c = static_cast<const float*>(ct);
+  float* r = static_cast<float*>(rows);
+  if (bf16)
+    sample_trilinear_bwd_kernel<__nv_bfloat16><<<blocks, NT, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(vol), g, c, r, B, C, H, W, D, N, scale);
+  else
+    sample_trilinear_bwd_kernel<float><<<blocks, NT, 0, s>>>(static_cast<const float*>(vol), g,
+                                                             c, r, B, C, H, W, D, N, scale);
   return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,8 @@ can show that the main path went through its kernels.
 from __future__ import annotations
 
 KERNEL_NAMES = (
-    "mind_ssd_stats", "cost_volume", "sample_trilinear", "warp_ssd_loss_grad",
-    "nearest_sq", "nearest_sq_dual", "nearest_sq_pruned",
+    "mind_ssd_stats", "cost_volume", "sample_trilinear", "sample_trilinear_bwd",
+    "warp_ssd_loss_grad", "nearest_sq", "nearest_sq_dual", "nearest_sq_pruned",
 )
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNEL_NAMES}

@@ -3,17 +3,21 @@ versions.
 
 * :func:`sample_trilinear` replaces
   ``convexadam_tpu/ops/warp_pallas.py:corner_reduce_fwd``: ``grid_sample``
-  (trilinear, zeros padding, ``align_corners=False``) of a batch of volumes
-  at normalized coordinates in array order.
+  (trilinear, zeros padding, ``align_corners=False``) of a batch of float32
+  or bfloat16 volumes at normalized coordinates in array order.
+* :func:`sample_trilinear_bwd` replaces
+  ``convexadam_tpu/ops/warp_pallas.py:corner_reduce_bwd``: the sampler's
+  coordinate-gradient rows for a cotangent, the grid half of its
+  vector-Jacobian product.
 * :func:`warp_ssd_loss_grad` replaces
   ``convexadam_tpu/ops/warp_pallas.py:corner_reduce_loss_grad``: the Adam
   data term's ``sum(res^2)`` and its coordinate-gradient rows in one pass,
   sampling the volume itself (no corner stack).
 
 The plain versions repeat the kernels' arithmetic operation by operation
-(corner order dx, dy, dz nested; weights ``((wx*wy)*wz)*mask``), so they
-agree with the kernels to the bit except for the order of the ``sum(res^2)``
-reduction.
+(corner order dx, dy, dz nested; weights ``((wx*wy)*wz)*mask``; channels in
+ascending order), so they agree with the kernels to the bit except for the
+order of the ``sum(res^2)`` reduction.
 """
 
 from __future__ import annotations
@@ -71,43 +75,118 @@ def _unnormalize(g: torch.Tensor, size: int) -> torch.Tensor:
 # sample_trilinear
 # ---------------------------------------------------------------------------
 
+def _grid_corners(vol: torch.Tensor, grid: torch.Tensor, grads: bool):
+    """:func:`_corners` of the points ``grid`` (B, N, 3) in ``vol`` (B, C, H, W, D)."""
+    H, W, D = vol.shape[2:]
+    axes = [_split(_unnormalize(grid[..., a], s)) for a, s in enumerate((H, W, D))]
+    return _corners(axes, H, W, D, grads)
+
+
+def _gather(flat: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
+    """Corner values (B, C, N) as float32 of ``flat`` (B, C, H*W*D) at the
+    linear indices ``lin`` (B, N)."""
+    B, C, _ = flat.shape
+    return torch.gather(flat, 2, lin[:, None, :].expand(B, C, lin.shape[1])).float()
+
+
 def sample_trilinear_plain(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`sample_trilinear`."""
-    B, C, H, W, D = vol.shape
-    N = grid.shape[1]
-    axes = [_split(_unnormalize(grid[..., a], s)) for a, s in enumerate((H, W, D))]
-    flat = vol.reshape(B, C, H * W * D)
+    B, C = vol.shape[:2]
+    flat = vol.reshape(B, C, -1)
     acc = None
-    for lin, w in _corners(axes, H, W, D, grads=False):
-        v = torch.gather(flat, 2, lin[:, None, :].expand(B, C, N))
-        term = v * w[:, None, :]
+    for lin, w in _grid_corners(vol, grid, grads=False):
+        term = _gather(flat, lin) * w[:, None, :]
         acc = term if acc is None else acc + term
     return acc
 
 
+def _check_sampler_args(vol, grid, what):
+    _build.require_cuda(vol, what)
+    _build.require(vol, f"{what} vol", (torch.float32, torch.bfloat16), (None,) * 5)
+    _build.require(grid, f"{what} grid", (torch.float32,), (vol.shape[0], None, 3))
+    if grid.device != vol.device:
+        raise ValueError(f"{what}: vol and grid must lie on one device")
+
+
 def sample_trilinear(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Sample ``vol`` (B, C, H, W, D) float32 at normalized array-order
-    coordinates ``grid`` (B, N, 3) → (B, C, N) float32."""
+    """Sample ``vol`` (B, C, H, W, D) float32 or bfloat16 at normalized
+    array-order coordinates ``grid`` (B, N, 3) float32 → (B, C, N) float32."""
     if vol.device.type == "cpu":
         return sample_trilinear_plain(vol, grid)
-    _build.require_cuda(vol, "sample_trilinear")
-    _build.require(vol, "sample_trilinear vol", (torch.float32,), (None,) * 5)
+    _check_sampler_args(vol, grid, "sample_trilinear")
     B, C, H, W, D = vol.shape
-    _build.require(grid, "sample_trilinear grid", (torch.float32,), (B, None, 3))
-    if grid.device != vol.device:
-        raise ValueError("sample_trilinear: vol and grid must lie on one device")
     N = grid.shape[1]
     out = torch.empty((B, C, N), dtype=torch.float32, device=vol.device)
     P, I = _build.P, _build.I  # noqa: E741
-    fn = _build.bind("warp", "sample_trilinear", [P, P, P, I, I, I, I, I, I, P])
+    fn = _build.bind("warp", "sample_trilinear", [P, P, P, I, I, I, I, I, I, I, P])
     with torch.cuda.device(vol.device):
         err = fn(
             vol.data_ptr(), grid.data_ptr(), out.data_ptr(), B, C, H, W, D, N,
-            _build.stream(vol.device),
+            int(vol.dtype == torch.bfloat16), _build.stream(vol.device),
         )
     _build.check(err, "sample_trilinear")
     LAUNCHES["sample_trilinear"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# sample_trilinear_bwd
+# ---------------------------------------------------------------------------
+
+def sample_trilinear_bwd_plain(
+    vol: torch.Tensor, grid: torch.Tensor, ct: torch.Tensor, scale: float
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`sample_trilinear_bwd`."""
+    B, C = vol.shape[:2]
+    flat = vol.reshape(B, C, -1)
+    sx = sy = sz = None
+    for lin, _, gx, gy, gz in _grid_corners(vol, grid, grads=True):
+        v = _gather(flat, lin)
+        tx, ty, tz = v * gx[:, None, :], v * gy[:, None, :], v * gz[:, None, :]
+        if sx is None:
+            sx, sy, sz = tx, ty, tz
+        else:
+            sx, sy, sz = sx + tx, sy + ty, sz + tz
+    cs = ct * scale
+    rows = []
+    for s in (sx, sy, sz):
+        acc = cs[:, 0] * s[:, 0]
+        for c in range(1, C):
+            acc = acc + cs[:, c] * s[:, c]
+        rows.append(acc)
+    return torch.stack(rows, dim=1)
+
+
+def sample_trilinear_bwd(
+    vol: torch.Tensor, grid: torch.Tensor, ct: torch.Tensor, scale: float
+) -> torch.Tensor:
+    """Coordinate-gradient rows of :func:`sample_trilinear` for the cotangent
+    ``ct`` (B, C, N) float32 scaled by ``scale``: (B, 3, N) float32 with
+    ``rows[b, a, n] = sum_c ct[b, c, n] * scale * d out[b, c, n] / d p_a``,
+    the derivative with respect to the voxel position ``p_a`` on axis ``a``
+    (chain it through the unnormalization, ``size / 2``, for the grid)."""
+    if vol.device.type == "cpu":
+        return sample_trilinear_bwd_plain(vol, grid, ct, scale)
+    _check_sampler_args(vol, grid, "sample_trilinear_bwd")
+    B, C, H, W, D = vol.shape
+    N = grid.shape[1]
+    _build.require(ct, "sample_trilinear_bwd ct", (torch.float32,), (B, C, N))
+    if ct.device != vol.device:
+        raise ValueError("sample_trilinear_bwd: all tensors must lie on one device")
+    rows = torch.empty((B, 3, N), dtype=torch.float32, device=vol.device)
+    P, I, F = _build.P, _build.I, _build.F  # noqa: E741
+    fn = _build.bind(
+        "warp", "sample_trilinear_bwd", [P, P, P, P, I, I, I, I, I, I, F, I, P]
+    )
+    with torch.cuda.device(vol.device):
+        err = fn(
+            vol.data_ptr(), grid.data_ptr(), ct.data_ptr(), rows.data_ptr(), B, C, H, W, D,
+            N, ctypes.c_float(scale), int(vol.dtype == torch.bfloat16),
+            _build.stream(vol.device),
+        )
+    _build.check(err, "sample_trilinear_bwd")
+    LAUNCHES["sample_trilinear_bwd"] += 1
+    return rows
 
 
 # ---------------------------------------------------------------------------

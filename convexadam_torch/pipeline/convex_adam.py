@@ -1,8 +1,10 @@
-"""The ConvexAdam registration pipeline with MIND-SSC features.
+"""The ConvexAdam registration pipeline.
 
-Counterpart of ``convexadam_tpu/pipeline/convex_adam.py`` (the MIND path):
+Counterpart of ``convexadam_tpu/pipeline/convex_adam.py``:
 
-  1. MIND-SSC features of both volumes,
+  1. MIND-SSC features of both volumes (:func:`convex_adam_torch`), or
+     weighted nnU-Net one-hot features of two label volumes
+     (:func:`convex_adam_semantic_torch`),
   2. average pooling to the coarse grid ``grid_sp``,
   3. the dense SSD cost volume over ``(2*disp_hw+1)**3`` displacements,
   4. coupled convex optimisation,
@@ -12,6 +14,8 @@ Counterpart of ``convexadam_tpu/pipeline/convex_adam.py`` (the MIND path):
 
 Like the JAX package, ``ic=False`` upsamples the coarse field and rescales
 it by ``grid_sp`` instead of returning coarse-voxel units.
+:func:`convex_adam_multi_output` runs stages 2-7 once and returns the fields
+of several iteration counts and final smoothings.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 from convexadam_torch import _resolve_device
 from convexadam_torch.core.adam import adam_instance_optimisation
 from convexadam_torch.core.convex import convex_displacement
-from convexadam_torch.core.features import mindssc
+from convexadam_torch.core.features import mindssc, semantic_features
 from convexadam_torch.core.smoothing import avg_pool3d, box_smooth_repeated
 from convexadam_torch.core.warp import inverse_consistency, resize_trilinear
 
@@ -100,15 +104,15 @@ def _convex_stage(
     return resize_trilinear(disp_soft * g, (H, W, D), align_corners=False)
 
 
-def _adam_stage(
+def _adam_inputs(
     feat_fix: torch.Tensor,
     feat_mov: torch.Tensor,
     disp_hr: torch.Tensor,
     cfg: ConvexAdamConfig,
-) -> "tuple[torch.Tensor, torch.Tensor]":
-    """Instance optimisation and final smoothing.  ``disp_hr`` is the init
-    in full-resolution voxels at any resolution; returns the final field
-    (3, H, W, D) and the snapshot fields (S, 3, H, W, D) in voxels."""
+) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
+    """The Adam stage's pooled fixed (float32) and moving (compute dtype)
+    features and its init (3, h, w, d) in Adam-grid voxels, from the init
+    ``disp_hr`` in full-resolution voxels at any resolution."""
     H, W, D = feat_fix.shape[1:]
     g2 = cfg.grid_sp_adam
     if min(H // g2, W // g2, D // g2) < 2:
@@ -121,25 +125,42 @@ def _adam_stage(
     # term's gather traffic); the kernel accumulates in float32 either way
     patch_mov = avg_pool3d(feat_mov.float(), g2, stride=g2).to(cfg.compute_dtype(feat_fix.device))
     disp_lr = resize_trilinear(disp_hr, (H // g2, W // g2, D // g2), align_corners=False)
+    return patch_fix, patch_mov, disp_lr / g2
+
+
+def _upsample_and_smooth(field: torch.Tensor, shape, g2: int, k: int) -> torch.Tensor:
+    """An Adam-grid field (3, h, w, d) to full-resolution voxels, then ``k``
+    (0 = none) cascaded 3-pass box smoothing; an even ``k`` is rounded up,
+    as the reference warns for even kernels."""
+    out = resize_trilinear(field * g2, shape, align_corners=False)
+    if k > 0:
+        if k % 2 == 0:
+            k += 1
+        out = box_smooth_repeated(out, k, 3)
+    return out
+
+
+def _adam_stage(
+    feat_fix: torch.Tensor,
+    feat_mov: torch.Tensor,
+    disp_hr: torch.Tensor,
+    cfg: ConvexAdamConfig,
+) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Instance optimisation and final smoothing.  ``disp_hr`` is the init
+    in full-resolution voxels at any resolution; returns the final field
+    (3, H, W, D) and the snapshot fields (S, 3, H, W, D) in voxels."""
+    shape = tuple(feat_fix.shape[1:])
+    patch_fix, patch_mov, init = _adam_inputs(feat_fix, feat_mov, disp_hr, cfg)
     fitted, snaps = adam_instance_optimisation(
-        patch_fix, patch_mov, disp_lr / g2,
+        patch_fix, patch_mov, init,
         lambda_weight=cfg.lambda_weight, niter=cfg.selected_niter,
         snapshot_iters=cfg.snapshot_iters, smoother=cfg.adam_smoother,
         sample_stride=cfg.adam_sample_stride,
     )
-
-    def upsample_and_smooth(field):
-        out = resize_trilinear(field * g2, (H, W, D), align_corners=False)
-        k = cfg.selected_smooth
-        if k > 0:
-            if k % 2 == 0:
-                k += 1  # the reference warns for even kernels; round up
-            out = box_smooth_repeated(out, k, 3)
-        return out
-
-    final = upsample_and_smooth(fitted)
-    snaps_hr = torch.stack([upsample_and_smooth(s) for s in snaps]) if len(snaps) else (
-        torch.zeros((0, 3, H, W, D), dtype=torch.float32, device=final.device)
+    g2, k = cfg.grid_sp_adam, cfg.selected_smooth
+    final = _upsample_and_smooth(fitted, shape, g2, k)
+    snaps_hr = torch.stack([_upsample_and_smooth(s, shape, g2, k) for s in snaps]) if len(snaps) else (
+        torch.zeros((0, 3) + shape, dtype=torch.float32, device=final.device)
     )
     return final, snaps_hr
 
@@ -172,6 +193,61 @@ def convex_adam_torch(
         feat_fix = mindssc(img_fixed.float(), cfg.mind_r, cfg.mind_d, dtype=dt)
         feat_mov = mindssc(img_moving.float(), cfg.mind_r, cfg.mind_d, dtype=dt)
     return convex_adam_features(feat_fix, feat_mov, cfg)
+
+
+def convex_adam_semantic_torch(
+    pred_fixed: torch.Tensor,
+    pred_moving: torch.Tensor,
+    cfg: ConvexAdamConfig = ConvexAdamConfig(),
+    num_labels: int = 2,
+    mult: float = 10.0,
+) -> torch.Tensor:
+    """The nnU-Net semantic pipeline on integer label volumes (H, W, D), on
+    their device: :func:`semantic_features` (``num_labels`` one-hot channels
+    weighted by inverse label frequency, times ``mult``) in the compute
+    dtype, then :func:`convex_adam_features`.
+
+    Returns the displacement field (H, W, D, 3) in voxels (dH, dW, dD).
+    """
+    dt = cfg.compute_dtype(pred_fixed.device)
+    with torch.no_grad():
+        feat_fix, feat_mov = semantic_features(
+            pred_fixed, pred_moving, num_labels=num_labels, mult=mult, dtype=dt
+        )
+    return convex_adam_features(feat_fix, feat_mov, cfg)
+
+
+def convex_adam_multi_output(
+    feat_fix: torch.Tensor,
+    feat_mov: torch.Tensor,
+    cfg: ConvexAdamConfig = ConvexAdamConfig(),
+    iters: "tuple[int, ...]" = (40, 60, 80),
+    smoothings: "tuple[int, ...]" = (0, 3, 5),
+) -> torch.Tensor:
+    """One convex stage and one Adam run of ``max(iters)`` iterations on
+    features (C, H, W, D), on their device; the field after every count in
+    ``iters`` is upsampled and smoothed with every cascade in ``smoothings``
+    (0 = none, else the triple k^3 box; an even k is rounded up).
+
+    Returns (len(iters), len(smoothings), H, W, D, 3) in voxels: the
+    self-configuring pipeline's 9 = {40, 60, 80} x {0, 3, 5} variants by
+    default.  The Adam stage always runs (``cfg.lambda_weight`` is only its
+    weight).
+    """
+    shape = tuple(feat_fix.shape[1:])
+    with torch.no_grad():
+        disp_init = _convex_stage(feat_fix, feat_mov, cfg, shape, for_adam_init=True)
+    patch_fix, patch_mov, init = _adam_inputs(feat_fix, feat_mov, disp_init, cfg)
+    _, snaps = adam_instance_optimisation(
+        patch_fix, patch_mov, init, lambda_weight=cfg.lambda_weight, niter=max(iters),
+        snapshot_iters=tuple(iters), smoother=cfg.adam_smoother,
+    )
+    g2 = cfg.grid_sp_adam
+    return torch.stack([
+        torch.stack([_upsample_and_smooth(snap, shape, g2, k).permute(1, 2, 3, 0)
+                     for k in smoothings])
+        for snap in snaps
+    ])
 
 
 def validate_volume(img) -> np.ndarray:

@@ -20,7 +20,12 @@ from convexadam_tpu.ops.warp_pallas import corner_reduce_fwd, corner_reduce_loss
 from convexadam_torch.kernels import LAUNCHES
 from convexadam_torch.kernels.cost_volume import cost_volume
 from convexadam_torch.kernels.mind import mind_ssd_stats
-from convexadam_torch.kernels.warp import sample_trilinear, warp_ssd_loss_grad
+from convexadam_torch.kernels.warp import (
+    sample_trilinear,
+    sample_trilinear_bwd,
+    sample_trilinear_plain,
+    warp_ssd_loss_grad,
+)
 
 torch.set_num_threads(2)
 
@@ -78,6 +83,29 @@ def test_sample_trilinear_matches_corner_reduce_fwd(rng):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
 
 
+def test_sample_trilinear_bf16_matches_corner_reduce_fwd(rng):
+    """A bfloat16 volume is read as stored: the Pallas kernel on the
+    bfloat16 block, and the plain version equals its own float32 run on the
+    same values to the bit."""
+    C, H, W, D, n = 3, 6, 7, 8, 512
+    vol = torch.from_numpy(rng.standard_normal((C, H, W, D)).astype(np.float32)).to(torch.bfloat16)
+    grid = rng.uniform(-1.3, 1.3, (n, 3)).astype(np.float32)
+    pos = np.stack([((grid[:, a] + np.float32(1)) * np.float32(s) - np.float32(1))
+                    * np.float32(0.5) for a, s in enumerate((H, W, D))])
+    p0 = np.floor(pos)
+    ref = np.asarray(corner_reduce_fwd(
+        _pallas_block(vol.float().numpy(), pos).astype(jnp.bfloat16),
+        tuple(jnp.asarray(f) for f in (pos - p0)),
+        tuple(jnp.asarray(b) for b in p0.astype(np.int32)), (C, H, W, D), interpret=True,
+    ))
+    g = torch.from_numpy(grid)[None]
+    out = sample_trilinear(vol[None], g)[0]
+    assert out.dtype == torch.float32
+    assert torch.equal(out, sample_trilinear_plain(vol.float()[None], g)[0])
+    # weights and corner order as the Pallas kernel: atol 1e-6
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_warp_ssd_loss_grad_matches_pallas(rng, dtype):
     C, H, W, D = 3, 8, 8, 8
@@ -119,11 +147,12 @@ def test_cpu_wrappers_launch_nothing(rng):
     f = torch.from_numpy(rng.standard_normal((2, 4, 4, 4)).astype(np.float32))
     cost_volume(f, f, 1)
     sample_trilinear(f[None], torch.zeros((1, 5, 3)))
+    sample_trilinear_bwd(f[None], torch.zeros((1, 5, 3)), torch.ones((1, 2, 5)), 2.0)
     warp_ssd_loss_grad(f, torch.zeros((3, 4, 4, 4)), f.reshape(2, -1), (1.0, 1.0, 1.0), 1.0)
     assert LAUNCHES == before
 
 
-@pytest.mark.parametrize("wrapper", ["mind", "cost_volume", "sample", "warp_ssd"])
+@pytest.mark.parametrize("wrapper", ["mind", "cost_volume", "sample", "sample_bwd", "warp_ssd"])
 def test_wrappers_refuse_other_devices(wrapper):
     """A tensor that is neither on the CPU nor on CUDA raises: the plain
     version is taken only for CPU tensors."""
@@ -132,6 +161,10 @@ def test_wrappers_refuse_other_devices(wrapper):
         "mind": lambda: mind_ssd_stats(m[0], 1, 1),
         "cost_volume": lambda: cost_volume(m, m, 1),
         "sample": lambda: sample_trilinear(m[None], torch.empty((1, 5, 3), device="meta")),
+        "sample_bwd": lambda: sample_trilinear_bwd(
+            m[None], torch.empty((1, 5, 3), device="meta"), torch.empty((1, 2, 5), device="meta"),
+            1.0,
+        ),
         "warp_ssd": lambda: warp_ssd_loss_grad(m, m[:3], m.reshape(2, -1), (1.0,) * 3, 1.0),
     }
     with pytest.raises(ValueError, match="CPU or CUDA"):
