@@ -41,10 +41,11 @@ Phases, each fatal on failure:
      channels) at the Learn2Reg Abdomen CT-CT shape 192 x 160 x 256, moving =
      fixed rolled by the headline shift: launches 2 / 15 / 80 (cost volume,
      sampler, data term), no MIND and no backward launch; the shift recovered
-     within 2 voxels on every axis for > 90% of the organ voxels (the
-     1-voxel share printed: flat one-hot interiors leave it to the
-     regularisers); ``evaluate_field`` Dice > 0.9 and HD95 <= 2 voxels on
-     every organ; median of 3 and peak memory;
+     on every axis within 1 voxel for > 20% and within 2 voxels for > 90%
+     of the organ voxels (flat one-hot interiors leave most of the field to
+     the regularisers; the JAX package gives the same shares on this pair,
+     ``scripts/semantic_shift_share.py``); ``evaluate_field`` Dice > 0.9
+     and HD95 <= 2 voxels on every organ; median of 3 and peak memory;
   4e. multi-output: ``convex_adam_multi_output`` on the 192^3 headline
      features, 9 finite variants, the (80, 0) variant equal to phase 4's
      single-output field to 1e-5 voxels, one registration's launches;
@@ -162,20 +163,20 @@ def headline_pair(torch, resize_trilinear, shape=HEADLINE_SHAPE, shift=HEADLINE_
 
 
 def l2r_label_pair(shape=HEADLINE_SHAPE, shift=HEADLINE_SHIFT, n_labels=L2R_LABELS, seed=0,
-                   margin=L2R_MARGIN):
+                   margin=L2R_MARGIN, large_axes=L2R_LARGE_AXES):
     """A synthetic Learn2Reg-like label pair: ``n_labels`` non-overlapping
     ellipsoidal organs, each at least ``margin`` voxels from every face
     (more than the shift, so ``np.roll`` wraps nothing), and the same labels
     rolled by ``shift`` as the moving volume.  The first organ is
-    liver-sized (semi-axes of ``L2R_LARGE_AXES`` voxels, a surface of more
-    than 16384 points), the others have semi-axes of 6-20 voxels."""
+    liver-sized (semi-axes drawn from ``large_axes``, by default a surface
+    of more than 16384 points), the others have semi-axes of 6-20 voxels."""
     rng = np.random.default_rng(seed)
     seg = np.zeros(shape, np.int32)
     placed = []
     for _ in range(100000):
         if len(placed) == n_labels:
             break
-        ax = rng.integers(*(L2R_LARGE_AXES if not placed else (6, 21)), 3)
+        ax = rng.integers(*(large_axes if not placed else (6, 21)), 3)
         c = np.array([rng.integers(margin + a, s - margin - a) for a, s in zip(ax, shape)])
         if any(np.linalg.norm(c - c2) <= ax.max() + a2 + 2 for c2, a2 in placed):
             continue
@@ -507,7 +508,7 @@ def semantic_phase(torch, dev, results, shape=ABDOMEN_SHAPE):
     sf, sm = (torch.from_numpy(x).to(dev) for x in (seg_f, seg_m))
 
     def run():
-        return convex_adam_semantic_torch(sf, sm, num_labels=SEMANTIC_LABELS)
+        return convex_adam_semantic_torch(sf, sm, num_labels=SEMANTIC_LABELS, device=dev)
 
     run()  # warm-up
     torch.cuda.synchronize()
@@ -521,11 +522,15 @@ def semantic_phase(torch, dev, results, shape=ABDOMEN_SHAPE):
     organs = seg_f > 0
     err_v = np.abs(out[organs] - np.array(HEADLINE_SHIFT, np.float32))
     # one-hot features are constant inside an organ and constrain only the
-    # boundary normal, so the regularisers set the interior: the JAX package
-    # puts 32.5% of the organ voxels of this pair at half size within 1
-    # voxel (the port the same); the check is 2 voxels, and Dice below
+    # boundary normal, so the regularisers set the interior: on this pair
+    # the JAX package (f32) and the port, on the card and on the CPU, all
+    # put about 23% of the organ voxels within 1 voxel and 91% within 2
+    # (scripts/semantic_shift_share.py); the limits sit 1-3 points below,
+    # so a fault that costs either share more fails here
     frac_ok = float(np.mean(np.all(err_v < 1.0, axis=-1)))
     frac2 = float(np.mean(np.all(err_v < 2.0, axis=-1)))
+    check(frac_ok > 0.2, f"semantic: shift recovered within 1 voxel in only {frac_ok:.2%} of the "
+          "organ voxels")
     check(frac2 > 0.9, f"semantic: shift recovered within 2 voxels in only {frac2:.2%} of the "
           "organ voxels")
     torch.cuda.reset_peak_memory_stats()
@@ -581,7 +586,7 @@ def multi_output_phase(torch, dev, vol_np, mov_np, single, results):
         with torch.no_grad():
             ff = mindssc(torch.from_numpy(vol_np).to(dev), cfg.mind_r, cfg.mind_d, dtype=dt)
             fm = mindssc(torch.from_numpy(mov_np).to(dev), cfg.mind_r, cfg.mind_d, dtype=dt)
-        return convex_adam_multi_output(ff, fm, cfg, iters, smoothings)
+        return convex_adam_multi_output(ff, fm, cfg, iters, smoothings, device=dev)
 
     torch.cuda.synchronize()
     reset_launches()

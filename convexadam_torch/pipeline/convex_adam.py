@@ -196,20 +196,26 @@ def convex_adam_torch(
 
 
 def convex_adam_semantic_torch(
-    pred_fixed: torch.Tensor,
-    pred_moving: torch.Tensor,
+    pred_fixed,
+    pred_moving,
     cfg: ConvexAdamConfig = ConvexAdamConfig(),
     num_labels: int = 2,
     mult: float = 10.0,
+    device: "str | torch.device | None" = None,
 ) -> torch.Tensor:
-    """The nnU-Net semantic pipeline on integer label volumes (H, W, D), on
-    their device: :func:`semantic_features` (``num_labels`` one-hot channels
-    weighted by inverse label frequency, times ``mult``) in the compute
-    dtype, then :func:`convex_adam_features`.
+    """The nnU-Net semantic pipeline on integer label volumes (H, W, D),
+    numpy arrays or tensors: :func:`semantic_features` (``num_labels``
+    one-hot channels weighted by inverse label frequency, times ``mult``) in
+    the compute dtype, then :func:`convex_adam_features`.  Runs on ``cuda``
+    unless ``device="cpu"``; raises when no GPU is visible and no device is
+    given.
 
-    Returns the displacement field (H, W, D, 3) in voxels (dH, dW, dD).
+    Returns the displacement field (H, W, D, 3) in voxels (dH, dW, dD), a
+    tensor on that device.
     """
-    dt = cfg.compute_dtype(pred_fixed.device)
+    dev = _resolve_device(device)
+    pred_fixed, pred_moving = (torch.as_tensor(p).to(dev) for p in (pred_fixed, pred_moving))
+    dt = cfg.compute_dtype(dev)
     with torch.no_grad():
         feat_fix, feat_mov = semantic_features(
             pred_fixed, pred_moving, num_labels=num_labels, mult=mult, dtype=dt
@@ -223,17 +229,22 @@ def convex_adam_multi_output(
     cfg: ConvexAdamConfig = ConvexAdamConfig(),
     iters: "tuple[int, ...]" = (40, 60, 80),
     smoothings: "tuple[int, ...]" = (0, 3, 5),
+    device: "str | torch.device | None" = None,
 ) -> torch.Tensor:
     """One convex stage and one Adam run of ``max(iters)`` iterations on
-    features (C, H, W, D), on their device; the field after every count in
-    ``iters`` is upsampled and smoothed with every cascade in ``smoothings``
-    (0 = none, else the triple k^3 box; an even k is rounded up).
+    features (C, H, W, D); the field after every count in ``iters`` is
+    upsampled and smoothed with every cascade in ``smoothings`` (0 = none,
+    else the triple k^3 box; an even k is rounded up).  Runs on ``cuda``
+    unless ``device="cpu"``; raises when no GPU is visible and no device is
+    given.
 
-    Returns (len(iters), len(smoothings), H, W, D, 3) in voxels: the
-    self-configuring pipeline's 9 = {40, 60, 80} x {0, 3, 5} variants by
-    default.  The Adam stage always runs (``cfg.lambda_weight`` is only its
-    weight).
+    Returns (len(iters), len(smoothings), H, W, D, 3) in voxels, a tensor on
+    that device: the self-configuring pipeline's 9 = {40, 60, 80} x
+    {0, 3, 5} variants by default.  The Adam stage always runs
+    (``cfg.lambda_weight`` is only its weight).
     """
+    dev = _resolve_device(device)
+    feat_fix, feat_mov = feat_fix.to(dev), feat_mov.to(dev)
     shape = tuple(feat_fix.shape[1:])
     with torch.no_grad():
         disp_init = _convex_stage(feat_fix, feat_mov, cfg, shape, for_adam_init=True)

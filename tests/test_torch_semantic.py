@@ -151,7 +151,7 @@ def test_semantic_entry_matches_reference_fixture():
         lambda_weight=0.65, grid_sp=3, disp_hw=2, selected_niter=12,
         selected_smooth=0, grid_sp_adam=2, ic=True, dtype="float32",
     )
-    out = convex_adam_semantic_torch(_t(ref["seg_f"]), _t(ref["seg_m"]), cfg, num_labels=3)
+    out = convex_adam_semantic_torch(ref["seg_f"], ref["seg_m"], cfg, num_labels=3, device="cpu")
     out = out.numpy()
     assert out.shape == (48, 48, 48, 3) and out.dtype == np.float32
     rd = ref["disp"].astype(np.float32)
@@ -175,7 +175,7 @@ def test_semantic_entry_matches_jax():
         jnp.asarray(ref["seg_f"]), jnp.asarray(ref["seg_m"]), jcfg, num_labels=3))
     out = convex_adam_semantic_torch(
         _t(ref["seg_f"]), _t(ref["seg_m"]), config_from_fields(dataclasses.asdict(jcfg)),
-        num_labels=3,
+        num_labels=3, device="cpu",
     ).numpy()
     epe = np.sqrt(((out - jout) ** 2).sum(-1))
     assert np.mean(epe) < 0.1, np.mean(epe)
@@ -207,7 +207,8 @@ def test_multi_output_matches_jax():
     ref = np.asarray(jpipe.convex_adam_multi_output(
         jnp.asarray(ff), jnp.asarray(fm), jcfg, iters=(2, 3, 4), smoothings=(0, 3)))
     cfg = config_from_fields(dataclasses.asdict(jcfg))
-    out = convex_adam_multi_output(_t(ff), _t(fm), cfg, iters=(2, 3, 4), smoothings=(0, 3))
+    out = convex_adam_multi_output(_t(ff), _t(fm), cfg, iters=(2, 3, 4), smoothings=(0, 3),
+                                   device="cpu")
     out = out.numpy()
     assert out.shape == (3, 2, 24, 24, 24, 3)
     err = np.abs(out - ref)
@@ -221,11 +222,26 @@ def test_multi_output_equals_single_output(rng):
     ff = _t(rng.standard_normal((3, 16, 16, 16)).astype(np.float32))
     fm = _t(np.roll(ff.numpy(), 1, axis=1))
     cfg = tpipe.ConvexAdamConfig(grid_sp=4, disp_hw=1, dtype="float32")
-    out = convex_adam_multi_output(ff, fm, cfg, iters=(2, 3), smoothings=(0, 2, 3))
+    out = convex_adam_multi_output(ff, fm, cfg, iters=(2, 3), smoothings=(0, 2, 3), device="cpu")
     assert out.shape == (2, 3, 16, 16, 16, 3)
     for i, n in enumerate((2, 3)):
         single = tpipe.convex_adam_features(ff, fm, dataclasses.replace(cfg, selected_niter=n))
         assert torch.equal(out[i, 0], single)
     assert torch.equal(out[:, 1], out[:, 2])
     with pytest.raises(ValueError, match="grid_sp_adam"):
-        convex_adam_multi_output(ff, fm, dataclasses.replace(cfg, grid_sp_adam=9), iters=(1,))
+        convex_adam_multi_output(ff, fm, dataclasses.replace(cfg, grid_sp_adam=9), iters=(1,),
+                                 device="cpu")
+
+
+def test_entries_default_to_cuda(monkeypatch):
+    """As every entry of the port: CPU inputs without ``device="cpu"``
+    still ask for the card, and raise where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seg = np.zeros((12, 12, 12), np.int32)
+    feat = torch.zeros((2, 12, 12, 12))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convex_adam_semantic_torch(seg, seg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convex_adam_multi_output(feat, feat)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convex_adam_multi_output(feat, feat, device="cuda")
