@@ -7,12 +7,25 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases, each fatal on failure:
   1. card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
-  2. build: the CUDA kernels of ``convexadam_torch/csrc`` (one nvcc per source);
+  2. build: the CUDA kernels of ``convexadam_torch/csrc`` (one nvcc per source),
+     with the registers and spills ``ptxas`` reports for the sampler's
+     kernels (the backward kernel must fit 64 registers);
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes and dtypes (and a ragged shape for the MIND and
      sampling kernels; the sampler with float32 and bfloat16 volumes), with
-     kernel / plain / library times (CUDA events, median of 20 runs after
-     warm-up);
+     two times for the kernel and for its library call, taken in turns
+     (kernel, library, library, kernel): ``call_ms``, the median CUDA-event
+     time of one wrapper call over 20 calls after warm-up, host issue
+     included (``ms`` and ``kernel_ms`` in the records, as before), and
+     ``device_ms``, the CUDA time per call of the kernel's own ``__global__``
+     functions from ``torch.profiler`` over 20 calls (for the library call,
+     the sum of every device kernel the call runs);
+  3c. the sampler on the inverse-consistency fields, and the fused
+     inverse-consistency steps (15 per call, 2 x 3 x 32^3 and a ragged 37 x
+     41 x 29 pair sent past every face) against their plain version and
+     against the composition they replace (grid adds, one sampler launch
+     and the updates per step), both to the bit, and against the same
+     composition with ``F.grid_sample`` in its times;
   3e. the three nearest-neighbour search kernels of the HD95 engine against
      their plain versions, tolerance 0 at meaningful entries: on the largest
      label surface of the phase-4c volumes (the liver-sized organ's, K =
@@ -24,10 +37,12 @@ Phases, each fatal on failure:
      volumes, a smooth field of a few voxels, as the Adam loop samples) and
      at a ragged 37 x 41 x 29 case with points past every face,
      and its grid gradient against ``aten.grid_sampler_3d_backward`` (f32
-     copies) to 1e-5 relative L2;
+     copies) to 1e-5 relative L2; the forward sampler at the same grid
+     against its plain version and ``F.grid_sample``;
   4. main path: ``convex_adam`` with the default config on the 192^3 headline
      pair (seed 0, shift (5, -4, 3)): the shift must be recovered and every
-     kernel launched (2 / 2 / 15 / 80 per registration); the golden 48^3
+     kernel launched (mind / cost volume / inverse-consistency steps / data
+     term 2 / 2 / 15 / 80 per registration, no plain sampler launch); the golden 48^3
      fixture must stay inside the JAX package's f32 and bf16 envelopes;
   4c. evaluation path: ``evaluate_field`` of the registered field on a
      synthetic 13-organ label pair (seed 0, the same shift; one liver-sized
@@ -40,7 +55,8 @@ Phases, each fatal on failure:
      (bf16 features) on a 13-organ label pair plus background (14 one-hot
      channels) at the Learn2Reg Abdomen CT-CT shape 192 x 160 x 256, moving =
      fixed rolled by the headline shift: launches 2 / 15 / 80 (cost volume,
-     sampler, data term), no MIND and no backward launch; the shift recovered
+     inverse-consistency steps, data term), no MIND, sampler or backward
+     launch; the shift recovered
      on every axis within 1 voxel for > 20% and within 2 voxels for > 90%
      of the organ voxels (flat one-hot interiors leave most of the field to
      the regularisers; the JAX package gives the same shares on this pair,
@@ -53,8 +69,9 @@ Phases, each fatal on failure:
      differentiable warp against the fused step (loss 1e-5 relative,
      gradient 1e-4 relative L2), then 80 iterations of each (median |diff|
      < 0.05, p99 < 0.5 voxels), 80 sampler and 80 backward launches;
-  5. output: one JSON line per result, ``{"kernels": [...]}`` second to last,
-     then ``{"ok": true, "device": {...}}`` last.
+  5. output: one JSON line per result, ``{"kernels": [...]}`` (nine records:
+     the eight Pallas functions' kernels and the inverse-consistency steps)
+     second to last, then ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero without
 a result when no CUDA device is visible.
@@ -79,9 +96,10 @@ PEAK_F32_FLOPS = 67e12
 
 HEADLINE_SHAPE = (192, 192, 192)
 HEADLINE_SHIFT = (5, -4, 3)
+IC_ITERS = 15  # the pipeline's inverse-consistency steps
 EXPECTED_LAUNCHES = {
-    "mind_ssd_stats": 2, "cost_volume": 2, "sample_trilinear": 15, "warp_ssd_loss_grad": 80,
-    "sample_trilinear_bwd": 0,
+    "mind_ssd_stats": 2, "cost_volume": 2, "sample_trilinear_ic": IC_ITERS,
+    "warp_ssd_loss_grad": 80, "sample_trilinear": 0, "sample_trilinear_bwd": 0,
 }
 L2R_LABELS = 13  # the organ count of Learn2Reg's Abdomen CT-CT task
 L2R_MARGIN = 36  # voxels from every face: inside the crop phase 4 checks
@@ -94,16 +112,18 @@ ABDOMEN_SHAPE = (192, 160, 256)  # Learn2Reg Abdomen CT-CT
 ABDOMEN_MARGIN = 12  # voxels from every face: more than the shift, so no organ wraps
 SEMANTIC_LABELS = L2R_LABELS + 1  # the one-hot channels: 13 organs and the background
 EXPECTED_SEMANTIC_LAUNCHES = {
-    "mind_ssd_stats": 0, "cost_volume": 2, "sample_trilinear": 15, "warp_ssd_loss_grad": 80,
-    "sample_trilinear_bwd": 0,
+    "mind_ssd_stats": 0, "cost_volume": 2, "sample_trilinear_ic": IC_ITERS,
+    "warp_ssd_loss_grad": 80, "sample_trilinear": 0, "sample_trilinear_bwd": 0,
 }
 EXPECTED_AUTODIFF_LAUNCHES = {
     "sample_trilinear": 80, "sample_trilinear_bwd": 80, "warp_ssd_loss_grad": 0,
+    "sample_trilinear_ic": 0,
 }
 REPLACES = {
     "mind_ssd_stats": "convexadam_tpu/ops/mind_pallas.py:196",
     "cost_volume": "convexadam_tpu/ops/cost_volume_pallas.py:96",
     "sample_trilinear": "convexadam_tpu/ops/warp_pallas.py:163",
+    "sample_trilinear_ic": "convexadam_tpu/ops/warp_pallas.py:163",
     "sample_trilinear_bwd": "convexadam_tpu/ops/warp_pallas.py:348",
     "warp_ssd_loss_grad": "convexadam_tpu/ops/warp_pallas.py:268",
     "nearest_sq": "convexadam_tpu/ops/edt_pallas.py:79",
@@ -114,11 +134,24 @@ SOURCES = {
     "mind_ssd_stats": "convexadam_torch/csrc/mind.cu",
     "cost_volume": "convexadam_torch/csrc/cost_volume.cu",
     "sample_trilinear": "convexadam_torch/csrc/warp.cu",
+    "sample_trilinear_ic": "convexadam_torch/csrc/warp.cu",
     "sample_trilinear_bwd": "convexadam_torch/csrc/warp.cu",
     "warp_ssd_loss_grad": "convexadam_torch/csrc/warp.cu",
     "nearest_sq": "convexadam_torch/csrc/edt.cu",
     "nearest_sq_dual": "convexadam_torch/csrc/edt.cu",
     "nearest_sq_pruned": "convexadam_torch/csrc/edt.cu",
+}
+# the __global__ functions each wrapper launches, as the profiler names them
+GLOBALS = {
+    "mind_ssd_stats": ("mind_kernel",),
+    "cost_volume": ("cost_volume_kernel",),
+    "sample_trilinear": ("sample_trilinear_kernel",),
+    "sample_trilinear_ic": ("ic_step_kernel",),
+    "sample_trilinear_bwd": ("sample_trilinear_bwd_kernel",),
+    "warp_ssd_loss_grad": ("warp_ssd_kernel", "sum_partials_kernel"),
+    "nearest_sq": ("nearest_sq_kernel",),
+    "nearest_sq_dual": ("nearest_sq_dual_kernel",),
+    "nearest_sq_pruned": ("nearest_sq_pruned_kernel",),
 }
 # FP32 operations per distance cell of the search kernels (three
 # multiply-adds for the cross term, the two norms' add, the min)
@@ -140,6 +173,59 @@ def cuda_ms(torch, fn, warmup: int = 3, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_times(torch, fn, kernels=None, warmup: int = 3, reps: int = 20) -> dict:
+    """Device time of ``fn`` per call from ``torch.profiler`` over ``reps``
+    calls after warm-up: ``device_ms``, the summed CUDA time of the kernels
+    whose names contain one of ``kernels`` (every device event where
+    ``kernels`` is None), ``device_all_ms`` of every device event, and
+    ``device_launches``, the selected kernels' launches per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    own = every = 0.0
+    launches = 0
+    for e in prof.key_averages():
+        # device events only: CPU ops and user annotations carry the device
+        # time of what they launch, which would count it twice
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+            continue
+        every += e.self_device_time_total
+        if kernels is None or any(k in e.key for k in kernels):
+            own += e.self_device_time_total
+            launches += e.count
+    check(own > 0, f"the profiler saw no device time of {kernels or 'the call'}")
+    return {"device_ms": own / 1e3 / reps, "device_all_ms": every / 1e3 / reps,
+            "device_launches": launches / reps}
+
+
+def timed_turns(torch, kern, kernels, lib=None) -> dict:
+    """``call_ms`` (:func:`cuda_ms`) and ``device_ms`` (:func:`device_times`
+    of the ``kernels`` it launches) of a wrapper call ``kern`` and of the
+    library call ``lib`` that computes the same function (every device
+    kernel it runs), taken in turns: kernel, library, library, kernel (two
+    kernel readings where there is no library call).  Each figure is the
+    mean of its two readings; the readings are kept."""
+    order = ("kernel", "library", "library", "kernel") if lib is not None else ("kernel",) * 2
+    readings: dict = {"kernel": [], "library": []}
+    for who in order:
+        fn = kern if who == "kernel" else lib
+        readings[who].append({"call_ms": cuda_ms(torch, fn),
+                              **device_times(torch, fn, kernels if who == "kernel" else None)})
+    out = {"readings": readings}
+    for who, prefix in (("kernel", ""), ("library", "library_")):
+        for key in ("call_ms", "device_ms", "device_all_ms"):
+            vals = [r[key] for r in readings[who]]
+            out[prefix + key] = float(np.mean(vals)) if vals else None
+    out["device_launches"] = readings["kernel"][0]["device_launches"]
+    return out
 
 
 def bound_ms(nbytes: float, flops: float) -> "tuple[float, str]":
@@ -209,14 +295,33 @@ def search_cells(name, kq, kt, nq, nt, hq=0, ht=0, tiles=0) -> int:
     return live * TILE * TILE
 
 
-def kernel_record(name, shape, dtype, err, tol, k_ms, p_ms, lib_ms, nbytes, flops):
+def kernel_record(name, shape, dtype, err, tol, t, p_ms, nbytes, flops, steps=1):
+    """One record of the kernels line from :func:`timed_turns`' ``t``;
+    every time is divided by ``steps``, the launches of one wrapper call,
+    so that the record gives them per launch (``nbytes`` and ``flops`` are
+    one launch's)."""
     b_ms, b_by = bound_ms(nbytes, flops)
+
+    def per(v):
+        return None if v is None else v / steps
+
     return {
         "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
         "shape": shape, "dtype": dtype, "max_abs_err": err, "tol": tol,
-        "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-        "bound_ms": b_ms, "bound_by": b_by,
+        "ms": per(t["call_ms"]), "kernel_ms": per(t["call_ms"]), "call_ms": per(t["call_ms"]),
+        "device_ms": per(t["device_ms"]), "plain_ms": per(p_ms),
+        "library_ms": per(t["library_call_ms"]), "library_call_ms": per(t["library_call_ms"]),
+        "library_device_ms": per(t["library_device_ms"]),
+        "bound_ms": b_ms, "bound_by": b_by, "timing_readings": t["readings"],
     }
+
+
+def print_times(what, t, p_ms=None, b_ms=None, lib="library") -> None:
+    lib_part = (f"; {lib} call {t['library_call_ms']:.4f} ms, device {t['library_device_ms']:.4f} ms"
+                if t["library_call_ms"] is not None else "")
+    print(f"  {what}: call {t['call_ms']:.4f} ms, device {t['device_ms']:.4f} ms" + lib_part
+          + (f"; plain {p_ms:.4f} ms" if p_ms is not None else "")
+          + (f"; bound {b_ms:.4f} ms" if b_ms is not None else ""), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -321,16 +426,15 @@ def search_phase(torch, dev, seg_f, seg_m):
             print(f"{name} {cname} K=({kq}, {kt}): max_abs_err {err:.1e} (tol 0), "
                   f"{cells} cells" + (f", {tiles} tiles" if tiles else ""), flush=True)
             if cname != "ragged":
-                row["ms"] = cuda_ms(torch, kern)
+                times = timed_turns(torch, kern, GLOBALS[name])
+                row["ms"], row["device_ms"] = times["call_ms"], times["device_ms"]
                 row["plain_ms"] = cuda_ms(torch, plain)
                 row["bound_ms"], row["bound_by"] = bound_ms(nbytes, CELL_FLOPS * cells)
-                print(f"  {name} {cname}: kernel {row['ms']:.4f} ms, plain "
-                      f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-                      f"({row['bound_by']})", flush=True)
+                print_times(f"{name} {cname}", times, row["plain_ms"], row["bound_ms"])
             if cname == "surface":
                 records.append(kernel_record(
-                    name, [kq, kt], "float32", err, tol, row["ms"], row["plain_ms"], None,
-                    nbytes, CELL_FLOPS * cells,
+                    name, [kq, kt], "float32", err, tol, times, row["plain_ms"], nbytes,
+                    CELL_FLOPS * cells,
                 ))
             detail.append(row)
     return records, detail
@@ -422,10 +526,19 @@ def evaluation_phase(torch, field, seg_f, seg_m, results):
 def sampler_bwd_phase(torch, dev, gen):
     """Phase 3f: ``sample_trilinear_bwd`` against its plain version (to the
     bit) and against ``aten.grid_sampler_3d_backward``'s grid gradient on
-    float32 copies (1e-5 relative L2).  Returns the record of the semantic
-    Adam grid in bfloat16 and every case's numbers."""
+    float32 copies (1e-5 relative L2); at the semantic Adam grid also the
+    forward sampler, the other kernel of the autodiff step, against its
+    plain version (to the bit) and ``F.grid_sample``.  Returns the records
+    of the semantic Adam grid in bfloat16 and every case's numbers."""
+    import torch.nn.functional as F
+
     from convexadam_torch.core.warp import _displaced_grid, resize_trilinear
-    from convexadam_torch.kernels.warp import sample_trilinear_bwd, sample_trilinear_bwd_plain
+    from convexadam_torch.kernels.warp import (
+        sample_trilinear,
+        sample_trilinear_bwd,
+        sample_trilinear_bwd_plain,
+        sample_trilinear_plain,
+    )
 
     adam_grid = tuple(s // 2 for s in ABDOMEN_SHAPE)  # the default grid_sp_adam of 2
     records, detail = [], []
@@ -473,25 +586,174 @@ def sampler_bwd_phase(torch, dev, gen):
         row = {"shape": [C, *shape], "dtype": str(dt), "max_abs_err": err,
                "grid_sampler_3d_backward_rel_l2": lib_rel}
         if C == SEMANTIC_LABELS:
-            row["ms"] = cuda_ms(torch, lambda: sample_trilinear_bwd(vol, grid, ct, scale))
+            t = timed_turns(torch, lambda: sample_trilinear_bwd(vol, grid, ct, scale),
+                            GLOBALS["sample_trilinear_bwd"], library)
+            row["ms"], row["device_ms"] = t["call_ms"], t["device_ms"]
+            row["library_ms"], row["library_device_ms"] = t["library_call_ms"], t["library_device_ms"]
             row["plain_ms"] = cuda_ms(torch, lambda: sample_trilinear_bwd_plain(vol, grid, ct, scale))
-            row["library_ms"] = cuda_ms(torch, library)
             # each input read once, the rows written once; per point the
-            # setup (about 120 operations) and per channel 8 corners x 3
-            # multiply-adds plus the cotangent's 7
+            # setup (about 120 operations), per channel the scaled cotangent
+            # and 8 multiply-adds, then 24 derivative weights and their 24
+            # multiply-adds (about 110)
             nbytes = vol.numel() * vol.element_size() + 4 * C * n + 12 * n + 12 * n
-            flops = float(n) * (55 * C + 120)
+            flops = float(n) * (17 * C + 230)
             row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
-            print(f"  sample_trilinear_bwd {dt}: kernel {row['ms']:.4f} ms, plain "
-                  f"{row['plain_ms']:.4f} ms, grid_sampler_3d_backward {row['library_ms']:.4f} ms, "
-                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+            print_times(f"sample_trilinear_bwd {dt}", t, row["plain_ms"], row["bound_ms"],
+                        "grid_sampler_3d_backward")
+            # the forward sampler of the autodiff step at the same grid
+            fk, fp = sample_trilinear(vol, grid), sample_trilinear_plain(vol, grid)
+            flib = F.grid_sample(vf, g5, align_corners=False).reshape(1, C, n)
+            torch.cuda.synchronize()
+            ferr = max_err(fk, fp)
+            flib_err = float((fk - flib).norm() / flib.norm())
+            check(ferr <= tol, f"sample_trilinear {(C, *shape)} {dt}: max err {ferr} > {tol}")
+            # F.grid_sample forms its positions and weights with other
+            # roundings (an ulp of a position moves a sample of this random
+            # volume by up to about 2e-5): 1e-5 relative L2
+            check(flib_err <= 1e-5, f"sample_trilinear {(C, *shape)} {dt} vs F.grid_sample: "
+                  f"relative L2 {flib_err}")
+            tf = timed_turns(torch, lambda: sample_trilinear(vol, grid), GLOBALS["sample_trilinear"],
+                             lambda: F.grid_sample(vf, g5, align_corners=False))
+            fp_ms = cuda_ms(torch, lambda: sample_trilinear_plain(vol, grid))
+            # the volume and the grid read once, the samples written once;
+            # per point about 60 operations of setup, per channel 8 corners
+            # x (multiply, add)
+            fbytes = vol.numel() * vol.element_size() + 12 * n + 4 * C * n
+            fflops = float(n) * (16 * C + 60)
+            row["forward"] = {"max_abs_err": ferr, "vs_grid_sample_rel_l2": flib_err,
+                              "ms": tf["call_ms"],
+                              "device_ms": tf["device_ms"], "library_ms": tf["library_call_ms"],
+                              "library_device_ms": tf["library_device_ms"], "plain_ms": fp_ms,
+                              "bound_ms": bound_ms(fbytes, fflops)[0]}
+            print(f"sample_trilinear {(C, *shape)} {dt}: max_abs_err {ferr:.3e} (tol {tol:.1e}); "
+                  f"vs F.grid_sample relative L2 {flib_err:.3e}", flush=True)
+            print_times(f"sample_trilinear {dt}", tf, fp_ms, row["forward"]["bound_ms"],
+                        "F.grid_sample")
             if dt == torch.bfloat16:
                 records.append(kernel_record(
-                    "sample_trilinear_bwd", [C, *shape], "bfloat16", err, tol, row["ms"],
-                    row["plain_ms"], row["library_ms"], nbytes, flops,
+                    "sample_trilinear_bwd", [C, *shape], "bfloat16", err, tol, t,
+                    row["plain_ms"], nbytes, flops,
+                ))
+                records.append(kernel_record(
+                    "sample_trilinear", [1, C, *shape], "bfloat16", ferr, tol, tf, fp_ms,
+                    fbytes, fflops,
                 ))
         detail.append(row)
     return records, detail
+
+
+def ic_composition(torch, d1, d2, iters, sample):
+    """The inverse-consistency loop as ``core/warp.py`` ran it before the
+    fused steps, with the batched sampler ``sample(vol, grid)``: per step
+    the two displaced grids, one sampler call of the swapped fields and the
+    two updates."""
+    from convexadam_torch.core.warp import identity_grid_normalized
+
+    shape = tuple(d1.shape[1:])
+    n = d1[0].numel()
+    identity = identity_grid_normalized(shape, False, device=d1.device, dtype=d1.dtype)
+    for _ in range(iters):
+        g1 = (identity + d1.permute(1, 2, 3, 0)).reshape(n, 3)
+        g2 = (identity + d2.permute(1, 2, 3, 0)).reshape(n, 3)
+        out = sample(torch.stack([d2, d1]).contiguous(), torch.stack([g1, g2]))
+        s1 = out[0].reshape((3,) + shape)
+        s2 = out[1].reshape((3,) + shape)
+        d1, d2 = 0.5 * (d1 - s1), 0.5 * (d2 - s2)
+    return torch.stack([d1, d2])
+
+
+def ic_phase(torch, dev, gen, coarse):
+    """Phase 3c's inverse-consistency steps: ``inverse_consistency`` (one
+    fused launch per step) against its plain version and the composition it
+    replaces, both to the bit, on the 2 x 3 fields of the coarse grid and on
+    a ragged pair sent past every face; at the coarse grid the call and
+    device times of the fused call, of the old composition and of the same
+    composition with ``F.grid_sample``.  Returns the record and every
+    case's numbers."""
+    import torch.nn.functional as F
+
+    from convexadam_torch.core.warp import identity_grid_normalized, inverse_consistency
+    from convexadam_torch.kernels.warp import (
+        inverse_consistency_steps,
+        inverse_consistency_steps_plain,
+        sample_trilinear,
+    )
+
+    def grid_sample(vol, grid):
+        B, N = grid.shape[:2]
+        g = grid.flip(-1).reshape(B, 1, 1, N, 3)
+        return F.grid_sample(vol, g, align_corners=False).reshape(B, vol.shape[1], N)
+
+    record, detail = None, []
+    for shape, amp in ((coarse, 0.1), ((37, 41, 29), 0.4)):
+        fields = (torch.randn((2, 3) + shape, generator=gen) * amp).to(dev)
+        d1, d2 = fields[0], fields[1]
+        ko = inverse_consistency_steps(fields, IC_ITERS)
+        po = inverse_consistency_steps_plain(fields, IC_ITERS)
+        co = ic_composition(torch, d1, d2, IC_ITERS, sample_trilinear)
+        lo = ic_composition(torch, d1, d2, IC_ITERS, grid_sample)
+        eo = torch.stack(inverse_consistency(d1, d2, IC_ITERS))
+        # the first step's sample points, per axis below -1 and above 1
+        ident = identity_grid_normalized(shape, False, device=dev).permute(3, 0, 1, 2)
+        pts = ident[None] + fields
+        faces = [int((pts[:, a] < -1).sum()) for a in range(3)] + \
+                [int((pts[:, a] > 1).sum()) for a in range(3)]
+        torch.cuda.synchronize()
+        err, err_comp, err_entry = max_err(ko, po), max_err(ko, co), max_err(eo, ko)
+        lib_err = max_err(ko, lo)
+        tol = 0.0  # the same operations in the same order on both sides
+        check(err <= tol, f"inverse_consistency_steps {shape}: max err {err} vs its plain version")
+        check(err_comp <= tol, f"inverse_consistency_steps {shape}: max err {err_comp} vs the "
+              "sample_trilinear composition")
+        check(err_entry <= tol, f"inverse_consistency {shape}: max err {err_entry} vs the steps")
+        check(lib_err <= 1e-4, f"inverse_consistency_steps {shape} vs F.grid_sample: {lib_err}")
+        check(shape == coarse or min(faces) > 0, f"ragged IC case: points past the faces {faces}")
+        print(f"inverse_consistency_steps {(2, 3, *shape)} x {IC_ITERS}: max_abs_err {err:.1e} vs "
+              f"plain, {err_comp:.1e} vs the sample_trilinear composition (tol 0); vs the "
+              f"F.grid_sample composition {lib_err:.3e}; first-step points past the faces "
+              f"{faces}", flush=True)
+        row = {"shape": [2, 3, *shape], "iters": IC_ITERS, "max_abs_err": err,
+               "vs_composition": err_comp, "vs_grid_sample_composition": lib_err,
+               "points_past_faces": faces}
+        if shape == coarse:
+            def fused():
+                return inverse_consistency(d1, d2, IC_ITERS)
+
+            t = timed_turns(torch, fused, GLOBALS["sample_trilinear_ic"],
+                            lambda: ic_composition(torch, d1, d2, IC_ITERS, grid_sample))
+            old = timed_turns(torch, fused, GLOBALS["sample_trilinear_ic"],
+                              lambda: ic_composition(torch, d1, d2, IC_ITERS, sample_trilinear))
+            p_ms = cuda_ms(torch, lambda: inverse_consistency_steps_plain(fields, IC_ITERS))
+            n = int(np.prod(shape))
+            # per step: both fields read once and written once, and the
+            # identity; per point about 30 operations of setup and per
+            # channel 8 corners x (multiply, add) and the update
+            nbytes = 2 * (2 * 3 * n * 4) + 4 * sum(shape)
+            flops = 2.0 * n * (30 + 3 * 17)
+            record = kernel_record("sample_trilinear_ic", [2, 3, *shape], "float32", err, tol, t,
+                                   p_ms, nbytes, flops, steps=IC_ITERS)
+            record.update({
+                "iters": IC_ITERS, "call_ms_per_call": t["call_ms"],
+                "library_call_ms_per_call": t["library_call_ms"],
+                "device_all_ms_per_call": t["device_all_ms"],
+                "library": "the same steps composed with F.grid_sample",
+                "old_composition": {"call_ms_per_call": old["library_call_ms"],
+                                    "device_all_ms_per_call": old["library_device_ms"],
+                                    "fused_call_ms_per_call": old["call_ms"]},
+            })
+            row.update({k: record[k] for k in ("call_ms_per_call", "library_call_ms_per_call",
+                                               "device_all_ms_per_call", "old_composition")})
+            row["old_composition_readings"] = old["readings"]
+            print(f"  inverse_consistency, {IC_ITERS} steps: call {t['call_ms']:.4f} ms (device "
+                  f"{t['device_ms']:.4f} ms in ic_step_kernel, {t['device_all_ms']:.4f} ms in all); "
+                  f"F.grid_sample composition call {t['library_call_ms']:.4f} ms (device "
+                  f"{t['library_device_ms']:.4f} ms); sample_trilinear composition call "
+                  f"{old['library_call_ms']:.4f} ms (device {old['library_device_ms']:.4f} ms); "
+                  f"plain {p_ms:.4f} ms; bound per step {record['bound_ms']:.5f} ms", flush=True)
+            check(t["device_launches"] == IC_ITERS,
+                  f"profiler saw {t['device_launches']} ic_step_kernel launches per call")
+        detail.append(row)
+    return record, detail
 
 
 def semantic_phase(torch, dev, results, shape=ABDOMEN_SHAPE):
@@ -714,6 +976,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s", flush=True)
     results["build_s"] = build_s
+    results["ptxas"] = {name: _build.resource_usage(name) for name in _build.KERNEL_SOURCES}
+    for mangled, use in results["ptxas"]["warp"].items():
+        print(f"ptxas warp.cu {mangled}: {use}", flush=True)
+        if "sample_trilinear_bwd_kernel" in mangled:
+            check(use["registers"] <= 64, f"{mangled}: {use['registers']} registers, over 64")
 
     vol_np, mov_np = headline_pair(torch, resize_trilinear)
     seg_f, seg_m = l2r_label_pair()
@@ -735,10 +1002,11 @@ def main() -> int:
         print(f"mind_ssd_stats {shape} {dt}: max_abs_err {err:.3e} (tol {tol:.3e})", flush=True)
         if shape == HEADLINE_SHAPE and dt == torch.bfloat16:
             n = x.numel()
-            k_ms = cuda_ms(torch, lambda: mind_ssd_stats(x, 1, 2))
+            t = timed_turns(torch, lambda: mind_ssd_stats(x, 1, 2), GLOBALS["mind_ssd_stats"])
             p_ms = cuda_ms(torch, lambda: mind_ssd_stats_plain(x, 1, 2))
-            rec = kernel_record("mind_ssd_stats", list(shape), "bfloat16", err, tol, k_ms, p_ms,
-                                None, n * 2 + 12 * n * 2 + n * 4, 145.0 * n)
+            rec = kernel_record("mind_ssd_stats", list(shape), "bfloat16", err, tol, t, p_ms,
+                                n * 2 + 12 * n * 2 + n * 4, 145.0 * n)
+            print_times("mind_ssd_stats", t, p_ms, rec["bound_ms"])
             records.append(rec)
 
     # 3b. cost volume: pooled MIND features of the headline pair, 12 x 32^3, q = 4
@@ -757,16 +1025,18 @@ def main() -> int:
     C, h, w, d = fix_s.shape
     K3 = (2 * cfg.disp_hw + 1) ** 3
     n = h * w * d
+    t = timed_turns(torch, lambda: cost_volume(fix_s, mov_s, cfg.disp_hw), GLOBALS["cost_volume"])
+    p_ms = cuda_ms(torch, lambda: cost_volume_plain(fix_s, mov_s, cfg.disp_hw))
     records.append(kernel_record(
-        "cost_volume", [C, h, w, d, cfg.disp_hw], "float32", err, tol,
-        cuda_ms(torch, lambda: cost_volume(fix_s, mov_s, cfg.disp_hw)),
-        cuda_ms(torch, lambda: cost_volume_plain(fix_s, mov_s, cfg.disp_hw)),
-        None, 2 * C * n * 4 + K3 * n * 4, 3.0 * K3 * n * C,
+        "cost_volume", [C, h, w, d, cfg.disp_hw], "float32", err, tol, t, p_ms,
+        2 * C * n * 4 + K3 * n * 4, 3.0 * K3 * n * C,
     ))
+    print_times("cost_volume", t, p_ms, records[-1]["bound_ms"])
 
-    # 3c. trilinear sampler: inverse consistency's 2 x 3 x 32^3 (as float32
-    # and as bfloat16 volumes), and ragged
+    # 3c. trilinear sampler on inverse consistency's 2 x 3 x 32^3 fields (as
+    # float32 and as bfloat16 volumes), and ragged; then the fused steps
     gen = torch.Generator(device="cpu").manual_seed(0)
+    sampler_at_ic = None
     for shape in ((h, w, d), (37, 41, 29)):
         nvox = shape[0] * shape[1] * shape[2]
         fields32 = (torch.randn((2, 3) + shape, generator=gen) * 0.1).to(dev)
@@ -791,13 +1061,18 @@ def main() -> int:
             print(f"sample_trilinear {shape} {dt}: max_abs_err {err:.3e} (tol {tol:.1e}); "
                   f"vs F.grid_sample {lib_err:.3e}", flush=True)
         if shape == (h, w, d):
-            records.append(kernel_record(
-                "sample_trilinear", [2, 3, *shape], "float32", errs[torch.float32], 0.0,
-                cuda_ms(torch, lambda: sample_trilinear(fields32, grid)),
-                cuda_ms(torch, lambda: sample_trilinear_plain(fields32, grid)),
-                cuda_ms(torch, lambda: F.grid_sample(fields32, g5, align_corners=False)),
+            t = timed_turns(torch, lambda: sample_trilinear(fields32, grid),
+                            GLOBALS["sample_trilinear"],
+                            lambda: F.grid_sample(fields32, g5, align_corners=False))
+            p_ms = cuda_ms(torch, lambda: sample_trilinear_plain(fields32, grid))
+            sampler_at_ic = kernel_record(
+                "sample_trilinear", [2, 3, *shape], "float32", errs[torch.float32], 0.0, t, p_ms,
                 2 * (2 * 3 * nvox * 4) + 2 * nvox * 3 * 4, 2.0 * nvox * (3 * 16 + 30),
-            ))
+            )
+            print_times("sample_trilinear 2x3x32^3", t, p_ms, sampler_at_ic["bound_ms"],
+                        "F.grid_sample")
+    ic_record, results["inverse_consistency"] = ic_phase(torch, dev, gen, (h, w, d))
+    records.append(ic_record)
 
     # 3d. Adam data term: the 96^3 x 12 Adam grid, bf16 moving features
     g2 = cfg.grid_sp_adam
@@ -823,12 +1098,14 @@ def main() -> int:
     check(err <= tol, f"warp_ssd_loss_grad rows: max err {err} > {tol}")
     print(f"warp_ssd_loss_grad {(C, H, W, D)} bf16: rows max_abs_err {err:.3e} (tol {tol:.3e}); "
           f"sum(res^2) rel err {ssq_rel:.3e}", flush=True)
+    t = timed_turns(torch, lambda: warp_ssd_loss_grad(pm, disp, fix_flat, fac, chain),
+                    GLOBALS["warp_ssd_loss_grad"])
+    p_ms = cuda_ms(torch, lambda: warp_ssd_loss_grad_plain(pm, disp, fix_flat, fac, chain))
     records.append(kernel_record(
-        "warp_ssd_loss_grad", [C, H, W, D], "bfloat16", err, tol,
-        cuda_ms(torch, lambda: warp_ssd_loss_grad(pm, disp, fix_flat, fac, chain)),
-        cuda_ms(torch, lambda: warp_ssd_loss_grad_plain(pm, disp, fix_flat, fac, chain)),
-        None, C * N * 2 + C * N * 4 + 3 * N * 4 * 2, 1.0 * N * (C * 74 + 60),
+        "warp_ssd_loss_grad", [C, H, W, D], "bfloat16", err, tol, t, p_ms,
+        C * N * 2 + C * N * 4 + 3 * N * 4 * 2, 1.0 * N * (C * 74 + 60),
     ))
+    print_times("warp_ssd_loss_grad", t, p_ms, records[-1]["bound_ms"])
     del ck, cp, feat_f, feat_m
 
     # 3e. the HD95 engine's nearest-neighbour searches
@@ -838,6 +1115,10 @@ def main() -> int:
 
     # 3f. the sampler's coordinate gradient
     bwd_records, bwd_detail = sampler_bwd_phase(torch, dev, gen)
+    for rec in bwd_records:
+        if rec["name"] == "sample_trilinear":
+            # its inverse-consistency shape, the shape of earlier readings
+            rec["at_ic_shape"] = {k: v for k, v in sampler_at_ic.items() if k != "timing_readings"}
     records += bwd_records
     results["sampler_bwd"] = bwd_detail
 
@@ -900,7 +1181,7 @@ def main() -> int:
     # 5. output: each kernel's launches on the path that runs it
     for rec in records:
         name = rec["name"]
-        if name == "sample_trilinear_bwd":
+        if name in ("sample_trilinear", "sample_trilinear_bwd"):
             rec["launches"] = rec["launches_per_autodiff_adam"] = autodiff_launches[name]
             rec["launches_run"] = "80-iteration autodiff Adam of phase 4f"
             rec["launches_per_registration"] = launches[name]
@@ -927,7 +1208,8 @@ def main() -> int:
     for key in ("semantic", "multi_output", "autodiff"):
         print(json.dumps({key: results[key]}))
     print(f"nvidia-smi: {smi}")
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "timing_readings"}
+                                  for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

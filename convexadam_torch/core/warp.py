@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from convexadam_torch.kernels.warp import (
     _grid_corners,
+    inverse_consistency_steps,
     sample_trilinear,
     sample_trilinear_bwd,
     warp_ssd_loss_grad,
@@ -267,21 +268,11 @@ def inverse_consistency(
     """Fixed-point symmetrization of forward/backward fields (3, H, W, D) in
     normalized units: each of ``iters`` Jacobi steps sets
     ``d1 = (d1 - d2 ∘ (id + d1)) / 2`` and ``d2 = (d2 - d1 ∘ (id + d2)) / 2``,
-    both sampling the other field of the previous step.  The two directions
-    are one :func:`sample_trilinear` launch with a batch of 2."""
-    shape = tuple(disp1.shape[1:])
-    n = disp1[0].numel()
-    identity = identity_grid_normalized(shape, False, device=disp1.device, dtype=disp1.dtype)
-    d1, d2 = disp1, disp2
-    for _ in range(iters):
-        g1 = (identity + d1.permute(1, 2, 3, 0)).reshape(n, 3)
-        g2 = (identity + d2.permute(1, 2, 3, 0)).reshape(n, 3)
-        vol = torch.stack([d2, d1]).contiguous()
-        out = sample_trilinear(vol, torch.stack([g1, g2]))
-        s1 = out[0].reshape((3,) + shape)  # d2 ∘ (id + d1)
-        s2 = out[1].reshape((3,) + shape)  # d1 ∘ (id + d2)
-        d1, d2 = 0.5 * (d1 - s1), 0.5 * (d2 - s2)
-    return d1, d2
+    both sampling the other field of the previous step.  On the card all
+    steps are one :func:`inverse_consistency_steps` call, one fused launch
+    per step."""
+    out = inverse_consistency_steps(torch.stack([disp1, disp2]), iters)
+    return out[0], out[1]
 
 
 def compose_displacements(

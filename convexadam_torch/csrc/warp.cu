@@ -1,19 +1,32 @@
-// Trilinear sampling kernels: the inverse-consistency sampler, its
-// coordinate gradient, and the fused data term of the Adam loop.
+// Trilinear sampling kernels: the sampler, the inverse-consistency steps,
+// the sampler's coordinate gradient, and the fused data term of the Adam
+// loop.
 //
 // sample_trilinear replaces the TPU kernel convexadam_tpu/ops/warp_pallas.py:
 // corner_reduce_fwd -> _fwd_kernel.  It is grid_sample (trilinear, zeros
 // padding, align_corners=False) with normalized coordinates in array order:
 // out[b, c, n] = sum over the 8 corners of vol[b, c, corner] * weight, for a
-// float32 or bfloat16 volume (read as stored, summed in float32).
-// Bound on the H100: launches.  Inverse consistency samples 2 x 3 channels
-// at 2 x 32^3 points, 2.4 MB of traffic or under 1 us at 3.35 TB/s, far
-// below a launch.  Design: one thread per (b, n) sample point computes the
-// floor, fractions and zeros-padding masks once and gathers the 8 corners
-// of every channel straight from the (B, C, H, W, D) volume; the corners
-// are added in the JAX package's order (dx, dy, dz nested).  The TPU kernel
-// took a pre-gathered (8C, N) block that batched 6 channels at 2N points and
-// threw half away; here each direction samples only its own 3 channels.
+// float32 or bfloat16 volume (read as stored, summed in float32).  Its one
+// caller is the differentiable warp's forward (14 channels at the 96 x 80 x
+// 128 semantic Adam grid in bfloat16, 27.5 MB read, 55 MB written: bound by
+// bytes).  Design: one thread per (b, n) sample point computes the floor,
+// fractions and zeros-padding masks once and gathers the 8 corners of every
+// channel straight from the (B, C, H, W, D) volume; the corners are added in
+// the JAX package's order (dx, dy, dz nested).
+//
+// inverse_consistency_steps also replaces corner_reduce_fwd, in its other
+// role: the 15 Jacobi steps of inverse consistency, d1 = (d1 - d2 o (id +
+// d1)) / 2 and d2 = (d2 - d1 o (id + d2)) / 2, on the 2 x 3 x 32^3 coarse
+// fields.  Bound on the H100: launches.  One step moves 1.6 MB, under 1 us
+// at 3.35 TB/s, far below what the host spends issuing it, so one C call
+// runs all steps back to back on the stream, swapping two buffers, and each
+// step is one ic_step_kernel launch: one thread per (direction, point) adds
+// the identity to its field, samples the other field's 3 channels and writes
+// its update.  The operations and their order are those of the composition
+// it replaces (grid add, sample_trilinear, subtract, halve), so the result
+// is the same to the bit.  The TPU kernel took a pre-gathered (8C, N) block
+// that batched 6 channels at 2N points and threw half away; here each
+// direction samples only its own 3 channels.
 //
 // sample_trilinear_bwd replaces the TPU kernel convexadam_tpu/ops/
 // warp_pallas.py: corner_reduce_bwd -> _bwd_kernel, the coordinate half of
@@ -24,12 +37,16 @@
 // the H100: bytes.  At the semantic Adam grid, 14 channels x 96 x 80 x 128
 // in bfloat16, it must read the volume (27.5 MB), the cotangent (55.1 MB)
 // and the grid (11.8 MB) and write the rows (11.8 MB): about 106 MB or
-// 32 us at 3.35 TB/s.  Design: as warp_ssd_loss_grad, one thread per point
-// computes the 8 derivative weights once and gathers the 8 corners of every
-// channel straight from the volume (no corner stack); per channel it forms
-// the three directional derivatives from the same 8 loads and adds
-// ct * scale times them to three float32 accumulators, channel by channel
-// in a fixed order, so the result is deterministic (no atomics).
+// 32 us at 3.35 TB/s.  Design, in the TPU kernel's order: one thread per
+// point gathers the 8 corners of every channel straight from the volume (no
+// corner stack) and reduces the channels first, cv_k = sum_c ct_c * scale *
+// v_{k,c}, one multiply-add per corner and channel into 8 float32
+// accumulators (channel by channel in a fixed order: deterministic, no
+// atomics); only then does it form the 24 derivative weights and the three
+// rows sum_k g_{a,k} cv_k.  Nothing but the 8 accumulators and 8 offsets
+// lives across the channel loop, which keeps the kernel at 64 registers (4
+// CTAs of 256 an SM) with four channels' gathers in flight: on the H100
+// that beat unrolling by 1 or 2, and more CTAs an SM spilled.
 //
 // warp_ssd_loss_grad replaces the TPU kernel convexadam_tpu/ops/
 // warp_pallas.py: corner_reduce_loss_grad -> _fused_loss_kernel.  For every
@@ -139,8 +156,44 @@ sample_trilinear_kernel(const T* __restrict__ vol, const float* __restrict__ gri
   }
 }
 
-template <typename T>
+// One Jacobi step of inverse consistency: thread t < N is direction 0
+// (field d1 of src, sampling d2) and t >= N direction 1; it writes its
+// field's 3 channels at its point into dst.  The identity is given per
+// axis, as the caller's PyTorch computes it.
 __global__ void __launch_bounds__(NT)
+ic_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
+               const float* __restrict__ id_h, const float* __restrict__ id_w,
+               const float* __restrict__ id_d, int H, int W, int D) {
+  const int N = H * W * D;
+  const long long t = (long long)blockIdx.x * NT + threadIdx.x;
+  if (t >= 2LL * N) return;
+  const int b = (int)(t / N), n = (int)(t % N);
+  const int i = n / (W * D), j = (n / D) % W, l = n % D;
+  const float* d = src + (size_t)b * 3 * N;
+  const float* other = src + (size_t)(1 - b) * 3 * N;
+  const float dv[3] = {d[n], d[N + n], d[2 * N + n]};
+  const Axis ax = split(unnormalize(__fadd_rn(id_h[i], dv[0]), H));
+  const Axis ay = split(unnormalize(__fadd_rn(id_w[j], dv[1]), W));
+  const Axis az = split(unnormalize(__fadd_rn(id_d[l], dv[2]), D));
+  Corners cr;
+  corners(ax, ay, az, H, W, D, cr, nullptr, nullptr, nullptr);
+  float* o = dst + (size_t)b * 3 * N;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float* v = other + (size_t)c * N;
+    float acc = __fmul_rn(v[cr.off[0]], cr.w[0]);
+#pragma unroll
+    for (int k = 1; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(v[cr.off[k]], cr.w[k]));
+    o[(size_t)c * N + n] = __fmul_rn(0.5f, __fsub_rn(dv[c], acc));
+  }
+}
+
+// Channels first, then corners (the TPU kernel's order).  The offsets are
+// the lower corner's plus one step per axis, 0 where the clamp folds the
+// two corners of that axis together, so a masked corner reads an in-range
+// voxel; its derivative weights carry the mask.
+template <typename T>
+__global__ void __launch_bounds__(NT, 4)
 sample_trilinear_bwd_kernel(const T* __restrict__ vol, const float* __restrict__ grid,
                             const float* __restrict__ ct, float* __restrict__ rows, int B,
                             int C, int H, int W, int D, int N, float scale) {
@@ -151,31 +204,54 @@ sample_trilinear_bwd_kernel(const T* __restrict__ vol, const float* __restrict__
   const Axis ax = split(unnormalize(g[0], H));
   const Axis ay = split(unnormalize(g[1], W));
   const Axis az = split(unnormalize(g[2], D));
-  Corners cr;
-  float gx[8], gy[8], gz[8];
-  corners(ax, ay, az, H, W, D, cr, gx, gy, gz);
-  const size_t hwd = (size_t)H * W * D;
-  float dx = 0.f, dy = 0.f, dz = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const size_t bc = (size_t)b * C + c;
-    const T* v = vol + bc * hwd;
-    float sx = 0.f, sy = 0.f, sz = 0.f;
+  const int x0 = clampi(ax.i0, 0, H - 1), y0 = clampi(ay.i0, 0, W - 1), z0 = clampi(az.i0, 0, D - 1);
+  const int sx = (clampi(ax.i0 + 1, 0, H - 1) - x0) * W * D;
+  const int sy = (clampi(ay.i0 + 1, 0, W - 1) - y0) * D;
+  const int sz = clampi(az.i0 + 1, 0, D - 1) - z0;
+  const int base = (x0 * W + y0) * D + z0;
+  int off[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const float val = Io<T>::ld(v + cr.off[k]);
-      sx = __fadd_rn(sx, __fmul_rn(val, gx[k]));
-      sy = __fadd_rn(sy, __fmul_rn(val, gy[k]));
-      sz = __fadd_rn(sz, __fmul_rn(val, gz[k]));
-    }
-    const float cs = __fmul_rn(ct[bc * N + n], scale);
-    dx = __fadd_rn(dx, __fmul_rn(cs, sx));
-    dy = __fadd_rn(dy, __fmul_rn(cs, sy));
-    dz = __fadd_rn(dz, __fmul_rn(cs, sz));
+  for (int k = 0; k < 8; ++k)
+    off[k] = base + ((k & 4) ? sx : 0) + ((k & 2) ? sy : 0) + ((k & 1) ? sz : 0);
+  const size_t hwd = (size_t)H * W * D;
+  const T* v = vol + (size_t)b * C * hwd;
+  const float* cb = ct + (size_t)b * C * N + n;
+  float cv[8];
+  // the cotangent is read once: streamed past the caches the gathers use
+  const float cs0 = __fmul_rn(__ldcs(cb), scale);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) cv[k] = __fmul_rn(cs0, Io<T>::ld(v + off[k]));
+#pragma unroll 4
+  for (int c = 1; c < C; ++c) {
+    const T* vc = v + (size_t)c * hwd;
+    const float cs = __fmul_rn(__ldcs(cb + (size_t)c * N), scale);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cv[k] = __fadd_rn(cv[k], __fmul_rn(cs, Io<T>::ld(vc + off[k])));
+  }
+  // the derivative weights of corners(), applied once per corner
+  const float wx[2] = {__fsub_rn(1.f, ax.f), ax.f};
+  const float wy[2] = {__fsub_rn(1.f, ay.f), ay.f};
+  const float wz[2] = {__fsub_rn(1.f, az.f), az.f};
+  float rx = 0.f, ry = 0.f, rz = 0.f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+    const int xi = ax.i0 + dx, yi = ay.i0 + dy, zi = az.i0 + dz;
+    const bool in = xi >= 0 && xi < H && yi >= 0 && yi < W && zi >= 0 && zi < D;
+    const float m = in ? 1.f : 0.f;
+    const float sgx = dx ? 1.f : -1.f, sgy = dy ? 1.f : -1.f, sgz = dz ? 1.f : -1.f;
+    const float gx = __fmul_rn(__fmul_rn(sgx, __fmul_rn(wy[dy], wz[dz])), m);
+    const float gy = __fmul_rn(__fmul_rn(sgy, __fmul_rn(wx[dx], wz[dz])), m);
+    const float gz = __fmul_rn(__fmul_rn(__fmul_rn(wx[dx], wy[dy]), sgz), m);
+    const float tx = __fmul_rn(cv[k], gx), ty = __fmul_rn(cv[k], gy), tz = __fmul_rn(cv[k], gz);
+    rx = k ? __fadd_rn(rx, tx) : tx;
+    ry = k ? __fadd_rn(ry, ty) : ty;
+    rz = k ? __fadd_rn(rz, tz) : tz;
   }
   float* r = rows + (size_t)b * 3 * N;
-  r[n] = dx;
-  r[N + n] = dy;
-  r[2 * N + n] = dz;
+  r[n] = rx;
+  r[N + n] = ry;
+  r[2 * N + n] = rz;
 }
 
 // fixed-order reduction of one value per thread over a CTA of NT threads
@@ -288,6 +364,30 @@ extern "C" int sample_trilinear(const void* vol, const void* grid, void* out, in
     sample_trilinear_kernel<float><<<blocks, NT, 0, s>>>(static_cast<const float*>(vol), g, o,
                                                          B, C, H, W, D, N);
   return (int)cudaGetLastError();
+}
+
+// fields (2, 3, H, W, D) float32, [d1, d2] in normalized units; bufs holds
+// two more such buffers; id_h, id_w, id_d the identity's H, W and D
+// coordinates.  Runs iters steps back to back, the first reading fields and
+// each writing the buffer the previous one did not; the result is in buffer
+// (iters - 1) % 2.  Returns the first launch error.
+extern "C" int inverse_consistency_steps(const void* fields, void* bufs, const void* id_h,
+                                         const void* id_w, const void* id_d, int H, int W, int D,
+                                         int iters, void* stream) {
+  const long long N = (long long)H * W * D;
+  const unsigned blocks = (unsigned)((2 * N + NT - 1) / NT);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* buf[2] = {static_cast<float*>(bufs), static_cast<float*>(bufs) + 6 * N};
+  const float* src = static_cast<const float*>(fields);
+  for (int it = 0; it < iters; ++it) {
+    ic_step_kernel<<<blocks, NT, 0, s>>>(src, buf[it % 2], static_cast<const float*>(id_h),
+                                          static_cast<const float*>(id_w),
+                                          static_cast<const float*>(id_d), H, W, D);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    src = buf[it % 2];
+  }
+  return 0;
 }
 
 // vol (B, C, H, W, D) float32 (bf16 == 0) or bfloat16 (bf16 == 1); grid

@@ -3,15 +3,16 @@
 Each wrapper runs its kernel's plain PyTorch version for tensors on the
 CPU, and for CUDA tensors launches the kernel (built from ``csrc/`` at first
 use) or raises.  :data:`LAUNCHES` counts the kernel launches of each
-wrapper; a wrapper adds one where it launches and nowhere else, so a run
-can show that the main path went through its kernels.
+wrapper; a wrapper adds one for each launch, where it launches and nowhere
+else, so a run can show that the main path went through its kernels.
 """
 
 from __future__ import annotations
 
 KERNEL_NAMES = (
-    "mind_ssd_stats", "cost_volume", "sample_trilinear", "sample_trilinear_bwd",
-    "warp_ssd_loss_grad", "nearest_sq", "nearest_sq_dual", "nearest_sq_pruned",
+    "mind_ssd_stats", "cost_volume", "sample_trilinear", "sample_trilinear_ic",
+    "sample_trilinear_bwd", "warp_ssd_loss_grad", "nearest_sq", "nearest_sq_dual",
+    "nearest_sq_pruned",
 )
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNEL_NAMES}

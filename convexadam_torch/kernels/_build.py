@@ -5,7 +5,9 @@ into ``build/kernels/lib<name>_<hash>.so`` at the checkout root (a directory
 ``.gitignore`` lists) and loaded with ``ctypes``.  The hash covers every file
 under ``csrc/`` and the flags, so an edited source rebuilds at first use and
 an unchanged one is loaded as built.  :func:`build_all` starts one ``nvcc``
-per source, all together, and waits for them.
+per source, all together, and waits for them; ``ptxas``'s resource report
+of each build (registers and spills per kernel) is kept beside the library
+and read by :func:`resource_usage`.
 
 The sources have a plain C interface: every entry point takes pointers and
 the CUDA stream as ``void*`` (declared ``c_void_p`` here, so ctypes never
@@ -20,6 +22,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -29,7 +32,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 KERNEL_SOURCES = ("mind", "cost_volume", "warp", "edt")
 
@@ -82,6 +85,7 @@ def build_all(names=KERNEL_SOURCES) -> None:
         if proc.returncode != 0:
             failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -111,14 +115,39 @@ def bind(name: str, entry: str, argtypes) -> "ctypes._CFuncPtr":
     return fn
 
 
+def resource_usage(name: str) -> "dict[str, dict]":
+    """Registers and spill bytes of each kernel of ``csrc/<name>.cu`` (by
+    mangled name), from ``ptxas -v``'s report of its build."""
+    usage: dict = {}
+    kernel = None
+    for line in _lib_path(name).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = usage.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and kernel is not None:
+            kernel["spill_stores"], kernel["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel is not None:
+            kernel["registers"] = int(m.group(1))
+    return usage
+
+
 def check(err: int, entry: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA launch of {entry} failed with cudaError {err}")
 
 
-def stream(device: torch.device) -> int:
-    """The current CUDA stream of ``device`` as an integer handle."""
-    return torch.cuda.current_stream(device).cuda_stream
+def call_on(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` with the current CUDA stream of ``device`` (its
+    raw handle), run with ``device`` current; the device is switched only
+    when another one is current."""
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def require_cuda(t: torch.Tensor, what: str) -> None:

@@ -51,11 +51,9 @@ def cost_volume(fix: torch.Tensor, mov: torch.Tensor, disp_hw: int) -> torch.Ten
     out = torch.empty((K**3, h, w, d), dtype=torch.float32, device=fix.device)
     P, I = _build.P, _build.I  # noqa: E741
     fn = _build.bind("cost_volume", "cost_volume", [P, P, P, I, I, I, I, I, P])
-    with torch.cuda.device(fix.device):
-        err = fn(
-            fix.data_ptr(), mov.data_ptr(), out.data_ptr(), C, h, w, d, disp_hw,
-            _build.stream(fix.device),
-        )
+    err = _build.call_on(
+        fix.device, fn, fix.data_ptr(), mov.data_ptr(), out.data_ptr(), C, h, w, d, disp_hw
+    )
     _build.check(err, "cost_volume")
     LAUNCHES["cost_volume"] += 1
     return out

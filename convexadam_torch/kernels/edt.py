@@ -104,11 +104,10 @@ def nearest_sq(query, target, n_query=None, n_target=None) -> torch.Tensor:
     out = torch.empty((kq,), dtype=torch.float32, device=dev)
     P, I = _build.P, _build.I  # noqa: E741
     fn = _build.bind("edt", "nearest_sq", [P, P, P, I, I, P, P, I, P])
-    with torch.cuda.device(dev):
-        err = fn(
-            query.data_ptr(), target.data_ptr(), out.data_ptr(), kq, kt,
-            nq.data_ptr(), nt.data_ptr(), TILE, _build.stream(dev),
-        )
+    err = _build.call_on(
+        dev, fn, query.data_ptr(), target.data_ptr(), out.data_ptr(), kq, kt, nq.data_ptr(),
+        nt.data_ptr(), TILE,
+    )
     _build.check(err, "nearest_sq")
     LAUNCHES["nearest_sq"] += 1
     return out
@@ -157,12 +156,10 @@ def nearest_sq_dual(query, target, n_query=None, n_target=None, head_query=None,
     outt = torch.full((kt,), ACC_INIT, dtype=torch.float32, device=dev)
     P, I = _build.P, _build.I  # noqa: E741
     fn = _build.bind("edt", "nearest_sq_dual", [P, P, P, P, I, I, P, P, P, P, I, P])
-    with torch.cuda.device(dev):
-        err = fn(
-            query.data_ptr(), target.data_ptr(), outq.data_ptr(), outt.data_ptr(), kq, kt,
-            nq.data_ptr(), nt.data_ptr(), hq.data_ptr(), ht.data_ptr(), TILE,
-            _build.stream(dev),
-        )
+    err = _build.call_on(
+        dev, fn, query.data_ptr(), target.data_ptr(), outq.data_ptr(), outt.data_ptr(), kq, kt,
+        nq.data_ptr(), nt.data_ptr(), hq.data_ptr(), ht.data_ptr(), TILE,
+    )
     _build.check(err, "nearest_sq_dual")
     LAUNCHES["nearest_sq_dual"] += 1
     return outq, outt
@@ -273,12 +270,11 @@ def nearest_sq_pruned(query, target, q_lo, q_hi, n_target, with_tiles: bool = Fa
     fn = _build.bind(
         "edt", "nearest_sq_pruned", [P, P, P, P, P, P, I, I, I, P, P, P, I, P]
     )
-    with torch.cuda.device(dev):
-        err = fn(
-            query.data_ptr(), target.data_ptr(), order.data_ptr(), dsort.data_ptr(),
-            out.data_ptr(), tiles.data_ptr(), kq, kt, gj, lo.data_ptr(), hi.data_ptr(),
-            nt.data_ptr(), PRUNED_BLOCK, _build.stream(dev),
-        )
+    err = _build.call_on(
+        dev, fn, query.data_ptr(), target.data_ptr(), order.data_ptr(), dsort.data_ptr(),
+        out.data_ptr(), tiles.data_ptr(), kq, kt, gj, lo.data_ptr(), hi.data_ptr(),
+        nt.data_ptr(), PRUNED_BLOCK,
+    )
     _build.check(err, "nearest_sq_pruned")
     LAUNCHES["nearest_sq_pruned"] += 1
     return (out, tiles) if with_tiles else out

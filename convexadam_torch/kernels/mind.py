@@ -98,11 +98,10 @@ def mind_ssd_stats(x: torch.Tensor, radius: int, dilation: int):
     offs = (ctypes.c_int * len(flat))(*flat)
     P, I = _build.P, _build.I  # noqa: E741
     fn = _build.bind("mind", "mind_ssd_stats", [P, P, P, I, I, I, I, I, I, P, P])
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), mind.data_ptr(), var.data_ptr(), H, W, D, radius, dilation,
-            int(x.dtype == torch.bfloat16), ctypes.addressof(offs), _build.stream(x.device),
-        )
+    err = _build.call_on(
+        x.device, fn, x.data_ptr(), mind.data_ptr(), var.data_ptr(), H, W, D, radius, dilation,
+        int(x.dtype == torch.bfloat16), ctypes.addressof(offs),
+    )
     _build.check(err, "mind_ssd_stats")
     LAUNCHES["mind_ssd_stats"] += 1
     return mind, var

@@ -5,6 +5,9 @@ versions.
   ``convexadam_tpu/ops/warp_pallas.py:corner_reduce_fwd``: ``grid_sample``
   (trilinear, zeros padding, ``align_corners=False``) of a batch of float32
   or bfloat16 volumes at normalized coordinates in array order.
+* :func:`inverse_consistency_steps` replaces the same Pallas kernel in its
+  inverse-consistency role: the Jacobi steps of two fields, one fused
+  launch per step, all issued by one C call.
 * :func:`sample_trilinear_bwd` replaces
   ``convexadam_tpu/ops/warp_pallas.py:corner_reduce_bwd``: the sampler's
   coordinate-gradient rows for a cotangent, the grid half of its
@@ -18,6 +21,10 @@ The plain versions repeat the kernels' arithmetic operation by operation
 (corner order dx, dy, dz nested; weights ``((wx*wy)*wz)*mask``; channels in
 ascending order), so they agree with the kernels to the bit except for the
 order of the ``sum(res^2)`` reduction.
+
+The sampler wrappers sit on short host paths (the inverse-consistency steps
+sample 2 x 3 x 32^3 points, far less work than issuing a launch): their
+entries' argument types are fixed once, at import.
 """
 
 from __future__ import annotations
@@ -27,6 +34,11 @@ import ctypes
 import torch
 
 from convexadam_torch.kernels import LAUNCHES, _build
+
+P, I, F = _build.P, _build.I, _build.F  # noqa: E741
+_SAMPLE_ARGS = (P, P, P, I, I, I, I, I, I, I, P)
+_IC_ARGS = (P, P, P, P, P, I, I, I, I, P)
+_BWD_ARGS = (P, P, P, P, I, I, I, I, I, I, F, I, P)
 
 
 def _split(p: torch.Tensor):
@@ -117,16 +129,71 @@ def sample_trilinear(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     B, C, H, W, D = vol.shape
     N = grid.shape[1]
     out = torch.empty((B, C, N), dtype=torch.float32, device=vol.device)
-    P, I = _build.P, _build.I  # noqa: E741
-    fn = _build.bind("warp", "sample_trilinear", [P, P, P, I, I, I, I, I, I, I, P])
-    with torch.cuda.device(vol.device):
-        err = fn(
-            vol.data_ptr(), grid.data_ptr(), out.data_ptr(), B, C, H, W, D, N,
-            int(vol.dtype == torch.bfloat16), _build.stream(vol.device),
-        )
+    err = _build.call_on(
+        vol.device, _build.bind("warp", "sample_trilinear", _SAMPLE_ARGS), vol.data_ptr(),
+        grid.data_ptr(), out.data_ptr(), B, C, H, W, D, N, int(vol.dtype == torch.bfloat16),
+    )
     _build.check(err, "sample_trilinear")
     LAUNCHES["sample_trilinear"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# inverse_consistency_steps
+# ---------------------------------------------------------------------------
+
+def _identity_axes(shape, device) -> "list[torch.Tensor]":
+    """The identity grid's normalized coordinates per axis (align_corners=
+    False voxel centres), the values ``identity_grid_normalized`` takes."""
+    from convexadam_torch.core.warp import normalize_coord  # core imports this module
+
+    return [normalize_coord(torch.arange(n, dtype=torch.float32, device=device), n, False)
+            for n in shape]
+
+
+def inverse_consistency_steps_plain(fields: torch.Tensor, iters: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`inverse_consistency_steps`: per step
+    the two displaced grids, one batched :func:`sample_trilinear_plain` of
+    the swapped fields and the two updates."""
+    d1, d2 = fields[0], fields[1]
+    shape = tuple(d1.shape[1:])
+    n = d1[0].numel()
+    identity = torch.stack(torch.meshgrid(*_identity_axes(shape, fields.device), indexing="ij"), -1)
+    for _ in range(iters):
+        g1 = (identity + d1.permute(1, 2, 3, 0)).reshape(n, 3)
+        g2 = (identity + d2.permute(1, 2, 3, 0)).reshape(n, 3)
+        vol = torch.stack([d2, d1]).contiguous()
+        out = sample_trilinear_plain(vol, torch.stack([g1, g2]))
+        s1 = out[0].reshape((3,) + shape)  # d2 ∘ (id + d1)
+        s2 = out[1].reshape((3,) + shape)  # d1 ∘ (id + d2)
+        d1, d2 = 0.5 * (d1 - s1), 0.5 * (d2 - s2)
+    return torch.stack([d1, d2])
+
+
+def inverse_consistency_steps(fields: torch.Tensor, iters: int) -> torch.Tensor:
+    """``iters`` Jacobi steps of inverse consistency on ``fields`` (2, 3, H,
+    W, D) float32, ``[d1, d2]`` in normalized units: each step sets ``d1 =
+    (d1 - d2 ∘ (id + d1)) / 2`` and ``d2 = (d2 - d1 ∘ (id + d2)) / 2`` from
+    the previous step's fields (zeros padding, ``align_corners=False``).
+    Returns a new (2, 3, H, W, D) tensor; ``fields`` is left as it is."""
+    if fields.device.type == "cpu":
+        return inverse_consistency_steps_plain(fields, iters)
+    _build.require_cuda(fields, "inverse_consistency_steps")
+    _build.require(fields, "inverse_consistency_steps fields", (torch.float32,),
+                   (2, 3, None, None, None))
+    if iters < 1:
+        return fields.clone()
+    H, W, D = fields.shape[2:]
+    ih, iw, id_ = _identity_axes((H, W, D), fields.device)
+    bufs = torch.empty((2,) + tuple(fields.shape), dtype=torch.float32, device=fields.device)
+    err = _build.call_on(
+        fields.device, _build.bind("warp", "inverse_consistency_steps", _IC_ARGS),
+        fields.data_ptr(), bufs.data_ptr(), ih.data_ptr(), iw.data_ptr(), id_.data_ptr(),
+        H, W, D, iters,
+    )
+    _build.check(err, "inverse_consistency_steps")
+    LAUNCHES["sample_trilinear_ic"] += iters
+    return bufs[(iters - 1) % 2]
 
 
 # ---------------------------------------------------------------------------
@@ -136,24 +203,20 @@ def sample_trilinear(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
 def sample_trilinear_bwd_plain(
     vol: torch.Tensor, grid: torch.Tensor, ct: torch.Tensor, scale: float
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`sample_trilinear_bwd`."""
+    """Plain PyTorch version of :func:`sample_trilinear_bwd`, in its order:
+    per corner the channel sum ``cv = sum_c (ct * scale)_c * v_c`` first,
+    then the rows ``sum_k g_k * cv_k``."""
     B, C = vol.shape[:2]
     flat = vol.reshape(B, C, -1)
-    sx = sy = sz = None
-    for lin, _, gx, gy, gz in _grid_corners(vol, grid, grads=True):
-        v = _gather(flat, lin)
-        tx, ty, tz = v * gx[:, None, :], v * gy[:, None, :], v * gz[:, None, :]
-        if sx is None:
-            sx, sy, sz = tx, ty, tz
-        else:
-            sx, sy, sz = sx + tx, sy + ty, sz + tz
     cs = ct * scale
-    rows = []
-    for s in (sx, sy, sz):
-        acc = cs[:, 0] * s[:, 0]
+    rows = None
+    for lin, _, gx, gy, gz in _grid_corners(vol, grid, grads=True):
+        prod = cs * _gather(flat, lin)
+        cv = prod[:, 0]
         for c in range(1, C):
-            acc = acc + cs[:, c] * s[:, c]
-        rows.append(acc)
+            cv = cv + prod[:, c]
+        terms = (cv * gx, cv * gy, cv * gz)
+        rows = terms if rows is None else tuple(r + t for r, t in zip(rows, terms))
     return torch.stack(rows, dim=1)
 
 
@@ -174,16 +237,11 @@ def sample_trilinear_bwd(
     if ct.device != vol.device:
         raise ValueError("sample_trilinear_bwd: all tensors must lie on one device")
     rows = torch.empty((B, 3, N), dtype=torch.float32, device=vol.device)
-    P, I, F = _build.P, _build.I, _build.F  # noqa: E741
-    fn = _build.bind(
-        "warp", "sample_trilinear_bwd", [P, P, P, P, I, I, I, I, I, I, F, I, P]
+    err = _build.call_on(
+        vol.device, _build.bind("warp", "sample_trilinear_bwd", _BWD_ARGS), vol.data_ptr(),
+        grid.data_ptr(), ct.data_ptr(), rows.data_ptr(), B, C, H, W, D, N,
+        ctypes.c_float(scale), int(vol.dtype == torch.bfloat16),
     )
-    with torch.cuda.device(vol.device):
-        err = fn(
-            vol.data_ptr(), grid.data_ptr(), ct.data_ptr(), rows.data_ptr(), B, C, H, W, D,
-            N, ctypes.c_float(scale), int(vol.dtype == torch.bfloat16),
-            _build.stream(vol.device),
-        )
     _build.check(err, "sample_trilinear_bwd")
     LAUNCHES["sample_trilinear_bwd"] += 1
     return rows
@@ -248,7 +306,6 @@ def warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain: float):
     _build.require(fix_flat, "warp_ssd_loss_grad fix", (torch.float32,), (C, N))
     if disp.device != mov.device or fix_flat.device != mov.device:
         raise ValueError("warp_ssd_loss_grad: all tensors must lie on one device")
-    P, I, F = _build.P, _build.I, _build.F  # noqa: E741
     n_parts = _build.bind("warp", "warp_ssd_num_partials", [I])(N)
     rows = torch.empty((3, N), dtype=torch.float32, device=mov.device)
     partials = torch.empty((n_parts,), dtype=torch.float32, device=mov.device)
@@ -256,13 +313,12 @@ def warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain: float):
     fn = _build.bind(
         "warp", "warp_ssd_loss_grad", [P, P, P, P, P, P, I, I, I, I, F, F, F, F, I, P]
     )
-    with torch.cuda.device(mov.device):
-        err = fn(
-            mov.data_ptr(), disp.data_ptr(), fix_flat.data_ptr(), rows.data_ptr(),
-            partials.data_ptr(), total.data_ptr(), C, H, W, D,
-            ctypes.c_float(fac[0]), ctypes.c_float(fac[1]), ctypes.c_float(fac[2]),
-            ctypes.c_float(chain), int(mov.dtype == torch.bfloat16), _build.stream(mov.device),
-        )
+    err = _build.call_on(
+        mov.device, fn, mov.data_ptr(), disp.data_ptr(), fix_flat.data_ptr(), rows.data_ptr(),
+        partials.data_ptr(), total.data_ptr(), C, H, W, D, ctypes.c_float(fac[0]),
+        ctypes.c_float(fac[1]), ctypes.c_float(fac[2]), ctypes.c_float(chain),
+        int(mov.dtype == torch.bfloat16),
+    )
     _build.check(err, "warp_ssd_loss_grad")
     LAUNCHES["warp_ssd_loss_grad"] += 1
     return total[0], rows

@@ -134,8 +134,8 @@ def main() -> int:
         rows.append({"name": e.key[:90], "count": e.count, "device_ms": dev_us / 1e3})
         device_us += dev_us
     rows.sort(key=lambda r: -r["device_ms"])
-    own = ("mind_kernel", "cost_volume_kernel", "sample_trilinear_kernel", "warp_ssd_kernel",
-           "sum_partials_kernel")
+    own = ("mind_kernel", "cost_volume_kernel", "sample_trilinear_kernel", "ic_step_kernel",
+           "sample_trilinear_bwd_kernel", "warp_ssd_kernel", "sum_partials_kernel")
     kernels = {
         k: {"count": r["count"], "device_ms": r["device_ms"],
             "device_ms_per_launch": r["device_ms"] / r["count"]}

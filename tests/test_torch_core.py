@@ -154,6 +154,16 @@ def test_inverse_consistency_matches_jax(rng):
     np.testing.assert_allclose(o2.numpy(), _j(r2), rtol=0, atol=1e-5)
 
 
+def test_inverse_consistency_past_the_faces_matches_jax(rng):
+    """A ragged pair of fields large enough to send points past every face."""
+    d1 = (rng.standard_normal((3, 9, 5, 11)) * 0.4).astype(np.float32)
+    d2 = (rng.standard_normal((3, 9, 5, 11)) * 0.4).astype(np.float32)
+    r1, r2 = jwarp.inverse_consistency(jnp.asarray(d1), jnp.asarray(d2), iters=15)
+    o1, o2 = twarp.inverse_consistency(_t(d1), _t(d2), iters=15)
+    np.testing.assert_allclose(o1.numpy(), _j(r1), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(o2.numpy(), _j(r2), rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_data_term_value_and_grad_match_jax(rng, dtype):
     C, H, W, D = 4, 7, 8, 6

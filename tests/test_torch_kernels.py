@@ -17,10 +17,13 @@ from convexadam_tpu.core.warp import build_corner_stack
 from convexadam_tpu.ops.cost_volume_pallas import cost_volume_pallas
 from convexadam_tpu.ops.mind_pallas import mind_ssd_stats_pallas
 from convexadam_tpu.ops.warp_pallas import corner_reduce_fwd, corner_reduce_loss_grad
+from convexadam_torch.core.warp import identity_grid_normalized
 from convexadam_torch.kernels import LAUNCHES
 from convexadam_torch.kernels.cost_volume import cost_volume
 from convexadam_torch.kernels.mind import mind_ssd_stats
 from convexadam_torch.kernels.warp import (
+    inverse_consistency_steps,
+    inverse_consistency_steps_plain,
     sample_trilinear,
     sample_trilinear_bwd,
     sample_trilinear_plain,
@@ -139,6 +142,40 @@ def test_warp_ssd_loss_grad_matches_pallas(rng, dtype):
     np.testing.assert_allclose(rows_t.numpy(), dg_p, rtol=1e-5, atol=1e-5 * np.abs(dg_p).max())
 
 
+def _ic_loop(disp1, disp2, iters):
+    """The inverse-consistency loop as ``core/warp.py`` ran it before the
+    fused steps: per step the two grids, one batched sampler call of the
+    swapped fields and the two updates."""
+    shape = tuple(disp1.shape[1:])
+    n = disp1[0].numel()
+    identity = identity_grid_normalized(shape, False, device=disp1.device, dtype=disp1.dtype)
+    d1, d2 = disp1, disp2
+    for _ in range(iters):
+        g1 = (identity + d1.permute(1, 2, 3, 0)).reshape(n, 3)
+        g2 = (identity + d2.permute(1, 2, 3, 0)).reshape(n, 3)
+        vol = torch.stack([d2, d1]).contiguous()
+        out = sample_trilinear(vol, torch.stack([g1, g2]))
+        s1 = out[0].reshape((3,) + shape)
+        s2 = out[1].reshape((3,) + shape)
+        d1, d2 = 0.5 * (d1 - s1), 0.5 * (d2 - s2)
+    return d1, d2
+
+
+@pytest.mark.parametrize("shape,amp,iters", [((7, 8, 6), 0.1, 15), ((9, 5, 11), 0.4, 4),
+                                             ((6, 6, 6), 0.2, 0)])
+def test_inverse_consistency_steps_plain_equals_old_loop(rng, shape, amp, iters):
+    """The fused steps' plain version is the old loop moved: equal to the
+    bit, also with points past every face (amplitude 0.4)."""
+    fields = (rng.standard_normal((2, 3) + shape) * amp).astype(np.float32)
+    f = torch.from_numpy(fields)
+    out = inverse_consistency_steps_plain(f, iters)
+    r1, r2 = _ic_loop(f[0], f[1], iters)
+    assert out.shape == (2, 3) + shape
+    assert torch.equal(out[0], r1) and torch.equal(out[1], r2)
+    assert torch.equal(inverse_consistency_steps(f, iters), out)
+    assert torch.equal(f, torch.from_numpy(fields))  # the input is left as it is
+
+
 def test_cpu_wrappers_launch_nothing(rng):
     """CPU tensors take the plain versions: no launch is counted."""
     before = dict(LAUNCHES)
@@ -149,10 +186,12 @@ def test_cpu_wrappers_launch_nothing(rng):
     sample_trilinear(f[None], torch.zeros((1, 5, 3)))
     sample_trilinear_bwd(f[None], torch.zeros((1, 5, 3)), torch.ones((1, 2, 5)), 2.0)
     warp_ssd_loss_grad(f, torch.zeros((3, 4, 4, 4)), f.reshape(2, -1), (1.0, 1.0, 1.0), 1.0)
+    inverse_consistency_steps(torch.zeros((2, 3, 4, 4, 4)), 3)
     assert LAUNCHES == before
 
 
-@pytest.mark.parametrize("wrapper", ["mind", "cost_volume", "sample", "sample_bwd", "warp_ssd"])
+@pytest.mark.parametrize("wrapper", ["mind", "cost_volume", "sample", "sample_ic", "sample_bwd",
+                                     "warp_ssd"])
 def test_wrappers_refuse_other_devices(wrapper):
     """A tensor that is neither on the CPU nor on CUDA raises: the plain
     version is taken only for CPU tensors."""
@@ -161,6 +200,8 @@ def test_wrappers_refuse_other_devices(wrapper):
         "mind": lambda: mind_ssd_stats(m[0], 1, 1),
         "cost_volume": lambda: cost_volume(m, m, 1),
         "sample": lambda: sample_trilinear(m[None], torch.empty((1, 5, 3), device="meta")),
+        "sample_ic": lambda: inverse_consistency_steps(
+            torch.empty((2, 3, 4, 4, 4), device="meta"), 15),
         "sample_bwd": lambda: sample_trilinear_bwd(
             m[None], torch.empty((1, 5, 3), device="meta"), torch.empty((1, 2, 5), device="meta"),
             1.0,

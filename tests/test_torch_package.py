@@ -122,3 +122,25 @@ def test_build_recipe():
     if _build.shutil.which("nvcc") is None and not pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build._nvcc()
+
+
+def test_resource_usage_reads_the_ptxas_report(tmp_path, monkeypatch):
+    """Each build keeps ptxas's report beside its library; the registers
+    and spills of every kernel are read from it by mangled name."""
+    assert ("-Xptxas", "-v") == _build.NVCC_FLAGS[-2:]
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN1a14ic_step_kernelEv' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN1a14ic_step_kernelEv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 0 barriers, 392 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN1a11bwd_kernelIfEEv' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN1a11bwd_kernelIfEEv",
+        "    40 bytes stack frame, 44 bytes spill stores, 40 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 0 barriers, 40 bytes cumulative stack size",
+    ])
+    (tmp_path / "libwarp_x.log").write_text(log)
+    monkeypatch.setattr(_build, "_lib_path", lambda name: tmp_path / f"lib{name}_x.so")
+    assert _build.resource_usage("warp") == {
+        "_ZN1a14ic_step_kernelEv": {"registers": 32, "spill_stores": 0, "spill_loads": 0},
+        "_ZN1a11bwd_kernelIfEEv": {"registers": 64, "spill_stores": 44, "spill_loads": 40},
+    }
