@@ -8,8 +8,9 @@ Run from the repository root on a machine with a CUDA card:
 Phases, each fatal on failure:
   1. card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
   2. build: the CUDA kernels of ``convexadam_torch/csrc`` (one nvcc per source),
-     with the registers and spills ``ptxas`` reports for the sampler's
-     kernels (the backward kernel must fit 64 registers);
+     with the registers and spills ``ptxas`` reports for the kernels of
+     ``warp.cu`` and ``mind.cu`` (the backward kernel must fit 64 registers;
+     the data term's and the compile-time MIND kernels must not spill);
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes and dtypes (and a ragged shape for the MIND and
      sampling kernels; the sampler with float32 and bfloat16 volumes), with
@@ -20,6 +21,13 @@ Phases, each fatal on failure:
      ``device_ms``, the CUDA time per call of the kernel's own ``__global__``
      functions from ``torch.profiler`` over 20 calls (for the library call,
      the sum of every device kernel the call runs);
+  3a. MIND statistics to the bit at 192^3 (bf16, timed, and f32) and at
+     every (r, d) in {1, 2, 3}^2 on ragged 37 x 41 x 29, 37 x 41 x 150 and
+     37 x 41 x 131 crops (f32, bf16), plus (4, 1) at 37 x 41 x 29, which must
+     run the general kernel;
+  3d. the Adam data term, rows to the bit, at 12 x 96^3 (bf16 and f32) and
+     at the semantic Adam grid 14 x 96 x 80 x 128 (bf16), all timed, and on a
+     ragged grid with points past every face;
   3c. the sampler on the inverse-consistency fields, and the fused
      inverse-consistency steps (15 per call, 2 x 3 x 32^3 and a ragged 37 x
      41 x 29 pair sent past every face) against their plain version and
@@ -101,6 +109,12 @@ EXPECTED_LAUNCHES = {
     "mind_ssd_stats": 2, "cost_volume": 2, "sample_trilinear_ic": IC_ITERS,
     "warp_ssd_loss_grad": 80, "sample_trilinear": 0, "sample_trilinear_bwd": 0,
 }
+MIND_PAIRS = [(r, d) for r in (1, 2, 3) for d in (1, 2, 3)]  # the search's MIND radii, dilations
+RAGGED_SHAPE = (37, 41, 29)
+# wider than one 64-voxel D tile of the compile-time MIND kernel and not a
+# multiple of it: a tile seam, a partial last tile, and paired stores (even
+# D) or single ones (odd D)
+MIND_WIDE_SHAPES = ((37, 41, 150), (37, 41, 131))
 L2R_LABELS = 13  # the organ count of Learn2Reg's Abdomen CT-CT task
 L2R_MARGIN = 36  # voxels from every face: inside the crop phase 4 checks
 L2R_LARGE_AXES = (35, 41)  # semi-axis range of the liver-sized organ
@@ -143,7 +157,7 @@ SOURCES = {
 }
 # the __global__ functions each wrapper launches, as the profiler names them
 GLOBALS = {
-    "mind_ssd_stats": ("mind_kernel",),
+    "mind_ssd_stats": ("mind_kernel", "mind_general_kernel"),
     "cost_volume": ("cost_volume_kernel",),
     "sample_trilinear": ("sample_trilinear_kernel",),
     "sample_trilinear_ic": ("ic_step_kernel",),
@@ -180,28 +194,38 @@ def device_times(torch, fn, kernels=None, warmup: int = 3, reps: int = 20) -> di
     calls after warm-up: ``device_ms``, the summed CUDA time of the kernels
     whose names contain one of ``kernels`` (every device event where
     ``kernels`` is None), ``device_all_ms`` of every device event, and
-    ``device_launches``, the selected kernels' launches per call."""
+    ``device_launches``, the selected kernels' launches per call.  A session
+    in which the profiler saw none of the selected kernels is profiled
+    again, up to three sessions: the profiler can miss a short kernel, and
+    a kernel that does not run misses all three."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    own = every = 0.0
-    launches = 0
-    for e in prof.key_averages():
-        # device events only: CPU ops and user annotations carry the device
-        # time of what they launch, which would count it twice
-        if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
-            continue
-        every += e.self_device_time_total
-        if kernels is None or any(k in e.key for k in kernels):
-            own += e.self_device_time_total
-            launches += e.count
-    check(own > 0, f"the profiler saw no device time of {kernels or 'the call'}")
+    for session in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        own = every = 0.0
+        launches = 0
+        seen = []
+        for e in prof.key_averages():
+            # device events only: CPU ops and user annotations carry the
+            # device time of what they launch, which would count it twice
+            if e.device_type != torch.autograd.DeviceType.CUDA or e.is_user_annotation:
+                continue
+            every += e.self_device_time_total
+            seen.append(e.key)
+            if kernels is None or any(k in e.key for k in kernels):
+                own += e.self_device_time_total
+                launches += e.count
+        if own > 0 or session == 2:
+            break
+        print(f"  the profiler saw no {kernels or 'device event'} (saw {seen}); profiling again",
+              flush=True)
+    check(own > 0, f"the profiler saw no device time of {kernels or 'the call'} (saw {seen})")
     return {"device_ms": own / 1e3 / reps, "device_all_ms": every / 1e3 / reps,
             "device_launches": launches / reps}
 
@@ -642,6 +666,179 @@ def sampler_bwd_phase(torch, dev, gen):
     return records, detail
 
 
+def ptxas_entry(usage, *parts) -> dict:
+    """Registers and spills (``ptxas -v``) of the first kernel of a source
+    whose mangled name contains every one of ``parts``."""
+    for mangled, use in usage.items():
+        if all(p in mangled for p in parts):
+            return {"ptxas_kernel": mangled, "registers": use.get("registers"),
+                    "spill_stores": use.get("spill_stores", 0),
+                    "spill_loads": use.get("spill_loads", 0)}
+    raise AssertionError(f"ptxas reported no kernel named like {parts}")
+
+
+def ptxas_report(_build) -> dict:
+    """Print ptxas's registers and spills for the kernels of ``warp.cu`` and
+    ``mind.cu`` and check them: the backward sampler fits 64 registers, the
+    data term and the compile-time MIND kernels do not spill.  Returns every
+    source's report."""
+    usage = {name: _build.resource_usage(name) for name in _build.KERNEL_SOURCES}
+    for src in ("warp", "mind"):
+        for mangled, use in usage[src].items():
+            print(f"ptxas {src}.cu {mangled}: {use}", flush=True)
+            if "sample_trilinear_bwd_kernel" in mangled:
+                check(use["registers"] <= 64, f"{mangled}: {use['registers']} registers, over 64")
+            if "warp_ssd_kernel" in mangled or "mind_kernel" in mangled:
+                check(use.get("spill_stores", 0) + use.get("spill_loads", 0) == 0,
+                      f"{mangled} spills: {use}")
+    return usage
+
+
+def mind_cases(torch, vol):
+    """Phase 3a's inputs, ``(shape, dtype, r, d, x)``, the main path's case
+    first: the 192^3 volume ``vol`` at (r, d) = (1, 2) in bf16 and f32, every
+    (r, d) the self-configuring search draws on crops of it (ragged 37 x 41
+    x 29, and :data:`MIND_WIDE_SHAPES` across D tiles) in f32 and bf16, and
+    (4, 1), which runs the general kernel, on the 37 x 41 x 29 crop."""
+    dts = (torch.float32, torch.bfloat16)
+    cases = [(HEADLINE_SHAPE, dt, 1, 2) for dt in dts[::-1]]
+    cases += [(RAGGED_SHAPE, dt, r, d) for r, d in MIND_PAIRS + [(4, 1)] for dt in dts]
+    cases += [(shape, dt, r, d) for shape in MIND_WIDE_SHAPES for r, d in MIND_PAIRS
+              for dt in dts]
+    for shape, dt, r, d in cases:
+        yield shape, dt, r, d, vol[: shape[0], : shape[1], : shape[2]].to(dt).contiguous()
+
+
+def mind_phase(torch, vol):
+    """Phase 3a: ``mind_ssd_stats`` against its plain version to the bit on
+    :func:`mind_cases`, the main case timed (the profiler shows which kernel
+    each kind of pair launches).  Returns the main case's record and every
+    case's numbers."""
+    from convexadam_torch.kernels.mind import mind_ssd_stats, mind_ssd_stats_plain
+
+    record, detail = None, []
+    for shape, dt, r, d, x in mind_cases(torch, vol):
+        mk, vk = mind_ssd_stats(x, r, d)
+        mp, vp = mind_ssd_stats_plain(x, r, d)
+        torch.cuda.synchronize()
+        # the kernels repeat the plain version's operations in its order and
+        # rounding (bf16 too): they must agree to the bit
+        tol = 0.0
+        err = max(max_err(mk, mp), max_err(vk, vp))
+        check(err <= tol, f"mind_ssd_stats {shape} {dt} (r, d) = {(r, d)}: max err {err} > {tol}")
+        row = {"shape": list(shape), "dtype": str(dt), "r": r, "d": d, "max_abs_err": err}
+        if (r, d) == (4, 1) or (shape == HEADLINE_SHAPE and dt == torch.bfloat16):
+            kernel = "mind_kernel" if (r, d) in MIND_PAIRS else "mind_general_kernel"
+            ran = device_times(torch, lambda: mind_ssd_stats(x, r, d), (kernel,), 1, 1)
+            check(ran["device_launches"] == 1, f"mind_ssd_stats (r, d) = {(r, d)}: "
+                  f"{ran['device_launches']} launches of {kernel}")
+            row["kernel"] = kernel
+        which = f", ran {row['kernel']}" if "kernel" in row else ""
+        print(f"mind_ssd_stats {shape} {dt} (r, d) = {(r, d)}: max_abs_err {err:.3e} "
+              f"(tol {tol:.1e}){which}", flush=True)
+        if shape == HEADLINE_SHAPE and dt == torch.bfloat16:
+            n = x.numel()
+            t = timed_turns(torch, lambda: mind_ssd_stats(x, 1, 2), GLOBALS["mind_ssd_stats"])
+            p_ms = cuda_ms(torch, lambda: mind_ssd_stats_plain(x, 1, 2))
+            record = kernel_record("mind_ssd_stats", list(shape), "bfloat16", err, tol, t, p_ms,
+                                   n * 2 + 12 * n * 2 + n * 4, 145.0 * n)
+            print_times("mind_ssd_stats", t, p_ms, record["bound_ms"])
+            row.update({k: record[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")})
+        detail.append(row)
+    return record, detail
+
+
+def data_term_cases(torch, gen, feat_f, feat_m, grid_sp_adam):
+    """Phase 3d's inputs, ``(what, fix, mov, disp, fac, chain)`` with ``fix``
+    flattened to (C, N), the main path's case first: its Adam grid (the
+    headline pair's MIND features pooled to 12 x 96^3, a smooth field of a
+    few voxels) with bf16 and with f32 moving features, the semantic Adam
+    grid 14 x 96 x 80 x 128 in bf16 (seeded features), and a ragged 3 x 37 x
+    41 x 29 grid whose displacements push points past every face (f32 and
+    bf16)."""
+    from convexadam_torch.core.smoothing import avg_pool3d
+    from convexadam_torch.core.warp import resize_trilinear
+
+    dev = feat_f.device
+
+    def smooth(shape):
+        coarse = torch.randn((3, *[s // 8 for s in shape]), generator=gen) * 2.0
+        return resize_trilinear(coarse, tuple(shape)).to(dev).contiguous()
+
+    pf = avg_pool3d(feat_f.float(), grid_sp_adam).contiguous()
+    pm = avg_pool3d(feat_m.float(), grid_sp_adam).contiguous()
+    mind_disp = smooth(pf.shape[1:])
+    sem_grid = tuple(s // grid_sp_adam for s in ABDOMEN_SHAPE)
+    sem_fix, sem_mov = (torch.rand((SEMANTIC_LABELS, *sem_grid), generator=gen).to(dev)
+                        for _ in range(2))
+    rag_fix, rag_mov = (torch.randn((3, *RAGGED_SHAPE), generator=gen).to(dev) for _ in range(2))
+    rag_disp = ((torch.rand((3, *RAGGED_SHAPE), generator=gen) * 2 - 1) * 6).to(dev)
+    cases = [("mind", pf, pm.to(torch.bfloat16), mind_disp), ("mind", pf, pm, mind_disp),
+             ("semantic", sem_fix, sem_mov.to(torch.bfloat16), smooth(sem_grid)),
+             ("ragged", rag_fix, rag_mov, rag_disp),
+             ("ragged", rag_fix, rag_mov.to(torch.bfloat16), rag_disp)]
+    out = []
+    for what, fix, mov, disp in cases:
+        C, H, W, D = mov.shape
+        N = H * W * D
+        out.append((what, fix.reshape(C, N), mov, disp,
+                    (H / (H - 1.0), W / (W - 1.0), D / (D - 1.0)), 2.0 * 12.0 / (C * N)))
+    return out
+
+
+def data_term_phase(torch, gen, feat_f, feat_m, grid_sp_adam):
+    """Phase 3d: ``warp_ssd_loss_grad`` against its plain version on
+    :func:`data_term_cases`, the rows to the bit and ``sum(res^2)`` to 1e-5
+    relative; every case but the ragged ones timed, the first the record.
+    Returns the main case's record and every case's numbers."""
+    from convexadam_torch.kernels.warp import warp_ssd_loss_grad, warp_ssd_loss_grad_plain
+
+    record, detail = None, []
+    for what, fix_flat, mov, disp, fac, chain in data_term_cases(torch, gen, feat_f, feat_m,
+                                                                 grid_sp_adam):
+        C, H, W, D = mov.shape
+        N = H * W * D
+        dev = mov.device
+        ssq_k, rows_k = warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain)
+        ssq_p, rows_p = warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain)
+        # the first sample positions, per axis below 0 and above size - 1
+        pos = [torch.arange(s, device=dev).reshape([-1 if a == b else 1 for b in range(3)])
+               + disp[a] * fac[a] for a, s in enumerate((H, W, D))]
+        faces = [int((p < 0).sum()) for p in pos] + \
+                [int((p > s - 1).sum()) for p, s in zip(pos, (H, W, D))]
+        torch.cuda.synchronize()
+        # sum(res^2): a fixed two-pass tree in the kernel, torch's own order
+        # in the plain version, hence 1e-5 relative; the rows are the same
+        # operations in the same order, to the bit
+        ssq_rel = abs(float(ssq_k) - float(ssq_p)) / float(ssq_p)
+        err = max_err(rows_k, rows_p)
+        tol = 0.0
+        name = f"warp_ssd_loss_grad {what} {(C, H, W, D)} {mov.dtype}"
+        check(ssq_rel <= 1e-5, f"{name}: sum(res^2) relative err {ssq_rel}")
+        check(err <= tol, f"{name}: rows max err {err} > {tol}")
+        check(what != "ragged" or min(faces) > 0, f"{name}: points past the faces {faces}")
+        print(f"{name}: rows max_abs_err {err:.3e} (tol {tol:.1e}); sum(res^2) rel err "
+              f"{ssq_rel:.3e}; points past the faces {faces}", flush=True)
+        row = {"case": what, "shape": [C, H, W, D], "dtype": str(mov.dtype), "max_abs_err": err,
+               "ssq_rel_err": ssq_rel, "points_past_faces": faces}
+        if what != "ragged":
+            t = timed_turns(torch, lambda: warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain),
+                            GLOBALS["warp_ssd_loss_grad"])
+            p_ms = cuda_ms(torch, lambda: warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain))
+            # each input read once, the rows written once; per point about 60
+            # operations of setup and 50 for the rows, per channel 8 corners x
+            # (multiply, add) for the sample and for the gradient and 5 more
+            nbytes = C * N * (mov.element_size() + 4) + 3 * N * 4 * 2
+            rec = kernel_record("warp_ssd_loss_grad", [C, H, W, D], str(mov.dtype)[6:], err, tol,
+                                t, p_ms, nbytes, 1.0 * N * (C * 37 + 110))
+            print_times(name, t, p_ms, rec["bound_ms"])
+            row.update({k: rec[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")})
+            if record is None:
+                record = rec
+        detail.append(row)
+    return record, detail
+
+
 def ic_composition(torch, d1, d2, iters, sample):
     """The inverse-consistency loop as ``core/warp.py`` ran it before the
     fused steps, with the batched sampler ``sample(vol, grid)``: per step
@@ -946,13 +1143,7 @@ def main() -> int:
     from convexadam_torch.core.warp import resize_trilinear
     from convexadam_torch.kernels import LAUNCHES, _build, reset_launches
     from convexadam_torch.kernels.cost_volume import cost_volume, cost_volume_plain
-    from convexadam_torch.kernels.mind import mind_ssd_stats, mind_ssd_stats_plain
-    from convexadam_torch.kernels.warp import (
-        sample_trilinear,
-        sample_trilinear_plain,
-        warp_ssd_loss_grad,
-        warp_ssd_loss_grad_plain,
-    )
+    from convexadam_torch.kernels.warp import sample_trilinear, sample_trilinear_plain
     from convexadam_torch.pipeline.convex_adam import ConvexAdamConfig, convex_adam
 
     dev = torch.device("cuda")
@@ -976,38 +1167,17 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s", flush=True)
     results["build_s"] = build_s
-    results["ptxas"] = {name: _build.resource_usage(name) for name in _build.KERNEL_SOURCES}
-    for mangled, use in results["ptxas"]["warp"].items():
-        print(f"ptxas warp.cu {mangled}: {use}", flush=True)
-        if "sample_trilinear_bwd_kernel" in mangled:
-            check(use["registers"] <= 64, f"{mangled}: {use['registers']} registers, over 64")
+    results["ptxas"] = ptxas_report(_build)
 
     vol_np, mov_np = headline_pair(torch, resize_trilinear)
     seg_f, seg_m = l2r_label_pair()
     vol = torch.from_numpy(vol_np).to(dev)
     records = []
 
-    # 3a. MIND statistics: the main path's 192^3 bf16 volume, f32, and ragged
-    for shape, dt in ((HEADLINE_SHAPE, torch.bfloat16), (HEADLINE_SHAPE, torch.float32),
-                      ((37, 41, 29), torch.float32), ((37, 41, 29), torch.bfloat16)):
-        x = vol[: shape[0], : shape[1], : shape[2]].to(dt).contiguous()
-        mk, vk = mind_ssd_stats(x, 1, 2)
-        mp, vp = mind_ssd_stats_plain(x, 1, 2)
-        torch.cuda.synchronize()
-        # the kernel repeats the plain version's operations in its order and
-        # rounding (bf16 too): they must agree to the bit
-        tol = 0.0
-        err = max(max_err(mk, mp), max_err(vk, vp))
-        check(err <= tol, f"mind_ssd_stats {shape} {dt}: max err {err} > {tol}")
-        print(f"mind_ssd_stats {shape} {dt}: max_abs_err {err:.3e} (tol {tol:.3e})", flush=True)
-        if shape == HEADLINE_SHAPE and dt == torch.bfloat16:
-            n = x.numel()
-            t = timed_turns(torch, lambda: mind_ssd_stats(x, 1, 2), GLOBALS["mind_ssd_stats"])
-            p_ms = cuda_ms(torch, lambda: mind_ssd_stats_plain(x, 1, 2))
-            rec = kernel_record("mind_ssd_stats", list(shape), "bfloat16", err, tol, t, p_ms,
-                                n * 2 + 12 * n * 2 + n * 4, 145.0 * n)
-            print_times("mind_ssd_stats", t, p_ms, rec["bound_ms"])
-            records.append(rec)
+    # 3a. MIND statistics
+    rec, results["mind"] = mind_phase(torch, vol)
+    rec.update(ptxas_entry(results["ptxas"]["mind"], "mind_kernel", "bfloat16", "Li1ELi2E"))
+    records.append(rec)
 
     # 3b. cost volume: pooled MIND features of the headline pair, 12 x 32^3, q = 4
     cfg = ConvexAdamConfig()
@@ -1074,38 +1244,10 @@ def main() -> int:
     ic_record, results["inverse_consistency"] = ic_phase(torch, dev, gen, (h, w, d))
     records.append(ic_record)
 
-    # 3d. Adam data term: the 96^3 x 12 Adam grid, bf16 moving features
-    g2 = cfg.grid_sp_adam
-    pf = avg_pool3d(feat_f.float(), g2).contiguous()
-    C, H, W, D = pf.shape
-    N = H * W * D
-    pm = avg_pool3d(feat_m.float(), g2).to(torch.bfloat16).contiguous()
-    fix_flat = pf.reshape(C, N)
-    smooth = torch.randn((3, H // 8, W // 8, D // 8), generator=gen) * 2.0
-    disp = resize_trilinear(smooth, (H, W, D)).to(dev).contiguous()
-    fac = (H / (H - 1.0), W / (W - 1.0), D / (D - 1.0))
-    chain = 2.0 * 12.0 / (C * N)
-    ssq_k, rows_k = warp_ssd_loss_grad(pm, disp, fix_flat, fac, chain)
-    ssq_p, rows_p = warp_ssd_loss_grad_plain(pm, disp, fix_flat, fac, chain)
-    torch.cuda.synchronize()
-    # sum(res^2): a fixed two-pass tree in the kernel, torch's own order in
-    # the plain version, hence 1e-5 relative; the rows are the same
-    # operations in the same order, to the bit
-    ssq_rel = abs(float(ssq_k) - float(ssq_p)) / float(ssq_p)
-    check(ssq_rel <= 1e-5, f"warp_ssd_loss_grad: sum(res^2) relative err {ssq_rel}")
-    err = max_err(rows_k, rows_p)
-    tol = 0.0
-    check(err <= tol, f"warp_ssd_loss_grad rows: max err {err} > {tol}")
-    print(f"warp_ssd_loss_grad {(C, H, W, D)} bf16: rows max_abs_err {err:.3e} (tol {tol:.3e}); "
-          f"sum(res^2) rel err {ssq_rel:.3e}", flush=True)
-    t = timed_turns(torch, lambda: warp_ssd_loss_grad(pm, disp, fix_flat, fac, chain),
-                    GLOBALS["warp_ssd_loss_grad"])
-    p_ms = cuda_ms(torch, lambda: warp_ssd_loss_grad_plain(pm, disp, fix_flat, fac, chain))
-    records.append(kernel_record(
-        "warp_ssd_loss_grad", [C, H, W, D], "bfloat16", err, tol, t, p_ms,
-        C * N * 2 + C * N * 4 + 3 * N * 4 * 2, 1.0 * N * (C * 74 + 60),
-    ))
-    print_times("warp_ssd_loss_grad", t, p_ms, records[-1]["bound_ms"])
+    # 3d. Adam data term
+    rec, results["data_term"] = data_term_phase(torch, gen, feat_f, feat_m, cfg.grid_sp_adam)
+    rec.update(ptxas_entry(results["ptxas"]["warp"], "warp_ssd_kernel", "bfloat16"))
+    records.append(rec)
     del ck, cp, feat_f, feat_m
 
     # 3e. the HD95 engine's nearest-neighbour searches

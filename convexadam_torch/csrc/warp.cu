@@ -56,16 +56,27 @@
 // by chain = 2 cost_scale / (C N).  Bound on the H100: bytes.  At the default
 // 96^3 x 12 Adam grid in bfloat16 it must read the moving features (21 MB),
 // the fixed features (42 MB) and the displacement (11 MB) and write the
-// rows (11 MB): about 85 MB or 25 us at 3.35 TB/s per iteration.  Design:
-// one thread per point; the 8 corners x C channels are gathered straight
-// from the channels-first (C, H, W, D) volume (neighbouring threads read
-// neighbouring voxels of one channel, so the gathers coalesce; no corner
-// stack and no channels-last copy is made).  Per channel the thread forms
-// the interpolated value and its three directional derivatives from the
-// same 8 loads, so each corner value is read once and nothing but the
-// 6-float accumulators lives across channels.  Each CTA reduces its
-// threads' sum(res^2) in a fixed tree into one partial; a second one-CTA
-// kernel reduces the partials in a fixed order: deterministic, no atomics.
+// rows (11 MB): about 85 MB or 25 us at 3.35 TB/s per iteration.  Design, in
+// the TPU kernel's order: one thread per point gathers the 8 corners of
+// every channel straight from the channels-first (C, H, W, D) volume
+// (neighbouring threads read neighbouring voxels of one channel, so the
+// gathers coalesce; no corner stack and no channels-last copy is made).  Per
+// channel it forms the sample s = sum_k w_k v_k, the residual against the
+// fixed feature (read once, streamed past the caches the gathers use), its
+// square into the point's sum, and ct = res * chain, and adds ct * v_k into
+// one accumulator per corner, cv_k; only after the channel loop does it
+// form the 24 derivative weights and the three rows sum_k g_{a,k} cv_k, as
+// sample_trilinear_bwd does.  So a channel costs 8 multiply-adds for the
+// sample and 8 for the gradient (32 each in the order of value and three
+// derivatives per channel), and only the 8 accumulators and the sum live in
+// registers across channels; the 8 offsets and 8 weights wait in shared
+// memory.  The kernel is bound by the latency of its gathers, 8 a point and
+// channel: at 64 registers four CTAs of 256 an SM hide more of it than
+// three at 80 with the offsets and weights in registers, and unrolling the
+// channel loop did not help (measured on the H100 at the Adam grids).  Each
+// CTA reduces its threads' sum(res^2) in a fixed tree into one partial; a
+// second one-CTA kernel reduces the partials in a fixed order:
+// deterministic, no atomics.
 #include "common.cuh"
 
 namespace {
@@ -86,16 +97,14 @@ __device__ __forceinline__ Axis split(float p) {
 
 // The 8 corners of a point: clamped linear offsets and the trilinear weight
 // with the zeros-padding mask folded in (a masked corner has weight 0 and
-// reads an in-range voxel).  With grads, also the derivative weights of
-// the three axes: gx = sx * (wy * wz) etc., as in the JAX package.
+// reads an in-range voxel).
 struct Corners {
   int off[8];
   float w[8];
 };
 
 __device__ __forceinline__ void corners(const Axis& ax, const Axis& ay, const Axis& az, int H,
-                                        int W, int D, Corners& cr, float* gx, float* gy,
-                                        float* gz) {
+                                        int W, int D, Corners& cr) {
   const float wx[2] = {__fsub_rn(1.f, ax.f), ax.f};
   const float wy[2] = {__fsub_rn(1.f, ay.f), ay.f};
   const float wz[2] = {__fsub_rn(1.f, az.f), az.f};
@@ -116,12 +125,6 @@ __device__ __forceinline__ void corners(const Axis& ax, const Axis& ay, const Ax
         cr.off[k] = (clampi(xi, 0, H - 1) * W + clampi(yi, 0, W - 1)) * D + clampi(zi, 0, D - 1);
         const float wxy = __fmul_rn(wx[dx], wy[dy]);
         cr.w[k] = __fmul_rn(__fmul_rn(wxy, wz[dz]), m);
-        if (gx != nullptr) {
-          const float sx = dx ? 1.f : -1.f, sy = dy ? 1.f : -1.f, sz = dz ? 1.f : -1.f;
-          gx[k] = __fmul_rn(__fmul_rn(sx, __fmul_rn(wy[dy], wz[dz])), m);
-          gy[k] = __fmul_rn(__fmul_rn(sy, __fmul_rn(wx[dx], wz[dz])), m);
-          gz[k] = __fmul_rn(__fmul_rn(wxy, sz), m);
-        }
         ++k;
       }
     }
@@ -145,7 +148,7 @@ sample_trilinear_kernel(const T* __restrict__ vol, const float* __restrict__ gri
   const Axis ay = split(unnormalize(g[1], W));
   const Axis az = split(unnormalize(g[2], D));
   Corners cr;
-  corners(ax, ay, az, H, W, D, cr, nullptr, nullptr, nullptr);
+  corners(ax, ay, az, H, W, D, cr);
   const size_t hwd = (size_t)H * W * D;
   for (int c = 0; c < C; ++c) {
     const T* v = vol + ((size_t)b * C + c) * hwd;
@@ -176,7 +179,7 @@ ic_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
   const Axis ay = split(unnormalize(__fadd_rn(id_w[j], dv[1]), W));
   const Axis az = split(unnormalize(__fadd_rn(id_d[l], dv[2]), D));
   Corners cr;
-  corners(ax, ay, az, H, W, D, cr, nullptr, nullptr, nullptr);
+  corners(ax, ay, az, H, W, D, cr);
   float* o = dst + (size_t)b * 3 * N;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
@@ -188,47 +191,14 @@ ic_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
   }
 }
 
-// Channels first, then corners (the TPU kernel's order).  The offsets are
-// the lower corner's plus one step per axis, 0 where the clamp folds the
-// two corners of that axis together, so a masked corner reads an in-range
-// voxel; its derivative weights carry the mask.
-template <typename T>
-__global__ void __launch_bounds__(NT, 4)
-sample_trilinear_bwd_kernel(const T* __restrict__ vol, const float* __restrict__ grid,
-                            const float* __restrict__ ct, float* __restrict__ rows, int B,
-                            int C, int H, int W, int D, int N, float scale) {
-  const long long t = (long long)blockIdx.x * NT + threadIdx.x;
-  if (t >= (long long)B * N) return;
-  const int b = (int)(t / N), n = (int)(t % N);
-  const float* g = grid + t * 3;
-  const Axis ax = split(unnormalize(g[0], H));
-  const Axis ay = split(unnormalize(g[1], W));
-  const Axis az = split(unnormalize(g[2], D));
-  const int x0 = clampi(ax.i0, 0, H - 1), y0 = clampi(ay.i0, 0, W - 1), z0 = clampi(az.i0, 0, D - 1);
-  const int sx = (clampi(ax.i0 + 1, 0, H - 1) - x0) * W * D;
-  const int sy = (clampi(ay.i0 + 1, 0, W - 1) - y0) * D;
-  const int sz = clampi(az.i0 + 1, 0, D - 1) - z0;
-  const int base = (x0 * W + y0) * D + z0;
-  int off[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k)
-    off[k] = base + ((k & 4) ? sx : 0) + ((k & 2) ? sy : 0) + ((k & 1) ? sz : 0);
-  const size_t hwd = (size_t)H * W * D;
-  const T* v = vol + (size_t)b * C * hwd;
-  const float* cb = ct + (size_t)b * C * N + n;
-  float cv[8];
-  // the cotangent is read once: streamed past the caches the gathers use
-  const float cs0 = __fmul_rn(__ldcs(cb), scale);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) cv[k] = __fmul_rn(cs0, Io<T>::ld(v + off[k]));
-#pragma unroll 4
-  for (int c = 1; c < C; ++c) {
-    const T* vc = v + (size_t)c * hwd;
-    const float cs = __fmul_rn(__ldcs(cb + (size_t)c * N), scale);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) cv[k] = __fadd_rn(cv[k], __fmul_rn(cs, Io<T>::ld(vc + off[k])));
-  }
-  // the derivative weights of corners(), applied once per corner
+// The coordinate-gradient rows of a point from its per-corner channel sums
+// cv: sum_k g_{a,k} cv_k, with the derivative weights gx = (sx * (wy * wz))
+// * mask, gy = (sy * (wx * wz)) * mask, gz = ((wx * wy) * sz) * mask (the JAX
+// package's) formed once per corner; written to r[0], r[stride] and
+// r[2 stride].
+__device__ __forceinline__ void rows_from_cv(const Axis& ax, const Axis& ay, const Axis& az,
+                                             int H, int W, int D, const float cv[8], float* r,
+                                             int stride) {
   const float wx[2] = {__fsub_rn(1.f, ax.f), ax.f};
   const float wy[2] = {__fsub_rn(1.f, ay.f), ay.f};
   const float wz[2] = {__fsub_rn(1.f, az.f), az.f};
@@ -248,10 +218,60 @@ sample_trilinear_bwd_kernel(const T* __restrict__ vol, const float* __restrict__
     ry = k ? __fadd_rn(ry, ty) : ty;
     rz = k ? __fadd_rn(rz, tz) : tz;
   }
+  r[0] = rx;
+  r[stride] = ry;
+  r[2 * stride] = rz;
+}
+
+// The 8 corners' offsets: the lower corner's clamped linear index plus one
+// step per axis, 0 where the clamp folds the two corners of that axis
+// together, so a masked corner reads an in-range voxel (its weights carry
+// the mask).
+template <int OS = 1>  // off[k] at off[k * OS]
+__device__ __forceinline__ void corner_offsets(const Axis& ax, const Axis& ay, const Axis& az,
+                                               int H, int W, int D, int* off) {
+  const int x0 = clampi(ax.i0, 0, H - 1), y0 = clampi(ay.i0, 0, W - 1), z0 = clampi(az.i0, 0, D - 1);
+  const int sx = (clampi(ax.i0 + 1, 0, H - 1) - x0) * W * D;
+  const int sy = (clampi(ay.i0 + 1, 0, W - 1) - y0) * D;
+  const int sz = clampi(az.i0 + 1, 0, D - 1) - z0;
+  const int base = (x0 * W + y0) * D + z0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    off[k * OS] = base + ((k & 4) ? sx : 0) + ((k & 2) ? sy : 0) + ((k & 1) ? sz : 0);
+}
+
+// Channels first, then corners (the TPU kernel's order).
+template <typename T>
+__global__ void __launch_bounds__(NT, 4)
+sample_trilinear_bwd_kernel(const T* __restrict__ vol, const float* __restrict__ grid,
+                            const float* __restrict__ ct, float* __restrict__ rows, int B,
+                            int C, int H, int W, int D, int N, float scale) {
+  const long long t = (long long)blockIdx.x * NT + threadIdx.x;
+  if (t >= (long long)B * N) return;
+  const int b = (int)(t / N), n = (int)(t % N);
+  const float* g = grid + t * 3;
+  const Axis ax = split(unnormalize(g[0], H));
+  const Axis ay = split(unnormalize(g[1], W));
+  const Axis az = split(unnormalize(g[2], D));
+  int off[8];
+  corner_offsets(ax, ay, az, H, W, D, off);
+  const size_t hwd = (size_t)H * W * D;
+  const T* v = vol + (size_t)b * C * hwd;
+  const float* cb = ct + (size_t)b * C * N + n;
+  float cv[8];
+  // the cotangent is read once: streamed past the caches the gathers use
+  const float cs0 = __fmul_rn(__ldcs(cb), scale);
+#pragma unroll
+  for (int k = 0; k < 8; ++k) cv[k] = __fmul_rn(cs0, Io<T>::ld(v + off[k]));
+#pragma unroll 4
+  for (int c = 1; c < C; ++c) {
+    const T* vc = v + (size_t)c * hwd;
+    const float cs = __fmul_rn(__ldcs(cb + (size_t)c * N), scale);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) cv[k] = __fadd_rn(cv[k], __fmul_rn(cs, Io<T>::ld(vc + off[k])));
+  }
   float* r = rows + (size_t)b * 3 * N;
-  r[n] = rx;
-  r[N + n] = ry;
-  r[2 * N + n] = rz;
+  rows_from_cv(ax, ay, az, H, W, D, cv, r + n, N);
 }
 
 // fixed-order reduction of one value per thread over a CTA of NT threads
@@ -270,46 +290,87 @@ __device__ __forceinline__ float block_sum(float v, float* warp_sums) {
   return s;  // valid in thread 0
 }
 
+// One channel of the data term at a point: the sample s = sum_k w_k v_k, the
+// residual against the fixed feature f, its square into ssq, and ct * v_k
+// into the corner sums cv (set instead of added for the first channel).
+// Offset and weight k are off[k * NT] and w[k * NT], the thread's slots in
+// shared memory.
+template <typename T, bool FIRST>
+__device__ __forceinline__ void ssd_channel(const T* v, const int* off, const float* w,
+                                            float f, float chain, float cv[8], float& ssq) {
+  float val[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) val[k] = Io<T>::ld(v + off[k * NT]);
+  float s = __fmul_rn(val[0], w[0]);
+#pragma unroll
+  for (int k = 1; k < 8; ++k) s = __fadd_rn(s, __fmul_rn(val[k], w[k * NT]));
+  const float res = __fsub_rn(s, f);
+  const float sq = __fmul_rn(res, res);
+  ssq = FIRST ? sq : __fadd_rn(ssq, sq);
+  const float ct = __fmul_rn(res, chain);
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    cv[k] = FIRST ? __fmul_rn(ct, val[k]) : __fadd_rn(cv[k], __fmul_rn(ct, val[k]));
+}
+
+// The sample position's floor and fraction per axis, index + disp * fac.
+__device__ __forceinline__ void ssd_axes(const float* __restrict__ disp, int n, int N, int W,
+                                         int D, float fac0, float fac1, float fac2, Axis& ax,
+                                         Axis& ay, Axis& az) {
+  const int i = n / (W * D), j = (n / D) % W, l = n % D;
+  ax = split(__fadd_rn((float)i, __fmul_rn(disp[n], fac0)));
+  ay = split(__fadd_rn((float)j, __fmul_rn(disp[N + n], fac1)));
+  az = split(__fadd_rn((float)l, __fmul_rn(disp[2 * N + n], fac2)));
+}
+
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 4)
 warp_ssd_kernel(const T* __restrict__ mov, const float* __restrict__ disp,
                 const float* __restrict__ fix, float* __restrict__ rows,
                 float* __restrict__ partials, int C, int H, int W, int D, float fac0,
                 float fac1, float fac2, float chain) {
   __shared__ float warp_sums[NT / 32];
+  // the point's 8 corner offsets and weights, read once a channel from
+  // shared memory rather than held in registers: 64 registers, so four CTAs
+  // an SM hide more of the gathers' latency
+  __shared__ int osm[8 * NT];
+  __shared__ float wsm[8 * NT];
+  int* off = osm + threadIdx.x;  // corner k at [k * NT]
+  float* w = wsm + threadIdx.x;
   const int N = H * W * D;
   const int n = blockIdx.x * NT + threadIdx.x;
   float ssq = 0.f;
   if (n < N) {
-    const int i = n / (W * D), j = (n / D) % W, l = n % D;
-    const Axis ax = split(__fadd_rn((float)i, __fmul_rn(disp[n], fac0)));
-    const Axis ay = split(__fadd_rn((float)j, __fmul_rn(disp[N + n], fac1)));
-    const Axis az = split(__fadd_rn((float)l, __fmul_rn(disp[2 * N + n], fac2)));
-    Corners cr;
-    float gx[8], gy[8], gz[8];
-    corners(ax, ay, az, H, W, D, cr, gx, gy, gz);
-    float dx = 0.f, dy = 0.f, dz = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const T* v = mov + (size_t)c * N;
-      float s = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
+    {
+      Axis ax, ay, az;
+      ssd_axes(disp, n, N, W, D, fac0, fac1, fac2, ax, ay, az);
+      corner_offsets<NT>(ax, ay, az, H, W, D, off);
+      // the trilinear weights of corners(), ((wx * wy) * wz) * mask
+      const float wx[2] = {__fsub_rn(1.f, ax.f), ax.f};
+      const float wy[2] = {__fsub_rn(1.f, ay.f), ay.f};
+      const float wz[2] = {__fsub_rn(1.f, az.f), az.f};
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        const float val = Io<T>::ld(v + cr.off[k]);
-        s = __fadd_rn(s, __fmul_rn(val, cr.w[k]));
-        sx = __fadd_rn(sx, __fmul_rn(val, gx[k]));
-        sy = __fadd_rn(sy, __fmul_rn(val, gy[k]));
-        sz = __fadd_rn(sz, __fmul_rn(val, gz[k]));
+        const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+        const int xi = ax.i0 + dx, yi = ay.i0 + dy, zi = az.i0 + dz;
+        const bool in = xi >= 0 && xi < H && yi >= 0 && yi < W && zi >= 0 && zi < D;
+        w[k * NT] = __fmul_rn(__fmul_rn(__fmul_rn(wx[dx], wy[dy]), wz[dz]), in ? 1.f : 0.f);
       }
-      const float res = __fsub_rn(s, fix[(size_t)c * N + n]);
-      ssq = __fadd_rn(ssq, __fmul_rn(res, res));
-      const float ct = __fmul_rn(res, chain);
-      dx = __fadd_rn(dx, __fmul_rn(ct, sx));
-      dy = __fadd_rn(dy, __fmul_rn(ct, sy));
-      dz = __fadd_rn(dz, __fmul_rn(ct, sz));
     }
-    rows[n] = dx;
-    rows[N + n] = dy;
-    rows[2 * N + n] = dz;
+    // the fixed features are read once: streamed past the caches the
+    // gathers use
+    const float* f = fix + n;
+    float cv[8];
+    ssd_channel<T, true>(mov, off, w, __ldcs(f), chain, cv, ssq);
+#pragma unroll 1
+    for (int c = 1; c < C; ++c)
+      ssd_channel<T, false>(mov + (size_t)c * N, off, w, __ldcs(f + (size_t)c * N), chain, cv,
+                            ssq);
+    // the position again rather than kept across the channels: fewer
+    // registers, more CTAs an SM
+    Axis ax, ay, az;
+    ssd_axes(disp, n, N, W, D, fac0, fac1, fac2, ax, ay, az);
+    rows_from_cv(ax, ay, az, H, W, D, cv, rows + n, N);
   }
   const float s = block_sum(ssq, warp_sums);
   if (threadIdx.x == 0) partials[blockIdx.x] = s;
@@ -345,8 +406,9 @@ int launch_ssd(const void* mov, const void* disp, const void* fix, void* rows, v
 
 }  // namespace
 
-// Number of per-CTA partials warp_ssd_loss_grad writes for N points.
-extern "C" int warp_ssd_num_partials(int N) { return (N + NT - 1) / NT; }
+// Threads per CTA of warp_ssd_kernel: warp_ssd_loss_grad writes one
+// partial sum per CTA, ceil(N / warp_ssd_threads()) for N points.
+extern "C" int warp_ssd_threads() { return NT; }
 
 // vol (B, C, H, W, D) float32 (bf16 == 0) or bfloat16 (bf16 == 1); grid
 // (B, N, 3) and out (B, C, N) float32.
@@ -412,7 +474,7 @@ extern "C" int sample_trilinear_bwd(const void* vol, const void* grid, const voi
 
 // mov (C, H, W, D) float32 (bf16 == 0) or bfloat16 (bf16 == 1); disp (3, H, W, D),
 // fix (C, H*W*D) and rows (3, H*W*D) float32; partials holds
-// warp_ssd_num_partials(H*W*D) floats and total one float.
+// ceil(H*W*D / warp_ssd_threads()) floats and total one float.
 extern "C" int warp_ssd_loss_grad(const void* mov, const void* disp, const void* fix, void* rows,
                                   void* partials, void* total, int C, int H, int W, int D,
                                   float fac0, float fac1, float fac2, float chain, int bf16,

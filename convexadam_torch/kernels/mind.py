@@ -1,7 +1,9 @@
 """MIND-SSC statistics: wrapper of ``csrc/mind.cu`` and its plain version.
 
-Replaces ``convexadam_tpu/ops/mind_pallas.py:mind_ssd_stats_pallas``.  Both
-versions return ``mind = boxmean(diff^2) - min_c`` (12, H, W, D) in the
+Replaces ``convexadam_tpu/ops/mind_pallas.py:mind_ssd_stats_pallas``.  On the
+card the radii and dilations in {1, 2, 3} run a kernel compiled for them,
+any other pair a general kernel with both at run time.  Both versions
+return ``mind = boxmean(diff^2) - min_c`` (12, H, W, D) in the
 input dtype and ``var = mean_c(mind)`` (H, W, D) in float32: everything of
 MIND-SSC before the global-mean variance clamp.
 """
@@ -9,6 +11,7 @@ MIND-SSC before the global-mean variance clamp.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -40,6 +43,14 @@ def _pair_offsets(dilation: int):
         (tuple((c - 1) * dilation for c in s1), tuple((c - 1) * dilation for c in s2))
         for s1, s2 in _mind_shift_pairs()
     ]
+
+
+@functools.lru_cache(maxsize=None)
+def _offsets_arg(dilation: int):
+    """The 12 x 2 x 3 pair offsets as a C int array (read by the general
+    kernel), made once per dilation."""
+    flat = [v for o1, o2 in _pair_offsets(dilation) for v in (*o1, *o2)]
+    return (ctypes.c_int * len(flat))(*flat)
 
 
 def shifted_replicate(img: torch.Tensor, offset: Sequence[int]) -> torch.Tensor:
@@ -94,13 +105,11 @@ def mind_ssd_stats(x: torch.Tensor, radius: int, dilation: int):
     H, W, D = x.shape
     mind = torch.empty((12, H, W, D), dtype=x.dtype, device=x.device)
     var = torch.empty((H, W, D), dtype=torch.float32, device=x.device)
-    flat = [v for o1, o2 in _pair_offsets(dilation) for v in (*o1, *o2)]
-    offs = (ctypes.c_int * len(flat))(*flat)
     P, I = _build.P, _build.I  # noqa: E741
     fn = _build.bind("mind", "mind_ssd_stats", [P, P, P, I, I, I, I, I, I, P, P])
     err = _build.call_on(
         x.device, fn, x.data_ptr(), mind.data_ptr(), var.data_ptr(), H, W, D, radius, dilation,
-        int(x.dtype == torch.bfloat16), ctypes.addressof(offs),
+        int(x.dtype == torch.bfloat16), ctypes.addressof(_offsets_arg(dilation)),
     )
     _build.check(err, "mind_ssd_stats")
     LAUNCHES["mind_ssd_stats"] += 1

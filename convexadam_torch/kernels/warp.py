@@ -22,14 +22,16 @@ The plain versions repeat the kernels' arithmetic operation by operation
 ascending order), so they agree with the kernels to the bit except for the
 order of the ``sum(res^2)`` reduction.
 
-The sampler wrappers sit on short host paths (the inverse-consistency steps
-sample 2 x 3 x 32^3 points, far less work than issuing a launch): their
-entries' argument types are fixed once, at import.
+The wrappers sit on short host paths (the inverse-consistency steps sample
+2 x 3 x 32^3 points, far less work than issuing a launch, and the Adam loop
+calls the data term 80 times a registration): their entries' argument types
+are fixed once, and ctypes converts the float arguments itself.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,6 +41,7 @@ P, I, F = _build.P, _build.I, _build.F  # noqa: E741
 _SAMPLE_ARGS = (P, P, P, I, I, I, I, I, I, I, P)
 _IC_ARGS = (P, P, P, P, P, I, I, I, I, P)
 _BWD_ARGS = (P, P, P, P, I, I, I, I, I, I, F, I, P)
+_SSD_ARGS = (P, P, P, P, P, P, I, I, I, I, F, F, F, F, I, P)
 
 
 def _split(p: torch.Tensor):
@@ -264,27 +267,38 @@ def _positions(disp: torch.Tensor, fac) -> "list[torch.Tensor]":
 
 
 def warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain):
-    """Plain PyTorch version of :func:`warp_ssd_loss_grad`."""
+    """Plain PyTorch version of :func:`warp_ssd_loss_grad`, in its order: per
+    channel the sample ``s = sum_k w_k v_k`` and the residual, then per
+    corner the channel sum ``cv_k = sum_c (res_c * chain) * v_{k,c}``, then
+    the rows ``sum_k g_k * cv_k``."""
     C, H, W, D = mov.shape
     axes = [_split(p) for p in _positions(disp, fac)]
     flat = mov.float().reshape(C, H * W * D)
-    s = sx = sy = sz = None
-    for lin, w, gx, gy, gz in _corners(axes, H, W, D, grads=True):
-        v = flat[:, lin]
-        if s is None:
-            s, sx, sy, sz = v * w, v * gx, v * gy, v * gz
-        else:
-            s, sx, sy, sz = s + v * w, sx + v * gx, sy + v * gy, sz + v * gz
+    corners = _corners(axes, H, W, D, grads=True)
+    vals = [flat[:, lin] for lin, *_ in corners]
+    s = None
+    for v, (_, w, *_) in zip(vals, corners):
+        s = v * w if s is None else s + v * w
     res = s - fix_flat
     ssq = (res * res).sum()
     ct = res * chain
-    rows = []
-    for g in (sx, sy, sz):
-        acc = ct[0] * g[0]
+    rows = None
+    for v, (_, _, gx, gy, gz) in zip(vals, corners):
+        prod = ct * v
+        cv = prod[0]
         for c in range(1, C):
-            acc = acc + ct[c] * g[c]
-        rows.append(acc)
+            cv = cv + prod[c]
+        terms = (cv * gx, cv * gy, cv * gz)
+        rows = terms if rows is None else tuple(r + t for r, t in zip(rows, terms))
     return ssq, torch.stack(rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _ssd_entry():
+    """The bound C entry of :func:`warp_ssd_loss_grad` and its CTA size (one
+    partial sum per CTA), read once."""
+    return (_build.bind("warp", "warp_ssd_loss_grad", _SSD_ARGS),
+            _build.bind("warp", "warp_ssd_threads", ())())
 
 
 def warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain: float):
@@ -306,19 +320,16 @@ def warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain: float):
     _build.require(fix_flat, "warp_ssd_loss_grad fix", (torch.float32,), (C, N))
     if disp.device != mov.device or fix_flat.device != mov.device:
         raise ValueError("warp_ssd_loss_grad: all tensors must lie on one device")
-    n_parts = _build.bind("warp", "warp_ssd_num_partials", [I])(N)
-    rows = torch.empty((3, N), dtype=torch.float32, device=mov.device)
-    partials = torch.empty((n_parts,), dtype=torch.float32, device=mov.device)
-    total = torch.empty((1,), dtype=torch.float32, device=mov.device)
-    fn = _build.bind(
-        "warp", "warp_ssd_loss_grad", [P, P, P, P, P, P, I, I, I, I, F, F, F, F, I, P]
-    )
+    fn, threads = _ssd_entry()
+    parts = -(-N // threads)
+    # one allocation: the rows, the per-CTA partials, the total
+    buf = torch.empty((3 * N + parts + 1,), dtype=torch.float32, device=mov.device)
+    ptr = buf.data_ptr()
     err = _build.call_on(
-        mov.device, fn, mov.data_ptr(), disp.data_ptr(), fix_flat.data_ptr(), rows.data_ptr(),
-        partials.data_ptr(), total.data_ptr(), C, H, W, D, ctypes.c_float(fac[0]),
-        ctypes.c_float(fac[1]), ctypes.c_float(fac[2]), ctypes.c_float(chain),
+        mov.device, fn, mov.data_ptr(), disp.data_ptr(), fix_flat.data_ptr(), ptr,
+        ptr + 4 * 3 * N, ptr + 4 * (3 * N + parts), C, H, W, D, fac[0], fac[1], fac[2], chain,
         int(mov.dtype == torch.bfloat16),
     )
     _build.check(err, "warp_ssd_loss_grad")
     LAUNCHES["warp_ssd_loss_grad"] += 1
-    return total[0], rows
+    return buf[3 * N + parts], buf[: 3 * N].view(3, N)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Host time per call of the port's trilinear sampler wrapper on a CUDA card.
+"""Host time per call of the port's sampler and data-term wrappers on a CUDA card.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -12,8 +12,11 @@ float32 fields sampled at a displaced identity grid, it times on the host
 clock ``--calls`` calls of ``sample_trilinear`` and of ``F.grid_sample`` on
 the same inputs, each run synchronized once at its end (so a time is what
 the host spends issuing a call while the card keeps up), and one
-``inverse_consistency`` call of 15 steps.  It prints
-one JSON line with the card's name and power limit.
+``inverse_consistency`` call of 15 steps; and ``--calls`` calls of the Adam
+data term ``warp_ssd_loss_grad`` on a 12 x 24^3 grid with bfloat16 moving
+features (its launches take a few microseconds, so the host's issue time is
+what the run measures), two readings, one before and one after the others.
+It prints one JSON line with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ def main() -> int:
     import convexadam_torch
     from convexadam_torch.core.warp import identity_grid_normalized, inverse_consistency
     from convexadam_torch.kernels import _build
-    from convexadam_torch.kernels.warp import sample_trilinear
+    from convexadam_torch.kernels.warp import sample_trilinear, warp_ssd_loss_grad
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -72,6 +75,16 @@ def main() -> int:
 
     res = {"card": smi, "package": str(pathlib.Path(convexadam_torch.__file__).parent),
            "calls": args.calls}
+    C, H = 12, 24
+    ssd_fix = torch.rand((C, H ** 3), generator=gen).to(dev)
+    ssd_mov = torch.rand((C, H, H, H), generator=gen).to(dev).to(torch.bfloat16)
+    ssd_disp = (torch.randn((3, H, H, H), generator=gen) * 0.5).to(dev)
+    fac = (H / (H - 1.0),) * 3
+
+    def data_term():
+        return warp_ssd_loss_grad(ssd_mov, ssd_disp, ssd_fix, fac, 2.0 * 12.0 / (C * H ** 3))
+
+    res["warp_ssd_loss_grad_host_us"] = [host_us(data_term, args.calls)]
     # in turns: wrapper, library, library, wrapper
     runs = {"sample_trilinear": [], "grid_sample": []}
     for name in ("sample_trilinear", "grid_sample", "grid_sample", "sample_trilinear"):
@@ -81,6 +94,7 @@ def main() -> int:
     res.update({f"{k}_host_us": v for k, v in runs.items()})
     res["inverse_consistency_15_host_us"] = host_us(
         lambda: inverse_consistency(fields[0], fields[1], 15), max(args.calls // 10, 1))
+    res["warp_ssd_loss_grad_host_us"].append(host_us(data_term, args.calls))
     print(json.dumps(res))
     return 0
 

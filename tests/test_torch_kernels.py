@@ -8,6 +8,9 @@ runs it, at shapes the Pallas guards accept.  Inputs are made from a seed
 with numpy and handed to both.
 """
 
+import pathlib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,12 +18,13 @@ import torch
 
 from convexadam_tpu.core.warp import build_corner_stack
 from convexadam_tpu.ops.cost_volume_pallas import cost_volume_pallas
-from convexadam_tpu.ops.mind_pallas import mind_ssd_stats_pallas
+from convexadam_tpu.ops.mind_pallas import mind_ssd_stats_pallas, mind_supported
 from convexadam_tpu.ops.warp_pallas import corner_reduce_fwd, corner_reduce_loss_grad
 from convexadam_torch.core.warp import identity_grid_normalized
 from convexadam_torch.kernels import LAUNCHES
 from convexadam_torch.kernels.cost_volume import cost_volume
-from convexadam_torch.kernels.mind import mind_ssd_stats
+import convexadam_torch.kernels.mind as kmind
+from convexadam_torch.kernels.mind import _pair_offsets, mind_ssd_stats
 from convexadam_torch.kernels.warp import (
     inverse_consistency_steps,
     inverse_consistency_steps_plain,
@@ -33,15 +37,78 @@ from convexadam_torch.kernels.warp import (
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("r,d", [(1, 2), (2, 1)])
-def test_mind_ssd_stats_matches_pallas(rng, r, d):
+MIND_PAIRS = [(r, d) for r in (1, 2, 3) for d in (1, 2, 3)]  # the search's radii and dilations
+
+
+@pytest.mark.parametrize("r,d,dtype", [(r, d, "float32") for r, d in MIND_PAIRS]
+                         + [(1, 2, "bfloat16")])
+def test_mind_ssd_stats_matches_pallas(rng, r, d, dtype):
+    shape = (16, 16, 20)
+    assert mind_supported(shape, r, d, 2 if dtype == "bfloat16" else 4)
+    x = rng.standard_normal(shape).astype(np.float32)
+    mind_p, var_p = mind_ssd_stats_pallas(jnp.asarray(x).astype(dtype), r, d, interpret=True)
+    mind_t, var_t = mind_ssd_stats(torch.from_numpy(x).to(getattr(torch, dtype)), r, d)
+    assert mind_t.dtype == getattr(torch, dtype) and var_t.dtype == torch.float32
+    mind_p = np.asarray(mind_p.astype(jnp.float32))
+    if dtype == "float32":
+        # same operations in the same order; the box divisor and the channel
+        # mean are true divisions here, a multiply by the reciprocal in XLA
+        np.testing.assert_allclose(mind_t.numpy(), mind_p, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(var_t.numpy(), np.asarray(var_p), rtol=1e-5, atol=1e-6)
+    else:
+        # bf16: mind equal to the bit here; the Pallas kernel's var adds the
+        # channels' differences before XLA rounds them to bf16 (excess
+        # precision), so within 2^-7 relative (one or two bf16 ulps)
+        np.testing.assert_array_equal(mind_t.float().numpy(), mind_p)
+        np.testing.assert_allclose(var_t.numpy(), np.asarray(var_p), rtol=2.0**-7)
+
+
+def test_mind_bf16_pallas_divides_by_bf16_343(rng, monkeypatch):
+    """At radius 3 in bf16 the Pallas kernel divides the box sums by k^3 =
+    343 rounded to bf16, 344 (``acc3 / float(k**3)`` on a bf16 tile); the
+    port divides by 343 exactly.  With the divisor 344 the plain version
+    equals the Pallas kernel to the bit, so that is the only difference."""
     x = rng.standard_normal((16, 16, 20)).astype(np.float32)
-    mind_p, var_p = mind_ssd_stats_pallas(jnp.asarray(x), r, d, interpret=True)
-    mind_t, var_t = mind_ssd_stats(torch.from_numpy(x), r, d)
-    # same operations in the same order; the box divisor and the channel
-    # mean are true divisions on both sides
-    np.testing.assert_allclose(mind_t.numpy(), np.asarray(mind_p), rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(var_t.numpy(), np.asarray(var_p), rtol=1e-5, atol=1e-6)
+    mind_p, _ = mind_ssd_stats_pallas(jnp.asarray(x).astype("bfloat16"), 3, 1, interpret=True)
+    mind_p = np.asarray(mind_p.astype(jnp.float32))
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    exact = kmind.mind_ssd_stats_plain(xt, 3, 1)[0].float().numpy()
+    true_div = kmind._true_div
+    monkeypatch.setattr(kmind, "_true_div", lambda t, v: true_div(t, 344.0 if v == 343.0 else v))
+    as_pallas = kmind.mind_ssd_stats_plain(xt, 3, 1)[0].float().numpy()
+    np.testing.assert_array_equal(as_pallas, mind_p)
+    assert not np.array_equal(exact, mind_p)
+
+
+def test_mind_kernel_pair_table_matches_shift_pairs():
+    """The compile-time MIND kernel's table of the 12 shift pairs
+    (``csrc/mind.cu:pair_code``, each shift coded (oh+1)*9 + (ow+1)*3 +
+    (od+1)) is the plain version's ``_pair_offsets``, pair by pair."""
+    src = (pathlib.Path(__file__).resolve().parent.parent / "convexadam_torch" / "csrc"
+           / "mind.cu").read_text()
+    body = src[src.index("pair_code(int c)"):]
+    body = body[: body.index("}\n}")]
+    codes = [tuple(map(int, m)) for m in re.findall(r"return (\d+) \* 27 \+ (\d+);", body)]
+
+    def offset(code):
+        return (code // 9 - 1, (code // 3) % 3 - 1, code % 3 - 1)
+
+    assert [(offset(a), offset(b)) for a, b in codes] == _pair_offsets(1)
+
+
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_mind_bf16_mean_by_reciprocal_equals_true_division(r):
+    """The compile-time MIND kernel's bf16 box mean multiplies the sum by the
+    float reciprocal of k^3 (``csrc/mind.cu``, ``Pair<__nv_bfloat16>::mean``);
+    the plain version divides.  For every finite bf16 sum, subnormals
+    included, both round to the same bf16."""
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    a = bits[torch.isfinite(bits)]
+    k3 = float((2 * r + 1) ** 3)
+    rk3 = torch.tensor(np.float32(1.0) / np.float32(k3))
+    by_reciprocal = (a.float() * rk3).to(torch.bfloat16)
+    torch.testing.assert_close(by_reciprocal, kmind._true_div(a, k3), rtol=0, atol=0)
+    assert (a.float().abs() < 2.0**-126 * k3).sum() > 0  # subnormal quotients are in the set
 
 
 @pytest.mark.parametrize("q", [1, 2])
@@ -110,8 +177,9 @@ def test_sample_trilinear_bf16_matches_corner_reduce_fwd(rng):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_warp_ssd_loss_grad_matches_pallas(rng, dtype):
-    C, H, W, D = 3, 8, 8, 8
+@pytest.mark.parametrize("C", [3, 12, 14])
+def test_warp_ssd_loss_grad_matches_pallas(rng, dtype, C):
+    H, W, D = 8, 8, 8
     n = H * W * D
     cost_scale = 12.0
     mov = rng.standard_normal((C, H, W, D)).astype(np.float32)
@@ -135,11 +203,14 @@ def test_warp_ssd_loss_grad_matches_pallas(rng, dtype):
     ssq_t, rows_t = warp_ssd_loss_grad(
         mov_t, torch.from_numpy(disp), torch.from_numpy(fix), fac, chain
     )
-    # the sums run over corners and channels in another association than
-    # the Pallas kernel's: 1e-5 relative
-    np.testing.assert_allclose(float(ssq_t), float(np.sum(ssq_p)), rtol=1e-5)
+    # the Pallas kernel's order (residuals, then per corner the channel sum,
+    # then the rows); only its jnp.sum over the channels and over the tile
+    # associate differently: about 2e-7 of the largest entry, hence 5e-7
+    # (the order of value and three derivatives per channel needed 1e-5
+    # relative plus 1e-5 of the largest entry)
+    np.testing.assert_allclose(float(ssq_t), float(np.sum(ssq_p)), rtol=1e-6)
     dg_p = np.asarray(dg_p)
-    np.testing.assert_allclose(rows_t.numpy(), dg_p, rtol=1e-5, atol=1e-5 * np.abs(dg_p).max())
+    np.testing.assert_allclose(rows_t.numpy(), dg_p, rtol=0, atol=5e-7 * np.abs(dg_p).max())
 
 
 def _ic_loop(disp1, disp2, iters):
