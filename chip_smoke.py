@@ -9,8 +9,9 @@ Phases, each fatal on failure:
   1. card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
   2. build: the CUDA kernels of ``convexadam_torch/csrc`` (one nvcc per source),
      with the registers and spills ``ptxas`` reports for the kernels of
-     ``warp.cu`` and ``mind.cu`` (the backward kernel must fit 64 registers;
-     the data term's and the compile-time MIND kernels must not spill);
+     ``warp.cu``, ``mind.cu`` and ``cost_volume.cu`` (the backward kernel must
+     fit 64 registers; the data term's, the forward sampler's, the
+     compile-time MIND kernels and every cost-volume kernel must not spill);
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes and dtypes (and a ragged shape for the MIND and
      sampling kernels; the sampler with float32 and bfloat16 volumes), with
@@ -25,10 +26,17 @@ Phases, each fatal on failure:
      every (r, d) in {1, 2, 3}^2 on ragged 37 x 41 x 29, 37 x 41 x 150 and
      37 x 41 x 131 crops (f32, bf16), plus (4, 1) at 37 x 41 x 29, which must
      run the general kernel;
+  3b. the cost volume to the bit at 12 x 32^3 (q = 4, the main path's
+     pooled MIND features), at the semantic grid 14 x 32 x 26 x 42 (q = 4)
+     and the sweep's 12 x 64 x 53 x 85 (q = 7), all timed (the sweep's
+     plain version not), and at every q in 1..7 and q = 8 on ragged crops
+     across the kernels' tiles and channel chunks, where the profiler must
+     see each q's own kernel (q = 8: the general one);
   3d. the Adam data term, rows to the bit, at 12 x 96^3 (bf16 and f32) and
      at the semantic Adam grid 14 x 96 x 80 x 128 (bf16), all timed, and on a
      ragged grid with points past every face;
-  3c. the sampler on the inverse-consistency fields, and the fused
+  3c. the sampler on the inverse-consistency fields (to the bit, and to
+     1e-5 against ``F.grid_sample``), and the fused
      inverse-consistency steps (15 per call, 2 x 3 x 32^3 and a ragged 37 x
      41 x 29 pair sent past every face) against their plain version and
      against the composition they replace (grid adds, one sampler launch
@@ -98,9 +106,12 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s
+# H100 SXM datasheet peaks: HBM bytes/s, f32 FLOP/s (fused multiply-adds
+# count two), and separately rounded f32 operations a second (132 SMs x 128
+# lanes x 1.98 GHz: an operation that cannot fuse takes a lane's whole clock)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F32_UNFUSED = 33.5e12
 
 HEADLINE_SHAPE = (192, 192, 192)
 HEADLINE_SHIFT = (5, -4, 3)
@@ -115,6 +126,18 @@ RAGGED_SHAPE = (37, 41, 29)
 # multiple of it: a tile seam, a partial last tile, and paired stores (even
 # D) or single ones (odd D)
 MIND_WIDE_SHAPES = ((37, 41, 150), (37, 41, 131))
+# phase 3b's cost volumes (C, h, w, d) beside the main path's: the semantic
+# entry's coarse grid (192 x 160 x 256 at grid_sp 6, q = 4), the stage-1
+# sweep's largest (192 x 160 x 256 at grid_sp 3, at its widest q, 7), and
+# ragged crops across the compiled kernel's 4-row j tiles, 32-voxel l tiles
+# and 16-channel chunks (C = 21) and the general kernel's 8-row j tiles, with
+# d = 37 and 70 (not multiples of 4: 4-byte stores) and d = 40 (16-byte
+# stores, a partial l tile), run at every q in 1..7 and at q = 8, which runs
+# the general kernel
+COST_VOLUME_SEMANTIC = (14, 32, 26, 42)
+COST_VOLUME_SWEEP = (12, 64, 53, 85)
+SWEEP_Q = 7
+COST_VOLUME_RAGGED = ((12, 9, 11, 37), (14, 7, 10, 40), (21, 6, 9, 70))
 L2R_LABELS = 13  # the organ count of Learn2Reg's Abdomen CT-CT task
 L2R_MARGIN = 36  # voxels from every face: inside the crop phase 4 checks
 L2R_LARGE_AXES = (35, 41)  # semi-axis range of the liver-sized organ
@@ -252,9 +275,12 @@ def timed_turns(torch, kern, kernels, lib=None) -> dict:
     return out
 
 
-def bound_ms(nbytes: float, flops: float) -> "tuple[float, str]":
+def bound_ms(nbytes: float, flops: float, rate: float = PEAK_F32_FLOPS) -> "tuple[float, str]":
+    """The least time of the work: ``nbytes`` at the HBM rate or ``flops``
+    at ``rate`` (the FP32 peak; :data:`PEAK_F32_UNFUSED` for operations that
+    cannot fuse), whichever is longer."""
     tb = nbytes / PEAK_BYTES_S * 1e3
-    tf = flops / PEAK_F32_FLOPS * 1e3
+    tf = flops / rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -319,12 +345,13 @@ def search_cells(name, kq, kt, nq, nt, hq=0, ht=0, tiles=0) -> int:
     return live * TILE * TILE
 
 
-def kernel_record(name, shape, dtype, err, tol, t, p_ms, nbytes, flops, steps=1):
+def kernel_record(name, shape, dtype, err, tol, t, p_ms, nbytes, flops, steps=1,
+                  rate=PEAK_F32_FLOPS):
     """One record of the kernels line from :func:`timed_turns`' ``t``;
     every time is divided by ``steps``, the launches of one wrapper call,
     so that the record gives them per launch (``nbytes`` and ``flops`` are
-    one launch's)."""
-    b_ms, b_by = bound_ms(nbytes, flops)
+    one launch's, ``flops`` counted at ``rate``)."""
+    b_ms, b_by = bound_ms(nbytes, flops, rate)
 
     def per(v):
         return None if v is None else v / steps
@@ -556,7 +583,6 @@ def sampler_bwd_phase(torch, dev, gen):
     of the semantic Adam grid in bfloat16 and every case's numbers."""
     import torch.nn.functional as F
 
-    from convexadam_torch.core.warp import _displaced_grid, resize_trilinear
     from convexadam_torch.kernels.warp import (
         sample_trilinear,
         sample_trilinear_bwd,
@@ -564,27 +590,9 @@ def sampler_bwd_phase(torch, dev, gen):
         sample_trilinear_plain,
     )
 
-    adam_grid = tuple(s // 2 for s in ABDOMEN_SHAPE)  # the default grid_sp_adam of 2
     records, detail = [], []
-    for (C, *shape), dt in (((SEMANTIC_LABELS, *adam_grid), torch.bfloat16),
-                            ((SEMANTIC_LABELS, *adam_grid), torch.float32),
-                            ((3, 37, 41, 29), torch.float32)):
+    for C, shape, dt, vol, grid, ct in adam_sampler_cases(torch, dev, gen):
         n = int(np.prod(shape))
-        vol = torch.randn((1, C, *shape), generator=gen).to(dev).to(dt)
-        if C == SEMANTIC_LABELS:
-            # the Adam loop's kind of grid: a smooth field of a few voxels,
-            # past the faces only next to them
-            coarse = torch.randn((3, *[s // 8 for s in shape]), generator=gen) * 2.0
-            grid = _displaced_grid(shape, resize_trilinear(coarse, shape), False).reshape(1, n, 3)
-        else:
-            # the identity grid moved by up to 0.3 in normalized units:
-            # points past every face of the volume
-            ident = torch.stack(torch.meshgrid(
-                *[(2 * torch.arange(s, dtype=torch.float32) + 1) / s - 1 for s in shape],
-                indexing="ij"), -1).reshape(1, n, 3)
-            grid = ident + torch.rand((1, n, 3), generator=gen) * 0.6 - 0.3
-        grid = grid.to(dev).contiguous()
-        ct = torch.randn((1, C, n), generator=gen).to(dev)
         scale = 0.37
         rk = sample_trilinear_bwd(vol, grid, ct, scale)
         rp = sample_trilinear_bwd_plain(vol, grid, ct, scale)
@@ -677,21 +685,175 @@ def ptxas_entry(usage, *parts) -> dict:
     raise AssertionError(f"ptxas reported no kernel named like {parts}")
 
 
+NO_SPILL_KERNELS = ("warp_ssd_kernel", "mind_kernel", "sample_trilinear_kernel", "cost_volume")
+
+
 def ptxas_report(_build) -> dict:
-    """Print ptxas's registers and spills for the kernels of ``warp.cu`` and
-    ``mind.cu`` and check them: the backward sampler fits 64 registers, the
-    data term and the compile-time MIND kernels do not spill.  Returns every
+    """Print ptxas's registers and spills for the kernels of ``warp.cu``,
+    ``mind.cu`` and ``cost_volume.cu`` and check them: the backward sampler
+    fits 64 registers; the data term, the forward sampler, the compile-time
+    MIND kernels and every cost-volume kernel do not spill.  Returns every
     source's report."""
     usage = {name: _build.resource_usage(name) for name in _build.KERNEL_SOURCES}
-    for src in ("warp", "mind"):
+    for src in ("warp", "mind", "cost_volume"):
         for mangled, use in usage[src].items():
             print(f"ptxas {src}.cu {mangled}: {use}", flush=True)
             if "sample_trilinear_bwd_kernel" in mangled:
                 check(use["registers"] <= 64, f"{mangled}: {use['registers']} registers, over 64")
-            if "warp_ssd_kernel" in mangled or "mind_kernel" in mangled:
+            if any(k in mangled for k in NO_SPILL_KERNELS):
                 check(use.get("spill_stores", 0) + use.get("spill_loads", 0) == 0,
                       f"{mangled} spills: {use}")
     return usage
+
+
+def cost_volume_cases(torch, fix_s, mov_s, q):
+    """Phase 3b's inputs, ``(what, q, fix, mov)``, the main path's case
+    first: the headline pair's pooled MIND features ``fix_s``, ``mov_s`` at
+    the default half-width ``q``; then seeded features at the semantic grid
+    (:data:`COST_VOLUME_SEMANTIC`, ``q``) and the sweep's
+    (:data:`COST_VOLUME_SWEEP`, :data:`SWEEP_Q`), and on every
+    :data:`COST_VOLUME_RAGGED` crop at each q in 1..8."""
+    gen = torch.Generator().manual_seed(1)
+    dev = fix_s.device
+
+    def pair(shape, draw):
+        return tuple(draw(shape, generator=gen).to(dev) for _ in range(2))
+
+    yield ("default", q, fix_s, mov_s)
+    yield ("semantic", q, *pair(COST_VOLUME_SEMANTIC, torch.rand))
+    yield ("sweep", SWEEP_Q, *pair(COST_VOLUME_SWEEP, torch.randn))
+    for qr in range(1, 9):
+        for shape in COST_VOLUME_RAGGED:
+            yield ("ragged", qr, *pair(shape, torch.randn))
+
+
+def cost_volume_phase(torch, fix_s, mov_s, q):
+    """Phase 3b: ``cost_volume`` against its plain version to the bit on
+    :func:`cost_volume_cases`; on the first ragged crop of each q the
+    profiler must see one launch of the kernel :func:`kernel_for` names (the
+    instantiation for that q, or the general kernel); the default and
+    semantic cases are timed with their plain version, the sweep's without.
+    Returns the main case's record and every case's numbers."""
+    from convexadam_torch.kernels.cost_volume import cost_volume, cost_volume_plain, kernel_for
+
+    record, detail, profiled = None, [], set()
+    for what, qc, fix, mov in cost_volume_cases(torch, fix_s, mov_s, q):
+        C, h, w, d = fix.shape
+        name = f"cost_volume {what} {(C, h, w, d)} q={qc}"
+        ck = cost_volume(fix, mov, qc)
+        cp = cost_volume_plain(fix, mov, qc)
+        torch.cuda.synchronize()
+        tol = 0.0  # same float32 operations in the same channel order: to the bit
+        err = max_err(ck, cp)
+        del ck, cp
+        check(err <= tol, f"{name}: max err {err} > {tol}")
+        kernel = kernel_for(qc)
+        row = {"case": what, "shape": [C, h, w, d], "q": qc, "kernel": kernel, "max_abs_err": err}
+        if what == "ragged" and qc not in profiled:
+            profiled.add(qc)
+            # the profiler's name of the instantiation, e.g. cost_volume_kernel<4>
+            want = kernel + (f"<{qc}>" if kernel == "cost_volume_kernel" else "")
+            ran = device_times(torch, lambda: cost_volume(fix, mov, qc), (want,), 1, 1)
+            check(ran["device_launches"] == 1, f"{name}: {ran['device_launches']} launches of {want}")
+            row["ran"] = want
+        print(f"{name}: max_abs_err {err:.3e} (tol {tol:.1e}), {row.get('ran', kernel)}",
+              flush=True)
+        if what != "ragged":
+            K3, n = (2 * qc + 1) ** 3, h * w * d
+            # both feature volumes read once, the volume written once; 3
+            # separately rounded operations per output and channel
+            nbytes, ops = 2 * C * n * 4 + K3 * n * 4, 3.0 * K3 * n * C
+            t = timed_turns(torch, lambda: cost_volume(fix, mov, qc), GLOBALS["cost_volume"])
+            p_ms = (cuda_ms(torch, lambda: cost_volume_plain(fix, mov, qc))
+                    if what != "sweep" else None)
+            rec = kernel_record("cost_volume", [C, h, w, d, qc], "float32", err, tol, t, p_ms,
+                                nbytes, ops, rate=PEAK_F32_UNFUSED)
+            print_times(name, t, p_ms, rec["bound_ms"])
+            row.update({k: rec[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms",
+                                            "bound_by")})
+            if record is None:
+                record = rec
+        detail.append(row)
+    return record, detail
+
+
+def sampler_phase(torch, dev, gen, coarse):
+    """Phase 3c's sampler: ``sample_trilinear`` on inverse consistency's 2 x
+    3 fields of the ``coarse`` grid (float32 and bfloat16 volumes) and of a
+    ragged 37 x 41 x 29 grid, to the bit against its plain version and to
+    1e-5 against ``F.grid_sample``; the coarse float32 case timed.  Returns
+    that case's record and every case's numbers."""
+    import torch.nn.functional as F
+
+    from convexadam_torch.kernels.warp import sample_trilinear, sample_trilinear_plain
+
+    record, detail = None, []
+    for shape in (coarse, (37, 41, 29)):
+        nvox = shape[0] * shape[1] * shape[2]
+        # 2 x 3 fields of 0.1 normalized units, sampled at the identity grid
+        # displaced by the swapped fields
+        fields32 = (torch.randn((2, 3) + shape, generator=gen) * 0.1).to(dev)
+        ident = torch.stack(torch.meshgrid(
+            *[(2 * torch.arange(s, dtype=torch.float32) + 1) / s - 1 for s in shape],
+            indexing="ij"), -1).reshape(1, nvox, 3).to(dev)
+        grid = (ident + fields32.flip(0).permute(0, 2, 3, 4, 1).reshape(2, nvox, 3)).contiguous()
+        g5 = grid.flip(-1).reshape(2, 1, 1, nvox, 3)
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16) if shape == coarse else (torch.float32,):
+            fields = fields32.to(dt)
+            sk = sample_trilinear(fields, grid)
+            sp = sample_trilinear_plain(fields, grid)
+            lib = F.grid_sample(fields.float(), g5, mode="bilinear", padding_mode="zeros",
+                                align_corners=False).reshape(2, 3, nvox)
+            torch.cuda.synchronize()
+            err = errs[dt] = max_err(sk, sp)
+            tol = 0.0  # same weights and corner order: to the bit
+            check(err <= tol, f"sample_trilinear {shape} {dt}: max err {err} > {tol}")
+            lib_err = max_err(sk, lib)
+            check(lib_err <= 1e-5, f"sample_trilinear {shape} {dt} vs F.grid_sample: {lib_err}")
+            print(f"sample_trilinear {shape} {dt}: max_abs_err {err:.3e} (tol {tol:.1e}); "
+                  f"vs F.grid_sample {lib_err:.3e}", flush=True)
+            detail.append({"shape": [2, 3, *shape], "dtype": str(dt), "max_abs_err": err,
+                           "vs_grid_sample": lib_err})
+        if shape == coarse:
+            t = timed_turns(torch, lambda: sample_trilinear(fields32, grid),
+                            GLOBALS["sample_trilinear"],
+                            lambda: F.grid_sample(fields32, g5, align_corners=False))
+            p_ms = cuda_ms(torch, lambda: sample_trilinear_plain(fields32, grid))
+            record = kernel_record(
+                "sample_trilinear", [2, 3, *shape], "float32", errs[torch.float32], 0.0, t, p_ms,
+                2 * (2 * 3 * nvox * 4) + 2 * nvox * 3 * 4, 2.0 * nvox * (3 * 16 + 30),
+            )
+            print_times("sample_trilinear 2x3x32^3", t, p_ms, record["bound_ms"], "F.grid_sample")
+    return record, detail
+
+
+def adam_sampler_cases(torch, dev, gen):
+    """Phase 3f's inputs, ``(C, shape, dtype, vol, grid, ct)``: the semantic
+    Adam grid 14 x 96 x 80 x 128 in bfloat16 and float32, sampled at a
+    smooth field of a few voxels (past the faces only next to them, as the
+    Adam loop samples), and a ragged 3 x 37 x 41 x 29 float32 case whose
+    points reach past every face; a seeded cotangent for each."""
+    from convexadam_torch.core.warp import _displaced_grid, resize_trilinear
+
+    adam_grid = tuple(s // 2 for s in ABDOMEN_SHAPE)  # the default grid_sp_adam of 2
+    for (C, *shape), dt in (((SEMANTIC_LABELS, *adam_grid), torch.bfloat16),
+                            ((SEMANTIC_LABELS, *adam_grid), torch.float32),
+                            ((3, 37, 41, 29), torch.float32)):
+        n = int(np.prod(shape))
+        vol = torch.randn((1, C, *shape), generator=gen).to(dev).to(dt)
+        if C == SEMANTIC_LABELS:
+            coarse = torch.randn((3, *[s // 8 for s in shape]), generator=gen) * 2.0
+            grid = _displaced_grid(shape, resize_trilinear(coarse, shape), False).reshape(1, n, 3)
+        else:
+            # the identity grid moved by up to 0.3 in normalized units
+            ident = torch.stack(torch.meshgrid(
+                *[(2 * torch.arange(s, dtype=torch.float32) + 1) / s - 1 for s in shape],
+                indexing="ij"), -1).reshape(1, n, 3)
+            grid = ident + torch.rand((1, n, 3), generator=gen) * 0.6 - 0.3
+        grid = grid.to(dev).contiguous()
+        ct = torch.randn((1, C, n), generator=gen).to(dev)
+        yield C, tuple(shape), dt, vol, grid, ct
 
 
 def mind_cases(torch, vol):
@@ -1136,14 +1298,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    import torch.nn.functional as F
-
     from convexadam_torch.core.features import mindssc
     from convexadam_torch.core.smoothing import avg_pool3d
     from convexadam_torch.core.warp import resize_trilinear
     from convexadam_torch.kernels import LAUNCHES, _build, reset_launches
-    from convexadam_torch.kernels.cost_volume import cost_volume, cost_volume_plain
-    from convexadam_torch.kernels.warp import sample_trilinear, sample_trilinear_plain
     from convexadam_torch.pipeline.convex_adam import ConvexAdamConfig, convex_adam
 
     dev = torch.device("cuda")
@@ -1179,68 +1337,23 @@ def main() -> int:
     rec.update(ptxas_entry(results["ptxas"]["mind"], "mind_kernel", "bfloat16", "Li1ELi2E"))
     records.append(rec)
 
-    # 3b. cost volume: pooled MIND features of the headline pair, 12 x 32^3, q = 4
+    # 3b. cost volume: pooled MIND features of the headline pair, 12 x 32^3,
+    # q = 4; the semantic and sweep grids; ragged crops at q = 1..8
     cfg = ConvexAdamConfig()
     feat_f = mindssc(vol, 1, 2, dtype=torch.bfloat16)
     feat_m = mindssc(torch.from_numpy(mov_np).to(dev), 1, 2, dtype=torch.bfloat16)
     fix_s = avg_pool3d(feat_f, cfg.grid_sp).float().contiguous()
     mov_s = avg_pool3d(feat_m, cfg.grid_sp).float().contiguous()
-    ck = cost_volume(fix_s, mov_s, cfg.disp_hw)
-    cp = cost_volume_plain(fix_s, mov_s, cfg.disp_hw)
-    torch.cuda.synchronize()
-    tol = 0.0  # same float32 operations in the same channel order: to the bit
-    err = max_err(ck, cp)
-    check(err <= tol, f"cost_volume: max err {err} > {tol}")
-    print(f"cost_volume {tuple(fix_s.shape)}: max_abs_err {err:.3e} (tol {tol:.3e})", flush=True)
-    C, h, w, d = fix_s.shape
-    K3 = (2 * cfg.disp_hw + 1) ** 3
-    n = h * w * d
-    t = timed_turns(torch, lambda: cost_volume(fix_s, mov_s, cfg.disp_hw), GLOBALS["cost_volume"])
-    p_ms = cuda_ms(torch, lambda: cost_volume_plain(fix_s, mov_s, cfg.disp_hw))
-    records.append(kernel_record(
-        "cost_volume", [C, h, w, d, cfg.disp_hw], "float32", err, tol, t, p_ms,
-        2 * C * n * 4 + K3 * n * 4, 3.0 * K3 * n * C,
-    ))
-    print_times("cost_volume", t, p_ms, records[-1]["bound_ms"])
+    rec, results["cost_volume"] = cost_volume_phase(torch, fix_s, mov_s, cfg.disp_hw)
+    rec.update(ptxas_entry(results["ptxas"]["cost_volume"], "cost_volume_kernel",
+                           f"ILi{cfg.disp_hw}E"))
+    records.append(rec)
 
     # 3c. trilinear sampler on inverse consistency's 2 x 3 x 32^3 fields (as
     # float32 and as bfloat16 volumes), and ragged; then the fused steps
     gen = torch.Generator(device="cpu").manual_seed(0)
-    sampler_at_ic = None
-    for shape in ((h, w, d), (37, 41, 29)):
-        nvox = shape[0] * shape[1] * shape[2]
-        fields32 = (torch.randn((2, 3) + shape, generator=gen) * 0.1).to(dev)
-        ident = torch.stack(torch.meshgrid(
-            *[(2 * torch.arange(s, dtype=torch.float32) + 1) / s - 1 for s in shape],
-            indexing="ij"), -1).reshape(1, nvox, 3).to(dev)
-        grid = (ident + fields32.flip(0).permute(0, 2, 3, 4, 1).reshape(2, nvox, 3)).contiguous()
-        g5 = grid.flip(-1).reshape(2, 1, 1, nvox, 3)
-        errs = {}
-        for dt in (torch.float32, torch.bfloat16) if shape == (h, w, d) else (torch.float32,):
-            fields = fields32.to(dt)
-            sk = sample_trilinear(fields, grid)
-            sp = sample_trilinear_plain(fields, grid)
-            lib = F.grid_sample(fields.float(), g5, mode="bilinear", padding_mode="zeros",
-                                align_corners=False).reshape(2, 3, nvox)
-            torch.cuda.synchronize()
-            err = errs[dt] = max_err(sk, sp)
-            tol = 0.0  # same weights and corner order: to the bit
-            check(err <= tol, f"sample_trilinear {shape} {dt}: max err {err} > {tol}")
-            lib_err = max_err(sk, lib)
-            check(lib_err <= 1e-5, f"sample_trilinear {shape} {dt} vs F.grid_sample: {lib_err}")
-            print(f"sample_trilinear {shape} {dt}: max_abs_err {err:.3e} (tol {tol:.1e}); "
-                  f"vs F.grid_sample {lib_err:.3e}", flush=True)
-        if shape == (h, w, d):
-            t = timed_turns(torch, lambda: sample_trilinear(fields32, grid),
-                            GLOBALS["sample_trilinear"],
-                            lambda: F.grid_sample(fields32, g5, align_corners=False))
-            p_ms = cuda_ms(torch, lambda: sample_trilinear_plain(fields32, grid))
-            sampler_at_ic = kernel_record(
-                "sample_trilinear", [2, 3, *shape], "float32", errs[torch.float32], 0.0, t, p_ms,
-                2 * (2 * 3 * nvox * 4) + 2 * nvox * 3 * 4, 2.0 * nvox * (3 * 16 + 30),
-            )
-            print_times("sample_trilinear 2x3x32^3", t, p_ms, sampler_at_ic["bound_ms"],
-                        "F.grid_sample")
+    h, w, d = fix_s.shape[1:]
+    sampler_at_ic, results["sampler"] = sampler_phase(torch, dev, gen, (h, w, d))
     ic_record, results["inverse_consistency"] = ic_phase(torch, dev, gen, (h, w, d))
     records.append(ic_record)
 
@@ -1248,7 +1361,7 @@ def main() -> int:
     rec, results["data_term"] = data_term_phase(torch, gen, feat_f, feat_m, cfg.grid_sp_adam)
     rec.update(ptxas_entry(results["ptxas"]["warp"], "warp_ssd_kernel", "bfloat16"))
     records.append(rec)
-    del ck, cp, feat_f, feat_m
+    del feat_f, feat_m
 
     # 3e. the HD95 engine's nearest-neighbour searches
     search_records, search_detail = search_phase(torch, dev, seg_f, seg_m)
@@ -1259,6 +1372,7 @@ def main() -> int:
     bwd_records, bwd_detail = sampler_bwd_phase(torch, dev, gen)
     for rec in bwd_records:
         if rec["name"] == "sample_trilinear":
+            rec.update(ptxas_entry(results["ptxas"]["warp"], "sample_trilinear_kernel", "bfloat16"))
             # its inverse-consistency shape, the shape of earlier readings
             rec["at_ic_shape"] = {k: v for k, v in sampler_at_ic.items() if k != "timing_readings"}
     records += bwd_records
@@ -1278,6 +1392,7 @@ def main() -> int:
     err_v = np.abs(out[c:-c, c:-c, c:-c] - np.array(HEADLINE_SHIFT, np.float32))
     frac_ok = float(np.mean(np.all(err_v < 1.0, axis=-1)))
     check(frac_ok > 0.9, f"headline shift recovered in only {frac_ok:.2%} of the crop")
+    torch.cuda.reset_peak_memory_stats()  # phase 3b's sweep volumes are not the registration's
     times = []
     for _ in range(3):
         torch.cuda.synchronize()

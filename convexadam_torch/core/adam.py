@@ -126,7 +126,8 @@ def adam_instance_optimisation(
     """
     if sample_stride != 1:
         raise NotImplementedError(
-            "adam_sample_stride != 1 is ROADMAP queue A item 6 and not ported yet"
+            "adam_sample_stride != 1 is not ported yet (ROADMAP queue A, "
+            "'Adam sample_stride')"
         )
     C = feat_fix.shape[0]
     fix_flat = feat_fix.float().reshape(C, -1).contiguous()

@@ -67,8 +67,9 @@ def convex_displacement(
     if K3 * n * 4 * 2 > stream_threshold:
         raise NotImplementedError(
             f"a dense cost volume of {K3} x {n} float32 exceeds the "
-            f"{stream_threshold}-byte threshold; the streamed convex path is "
-            "ROADMAP queue A item 5 and not ported yet"
+            f"{stream_threshold}-byte threshold; the streamed convex path is not "
+            "ported yet (ROADMAP queue A, 'The streamed convex path and the other "
+            "cost metrics')"
         )
     ssd, am = correlate(feat_fix, feat_mov, disp_hw, metric=metric, smooth_passes=smooth_passes)
     return coupled_convex(ssd, am, displacement_mesh(disp_hw, device=ssd.device))

@@ -8,11 +8,23 @@
 // out[b, c, n] = sum over the 8 corners of vol[b, c, corner] * weight, for a
 // float32 or bfloat16 volume (read as stored, summed in float32).  Its one
 // caller is the differentiable warp's forward (14 channels at the 96 x 80 x
-// 128 semantic Adam grid in bfloat16, 27.5 MB read, 55 MB written: bound by
-// bytes).  Design: one thread per (b, n) sample point computes the floor,
-// fractions and zeros-padding masks once and gathers the 8 corners of every
-// channel straight from the (B, C, H, W, D) volume; the corners are added in
-// the JAX package's order (dx, dy, dz nested).
+// 128 semantic Adam grid in bfloat16: the volume, 27.5 MB, and the grid,
+// 11.8 MB, read once, the samples, 55 MB, written once, 28 us at 3.35 TB/s:
+// bound by bytes).  What holds it back in practice is the latency of its
+// gathers, 8 a point and channel (112 at 14 channels), which hit L2: the
+// volume fits there, and a float32 volume, twice the bytes, takes about the
+// same time.  Design, that of sample_trilinear_bwd: one thread per point
+// (blockIdx.y the volume, so no 64-bit division) computes the floor,
+// fractions and zeros-padding masks once and keeps the 8 corner offsets and
+// 8 weights in registers; the channel loop is unrolled by 4, so 32 gathers
+// are in flight a thread, at 64 registers and 4 CTAs of 256 an SM, without
+// spills.  The first design walked one channel at a time at 48 registers,
+// with 16-20 bytes of spills, and so had 8 gathers in flight.  Measured on
+// the H100 at the semantic Adam grid: unrolling by 2, dropping the 4-CTA
+// register cap (48 registers), unrolling by 8 at 3 CTAs (80), splitting a
+// point's channels over 2 or 4 threads and streaming stores were all as
+// fast or slower.  The corners are added in the JAX package's order (dx, dy,
+// dz nested).
 //
 // inverse_consistency_steps also replaces corner_reduce_fwd, in its other
 // role: the 15 Jacobi steps of inverse consistency, d1 = (d1 - d2 o (id +
@@ -95,68 +107,44 @@ __device__ __forceinline__ Axis split(float p) {
   return Axis{(int)p0, __fsub_rn(p, p0)};
 }
 
-// The 8 corners of a point: clamped linear offsets and the trilinear weight
-// with the zeros-padding mask folded in (a masked corner has weight 0 and
-// reads an in-range voxel).
-struct Corners {
-  int off[8];
-  float w[8];
-};
+// The 8 corners' offsets: the lower corner's clamped linear index plus one
+// step per axis, 0 where the clamp folds the two corners of that axis
+// together, so a masked corner reads an in-range voxel (its weights carry
+// the mask).
+template <int OS = 1>  // off[k] at off[k * OS]
+__device__ __forceinline__ void corner_offsets(const Axis& ax, const Axis& ay, const Axis& az,
+                                               int H, int W, int D, int* off) {
+  const int x0 = clampi(ax.i0, 0, H - 1), y0 = clampi(ay.i0, 0, W - 1), z0 = clampi(az.i0, 0, D - 1);
+  const int sx = (clampi(ax.i0 + 1, 0, H - 1) - x0) * W * D;
+  const int sy = (clampi(ay.i0 + 1, 0, W - 1) - y0) * D;
+  const int sz = clampi(az.i0 + 1, 0, D - 1) - z0;
+  const int base = (x0 * W + y0) * D + z0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    off[k * OS] = base + ((k & 4) ? sx : 0) + ((k & 2) ? sy : 0) + ((k & 1) ? sz : 0);
+}
 
-__device__ __forceinline__ void corners(const Axis& ax, const Axis& ay, const Axis& az, int H,
-                                        int W, int D, Corners& cr) {
+// The 8 corners' trilinear weights ((wx * wy) * wz) * mask in corner order
+// (dx, dy, dz nested): a corner outside the volume has weight 0 and reads an
+// in-range voxel (corner_offsets).
+template <int OS = 1>  // w[k] at w[k * OS]
+__device__ __forceinline__ void corner_weights(const Axis& ax, const Axis& ay, const Axis& az,
+                                               int H, int W, int D, float* w) {
   const float wx[2] = {__fsub_rn(1.f, ax.f), ax.f};
   const float wy[2] = {__fsub_rn(1.f, ay.f), ay.f};
   const float wz[2] = {__fsub_rn(1.f, az.f), az.f};
-  int k = 0;
 #pragma unroll
-  for (int dx = 0; dx < 2; ++dx) {
-    const int xi = ax.i0 + dx;
-    const bool vx = xi >= 0 && xi < H;
-#pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const int yi = ay.i0 + dy;
-      const bool vy = yi >= 0 && yi < W;
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
-        const int zi = az.i0 + dz;
-        const bool vz = zi >= 0 && zi < D;
-        const float m = (vx && vy && vz) ? 1.f : 0.f;
-        cr.off[k] = (clampi(xi, 0, H - 1) * W + clampi(yi, 0, W - 1)) * D + clampi(zi, 0, D - 1);
-        const float wxy = __fmul_rn(wx[dx], wy[dy]);
-        cr.w[k] = __fmul_rn(__fmul_rn(wxy, wz[dz]), m);
-        ++k;
-      }
-    }
+  for (int k = 0; k < 8; ++k) {
+    const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+    const int xi = ax.i0 + dx, yi = ay.i0 + dy, zi = az.i0 + dz;
+    const bool in = xi >= 0 && xi < H && yi >= 0 && yi < W && zi >= 0 && zi < D;
+    w[k * OS] = __fmul_rn(__fmul_rn(__fmul_rn(wx[dx], wy[dy]), wz[dz]), in ? 1.f : 0.f);
   }
 }
 
 // grid_sample's align_corners=False unnormalization, ((g + 1) size - 1) / 2
 __device__ __forceinline__ float unnormalize(float g, int size) {
   return __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.f), (float)size), 1.f), 0.5f);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-sample_trilinear_kernel(const T* __restrict__ vol, const float* __restrict__ grid,
-                        float* __restrict__ out, int B, int C, int H, int W, int D, int N) {
-  const long long t = (long long)blockIdx.x * NT + threadIdx.x;
-  if (t >= (long long)B * N) return;
-  const int b = (int)(t / N), n = (int)(t % N);
-  const float* g = grid + t * 3;
-  const Axis ax = split(unnormalize(g[0], H));
-  const Axis ay = split(unnormalize(g[1], W));
-  const Axis az = split(unnormalize(g[2], D));
-  Corners cr;
-  corners(ax, ay, az, H, W, D, cr);
-  const size_t hwd = (size_t)H * W * D;
-  for (int c = 0; c < C; ++c) {
-    const T* v = vol + ((size_t)b * C + c) * hwd;
-    float acc = __fmul_rn(Io<T>::ld(v + cr.off[0]), cr.w[0]);
-#pragma unroll
-    for (int k = 1; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(Io<T>::ld(v + cr.off[k]), cr.w[k]));
-    out[((size_t)b * C + c) * N + n] = acc;
-  }
 }
 
 // One Jacobi step of inverse consistency: thread t < N is direction 0
@@ -178,15 +166,17 @@ ic_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
   const Axis ax = split(unnormalize(__fadd_rn(id_h[i], dv[0]), H));
   const Axis ay = split(unnormalize(__fadd_rn(id_w[j], dv[1]), W));
   const Axis az = split(unnormalize(__fadd_rn(id_d[l], dv[2]), D));
-  Corners cr;
-  corners(ax, ay, az, H, W, D, cr);
+  int off[8];
+  float wt[8];
+  corner_offsets(ax, ay, az, H, W, D, off);
+  corner_weights(ax, ay, az, H, W, D, wt);
   float* o = dst + (size_t)b * 3 * N;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float* v = other + (size_t)c * N;
-    float acc = __fmul_rn(v[cr.off[0]], cr.w[0]);
+    float acc = __fmul_rn(v[off[0]], wt[0]);
 #pragma unroll
-    for (int k = 1; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(v[cr.off[k]], cr.w[k]));
+    for (int k = 1; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(v[off[k]], wt[k]));
     o[(size_t)c * N + n] = __fmul_rn(0.5f, __fsub_rn(dv[c], acc));
   }
 }
@@ -223,21 +213,31 @@ __device__ __forceinline__ void rows_from_cv(const Axis& ax, const Axis& ay, con
   r[2 * stride] = rz;
 }
 
-// The 8 corners' offsets: the lower corner's clamped linear index plus one
-// step per axis, 0 where the clamp folds the two corners of that axis
-// together, so a masked corner reads an in-range voxel (its weights carry
-// the mask).
-template <int OS = 1>  // off[k] at off[k * OS]
-__device__ __forceinline__ void corner_offsets(const Axis& ax, const Axis& ay, const Axis& az,
-                                               int H, int W, int D, int* off) {
-  const int x0 = clampi(ax.i0, 0, H - 1), y0 = clampi(ay.i0, 0, W - 1), z0 = clampi(az.i0, 0, D - 1);
-  const int sx = (clampi(ax.i0 + 1, 0, H - 1) - x0) * W * D;
-  const int sy = (clampi(ay.i0 + 1, 0, W - 1) - y0) * D;
-  const int sz = clampi(az.i0 + 1, 0, D - 1) - z0;
-  const int base = (x0 * W + y0) * D + z0;
+template <typename T>
+__global__ void __launch_bounds__(NT, 4)
+sample_trilinear_kernel(const T* __restrict__ vol, const float* __restrict__ grid,
+                        float* __restrict__ out, int C, int H, int W, int D, int N) {
+  const int n = blockIdx.x * NT + threadIdx.x, b = blockIdx.y;
+  if (n >= N) return;
+  const float* g = grid + ((size_t)b * N + n) * 3;
+  const Axis ax = split(unnormalize(g[0], H));
+  const Axis ay = split(unnormalize(g[1], W));
+  const Axis az = split(unnormalize(g[2], D));
+  int off[8];
+  float wt[8];
+  corner_offsets(ax, ay, az, H, W, D, off);
+  corner_weights(ax, ay, az, H, W, D, wt);
+  const size_t hwd = (size_t)H * W * D;
+  const T* v = vol + (size_t)b * C * hwd;
+  float* o = out + (size_t)b * C * N + n;
+#pragma unroll 4
+  for (int c = 0; c < C; ++c) {
+    const T* vc = v + (size_t)c * hwd;
+    float acc = __fmul_rn(Io<T>::ld(vc + off[0]), wt[0]);
 #pragma unroll
-  for (int k = 0; k < 8; ++k)
-    off[k * OS] = base + ((k & 4) ? sx : 0) + ((k & 2) ? sy : 0) + ((k & 1) ? sz : 0);
+    for (int k = 1; k < 8; ++k) acc = __fadd_rn(acc, __fmul_rn(Io<T>::ld(vc + off[k]), wt[k]));
+    o[(size_t)c * N] = acc;
+  }
 }
 
 // Channels first, then corners (the TPU kernel's order).
@@ -345,17 +345,7 @@ warp_ssd_kernel(const T* __restrict__ mov, const float* __restrict__ disp,
       Axis ax, ay, az;
       ssd_axes(disp, n, N, W, D, fac0, fac1, fac2, ax, ay, az);
       corner_offsets<NT>(ax, ay, az, H, W, D, off);
-      // the trilinear weights of corners(), ((wx * wy) * wz) * mask
-      const float wx[2] = {__fsub_rn(1.f, ax.f), ax.f};
-      const float wy[2] = {__fsub_rn(1.f, ay.f), ay.f};
-      const float wz[2] = {__fsub_rn(1.f, az.f), az.f};
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
-        const int xi = ax.i0 + dx, yi = ay.i0 + dy, zi = az.i0 + dz;
-        const bool in = xi >= 0 && xi < H && yi >= 0 && yi < W && zi >= 0 && zi < D;
-        w[k * NT] = __fmul_rn(__fmul_rn(__fmul_rn(wx[dx], wy[dy]), wz[dz]), in ? 1.f : 0.f);
-      }
+      corner_weights<NT>(ax, ay, az, H, W, D, w);
     }
     // the fixed features are read once: streamed past the caches the
     // gathers use
@@ -414,17 +404,16 @@ extern "C" int warp_ssd_threads() { return NT; }
 // (B, N, 3) and out (B, C, N) float32.
 extern "C" int sample_trilinear(const void* vol, const void* grid, void* out, int B, int C,
                                 int H, int W, int D, int N, int bf16, void* stream) {
-  const long long total = (long long)B * N;
-  const unsigned blocks = (unsigned)((total + NT - 1) / NT);
+  const dim3 blocks((N + NT - 1) / NT, B);  // one CTA row per volume
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(grid);
   float* o = static_cast<float*>(out);
   if (bf16)
     sample_trilinear_kernel<__nv_bfloat16><<<blocks, NT, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(vol), g, o, B, C, H, W, D, N);
+        static_cast<const __nv_bfloat16*>(vol), g, o, C, H, W, D, N);
   else
     sample_trilinear_kernel<float><<<blocks, NT, 0, s>>>(static_cast<const float*>(vol), g, o,
-                                                         B, C, H, W, D, N);
+                                                         C, H, W, D, N);
   return (int)cudaGetLastError();
 }
 

@@ -5,14 +5,30 @@ Replaces ``convexadam_tpu/ops/cost_volume_pallas.py:cost_volume_pallas``.
 Both return the unsmoothed volume (K^3, h, w, d) in float32, flat layout
 ``k = kd*K^2 + kw*K + kh`` with ``K = 2q + 1``, zeros outside the moving
 volume.  The caller applies the box passes and the argmin.
+
+On the card, the half-widths the self-configuring search draws, q = 1..7,
+run a kernel compiled for that q (:func:`kernel_for`); any other q runs a
+general kernel with q at run time.  The entry is bound once.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from convexadam_torch.kernels import LAUNCHES, _build
+
+# csrc/cost_volume.cu compiles cost_volume_kernel<Q> for these Q: the
+# disp_hw range of the self-configuring sweep
+COMPILED_Q = range(1, 8)
+
+
+def kernel_for(disp_hw: int) -> str:
+    """The ``__global__`` function that computes a volume of half-width
+    ``disp_hw`` on the card: the one compiled for it, or the general one."""
+    return "cost_volume_kernel" if disp_hw in COMPILED_Q else "cost_volume_general_kernel"
 
 
 def cost_volume_plain(fix: torch.Tensor, mov: torch.Tensor, disp_hw: int) -> torch.Tensor:
@@ -37,6 +53,12 @@ def cost_volume_plain(fix: torch.Tensor, mov: torch.Tensor, disp_hw: int) -> tor
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _entry():
+    P, I = _build.P, _build.I  # noqa: E741
+    return _build.bind("cost_volume", "cost_volume", (P, P, P, I, I, I, I, I, I, P))
+
+
 def cost_volume(fix: torch.Tensor, mov: torch.Tensor, disp_hw: int) -> torch.Tensor:
     """(K^3, h, w, d) float32 SSD volume of float32 features (C, h, w, d)."""
     if fix.device.type == "cpu":
@@ -49,10 +71,9 @@ def cost_volume(fix: torch.Tensor, mov: torch.Tensor, disp_hw: int) -> torch.Ten
     C, h, w, d = fix.shape
     K = 2 * disp_hw + 1
     out = torch.empty((K**3, h, w, d), dtype=torch.float32, device=fix.device)
-    P, I = _build.P, _build.I  # noqa: E741
-    fn = _build.bind("cost_volume", "cost_volume", [P, P, P, I, I, I, I, I, P])
     err = _build.call_on(
-        fix.device, fn, fix.data_ptr(), mov.data_ptr(), out.data_ptr(), C, h, w, d, disp_hw
+        fix.device, _entry(), fix.data_ptr(), mov.data_ptr(), out.data_ptr(), C, h, w, d,
+        disp_hw, int(kernel_for(disp_hw) == "cost_volume_general_kernel"),
     )
     _build.check(err, "cost_volume")
     LAUNCHES["cost_volume"] += 1

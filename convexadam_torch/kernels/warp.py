@@ -123,6 +123,12 @@ def _check_sampler_args(vol, grid, what):
         raise ValueError(f"{what}: vol and grid must lie on one device")
 
 
+@functools.lru_cache(maxsize=None)
+def _sample_entry():
+    """The bound C entry of :func:`sample_trilinear`, read once."""
+    return _build.bind("warp", "sample_trilinear", _SAMPLE_ARGS)
+
+
 def sample_trilinear(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Sample ``vol`` (B, C, H, W, D) float32 or bfloat16 at normalized
     array-order coordinates ``grid`` (B, N, 3) float32 → (B, C, N) float32."""
@@ -133,8 +139,8 @@ def sample_trilinear(vol: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     N = grid.shape[1]
     out = torch.empty((B, C, N), dtype=torch.float32, device=vol.device)
     err = _build.call_on(
-        vol.device, _build.bind("warp", "sample_trilinear", _SAMPLE_ARGS), vol.data_ptr(),
-        grid.data_ptr(), out.data_ptr(), B, C, H, W, D, N, int(vol.dtype == torch.bfloat16),
+        vol.device, _sample_entry(), vol.data_ptr(), grid.data_ptr(), out.data_ptr(), B, C, H, W,
+        D, N, int(vol.dtype == torch.bfloat16),
     )
     _build.check(err, "sample_trilinear")
     LAUNCHES["sample_trilinear"] += 1

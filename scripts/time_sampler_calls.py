@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Host time per call of the port's sampler and data-term wrappers on a CUDA card.
+"""Host time per call of the port's sampler, data-term and cost-volume wrappers
+on a CUDA card.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -15,8 +16,10 @@ the host spends issuing a call while the card keeps up), and one
 ``inverse_consistency`` call of 15 steps; and ``--calls`` calls of the Adam
 data term ``warp_ssd_loss_grad`` on a 12 x 24^3 grid with bfloat16 moving
 features (its launches take a few microseconds, so the host's issue time is
-what the run measures), two readings, one before and one after the others.
-It prints one JSON line with the card's name and power limit.
+what the run measures), two readings, one before and one after the others;
+and ``--calls`` calls of ``cost_volume`` on 12 x 8^3 features at the default
+q = 4, likewise issue-bound.  It prints one JSON line with the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ def main() -> int:
     import convexadam_torch
     from convexadam_torch.core.warp import identity_grid_normalized, inverse_consistency
     from convexadam_torch.kernels import _build
+    from convexadam_torch.kernels.cost_volume import cost_volume
     from convexadam_torch.kernels.warp import sample_trilinear, warp_ssd_loss_grad
 
     smi = subprocess.run(
@@ -95,6 +99,8 @@ def main() -> int:
     res["inverse_consistency_15_host_us"] = host_us(
         lambda: inverse_consistency(fields[0], fields[1], 15), max(args.calls // 10, 1))
     res["warp_ssd_loss_grad_host_us"].append(host_us(data_term, args.calls))
+    cv_fix, cv_mov = (torch.randn((12, 8, 8, 8), generator=gen).to(dev) for _ in range(2))
+    res["cost_volume_host_us"] = host_us(lambda: cost_volume(cv_fix, cv_mov, 4), args.calls)
     print(json.dumps(res))
     return 0
 

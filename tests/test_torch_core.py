@@ -112,7 +112,7 @@ def test_coupled_convex_matches_jax(rng):
 
 def test_convex_displacement_refuses_streamed_sizes(rng):
     f = torch.zeros((1, 4, 4, 4))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="The streamed convex path"):
         tconvex.convex_displacement(f, f, 2, stream_threshold=1000)
     with pytest.raises(NotImplementedError, match="SSD only"):
         tcv.correlate(f, f, 1, metric="sad")
@@ -224,7 +224,7 @@ def test_adam_instance_optimisation_matches_jax(rng, smoother):
 
 def test_adam_sample_stride_not_ported():
     z = torch.zeros((2, 4, 4, 4))
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="'Adam sample_stride'"):
         tadam.adam_instance_optimisation(z, z, torch.zeros((3, 4, 4, 4)), 1.0, 1, sample_stride=2)
 
 

@@ -22,7 +22,7 @@ from convexadam_tpu.ops.mind_pallas import mind_ssd_stats_pallas, mind_supported
 from convexadam_tpu.ops.warp_pallas import corner_reduce_fwd, corner_reduce_loss_grad
 from convexadam_torch.core.warp import identity_grid_normalized
 from convexadam_torch.kernels import LAUNCHES
-from convexadam_torch.kernels.cost_volume import cost_volume
+from convexadam_torch.kernels.cost_volume import COMPILED_Q, cost_volume, kernel_for
 import convexadam_torch.kernels.mind as kmind
 from convexadam_torch.kernels.mind import _pair_offsets, mind_ssd_stats
 from convexadam_torch.kernels.warp import (
@@ -111,8 +111,11 @@ def test_mind_bf16_mean_by_reciprocal_equals_true_division(r):
     assert (a.float().abs() < 2.0**-126 * k3).sum() > 0  # subnormal quotients are in the set
 
 
-@pytest.mark.parametrize("q", [1, 2])
-@pytest.mark.parametrize("shape", [(4, 8, 8, 8), (3, 16, 24, 10)])
+# (14, 8, 16, 37): the semantic entry's 14 channels, d across the CUDA
+# kernel's 32-voxel l tile and not a multiple of 4 (h and w stay multiples
+# of 8, as the Pallas kernel requires)
+@pytest.mark.parametrize("q", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(4, 8, 8, 8), (3, 16, 24, 10), (14, 8, 16, 37)])
 def test_cost_volume_matches_pallas(rng, q, shape):
     fix = rng.standard_normal(shape).astype(np.float32)
     mov = rng.standard_normal(shape).astype(np.float32)
@@ -120,6 +123,20 @@ def test_cost_volume_matches_pallas(rng, q, shape):
     out = cost_volume(torch.from_numpy(fix), torch.from_numpy(mov), q).numpy()
     # channel sums in another order than the Pallas jnp.sum: rtol 1e-5
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_cost_volume_kernel_choice_covers_the_sweep():
+    """The wrapper's choice by q: every half-width of the self-configuring
+    sweep, 1..7, runs the kernel compiled for it, any other q the general
+    kernel; and the C entry compiles exactly those q, each for itself."""
+    assert list(COMPILED_Q) == [1, 2, 3, 4, 5, 6, 7]
+    assert [kernel_for(q) for q in range(1, 8)] == ["cost_volume_kernel"] * 7
+    assert {kernel_for(q) for q in (0, 8, 9, 15)} == {"cost_volume_general_kernel"}
+    src = (pathlib.Path(__file__).resolve().parent.parent / "convexadam_torch" / "csrc"
+           / "cost_volume.cu").read_text()
+    entry = src[src.index('extern "C" int cost_volume('):]
+    cases = re.findall(r"case (\d+): return launch<(\d+)>", entry)
+    assert [(int(a), int(b)) for a, b in cases] == [(q, q) for q in COMPILED_Q]
 
 
 def _pallas_block(vol, pos):
@@ -174,6 +191,31 @@ def test_sample_trilinear_bf16_matches_corner_reduce_fwd(rng):
     assert torch.equal(out, sample_trilinear_plain(vol.float()[None], g)[0])
     # weights and corner order as the Pallas kernel: atol 1e-6
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sample_trilinear_batched_matches_corner_reduce_fwd(rng, dtype):
+    """Two volumes of 14 channels (the semantic Adam grid's), points past
+    every face: each batch element against the Pallas kernel on its own
+    gathered block, in the volume's dtype."""
+    B, C, H, W, D, n = 2, 14, 6, 7, 8, 512
+    vol = torch.from_numpy(rng.standard_normal((B, C, H, W, D)).astype(np.float32))
+    vol = vol.to(getattr(torch, dtype))
+    grid = rng.uniform(-1.3, 1.3, (B, n, 3)).astype(np.float32)
+    assert (grid < -1).any(axis=(0, 1)).all() and (grid > 1).any(axis=(0, 1)).all()
+    out = sample_trilinear(vol, torch.from_numpy(grid))
+    assert out.shape == (B, C, n) and out.dtype == torch.float32
+    for b in range(B):
+        pos = np.stack([((grid[b, :, a] + np.float32(1)) * np.float32(s) - np.float32(1))
+                        * np.float32(0.5) for a, s in enumerate((H, W, D))])
+        p0 = np.floor(pos)
+        block = _pallas_block(vol[b].float().numpy(), pos).astype(getattr(jnp, dtype))
+        ref = np.asarray(corner_reduce_fwd(
+            block, tuple(jnp.asarray(f) for f in (pos - p0)),
+            tuple(jnp.asarray(i) for i in p0.astype(np.int32)), (C, H, W, D), interpret=True,
+        ))
+        # weights and corner order as the Pallas kernel: atol 1e-6
+        np.testing.assert_allclose(out[b].numpy(), ref, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
