@@ -9,9 +9,10 @@ Phases, each fatal on failure:
   1. card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
   2. build: the CUDA kernels of ``convexadam_torch/csrc`` (one nvcc per source),
      with the registers and spills ``ptxas`` reports for the kernels of
-     ``warp.cu``, ``mind.cu`` and ``cost_volume.cu`` (the backward kernel must
-     fit 64 registers; the data term's, the forward sampler's, the
-     compile-time MIND kernels and every cost-volume kernel must not spill);
+     ``warp.cu``, ``mind.cu``, ``cost_volume.cu`` and ``edt.cu`` (the backward
+     kernel must fit 64 registers; the data term's, the forward sampler's,
+     the compile-time MIND kernels, every cost-volume kernel and the dual and
+     pruned searches must not spill);
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes and dtypes (and a ragged shape for the MIND and
      sampling kernels; the sampler with float32 and bfloat16 volumes), with
@@ -47,7 +48,9 @@ Phases, each fatal on failure:
      label surface of the phase-4c volumes (the liver-sized organ's, K =
      16384), on 65536 seeded points
      in [0, 192)^3 (a large organ's surface at this size) and on a ragged
-     case; the pruned kernel must visit the same tiles as its plain version;
+     case; then all 52 pruned searches of the pair's two label buckets,
+     built as the engine builds them, one batched call a bucket; the pruned
+     kernel must visit the same tiles as its plain version;
   3f. the sampler's coordinate-gradient kernel against its plain version to
      the bit at the semantic Adam grid 14 x 96 x 80 x 128 (bf16 and f32
      volumes, a smooth field of a few voxels, as the Adam loop samples) and
@@ -63,8 +66,8 @@ Phases, each fatal on failure:
   4c. evaluation path: ``evaluate_field`` of the registered field on a
      synthetic 13-organ label pair (seed 0, the same shift; one liver-sized
      organ, twelve of 6-20 voxel semi-axes) with 20
-     keypoints: Dice > 0.9 and HD95 <= 2 voxels on every label, 4 x 13
-     pruned-search launches; with the pruned search switched off, identical
+     keypoints: Dice > 0.9 and HD95 <= 2 voxels on every label, one batched
+     pruned-search launch per label bucket (2); with the pruned search switched off, identical
      HD95 from 13 dual and 26 tiled launches; on the zero field, HD95 equal
      to the host scipy-EDT ``hd95`` to 1e-5; evaluation and host times;
   4d. semantic entry: ``convex_adam_semantic_torch`` with the default config
@@ -141,7 +144,9 @@ COST_VOLUME_RAGGED = ((12, 9, 11, 37), (14, 7, 10, 40), (21, 6, 9, 70))
 L2R_LABELS = 13  # the organ count of Learn2Reg's Abdomen CT-CT task
 L2R_MARGIN = 36  # voxels from every face: inside the crop phase 4 checks
 L2R_LARGE_AXES = (35, 41)  # semi-axis range of the liver-sized organ
-EXPECTED_EVAL_LAUNCHES = {"nearest_sq_pruned": 4 * L2R_LABELS, "nearest_sq_dual": 0,
+L2R_BUCKETS = 2  # the label buckets of the pair: the liver-sized organ at K = 16384, the rest at 4096
+# one batched pruned launch per bucket
+EXPECTED_EVAL_LAUNCHES = {"nearest_sq_pruned": L2R_BUCKETS, "nearest_sq_dual": 0,
                           "nearest_sq": 0}
 EXPECTED_TILED_EVAL_LAUNCHES = {"nearest_sq_pruned": 0, "nearest_sq_dual": L2R_LABELS,
                                 "nearest_sq": 2 * L2R_LABELS}
@@ -332,17 +337,18 @@ def search_cells(name, kq, kt, nq, nt, hq=0, ht=0, tiles=0) -> int:
     tiles of its live query blocks x live target tiles (the dual kernel
     skips the dead head x head corner), or the pruned kernel's visited
     tiles."""
-    from convexadam_torch.kernels.edt import PRUNED_BLOCK, TILE
+    from convexadam_torch.kernels.edt import DUAL_TILE, PRUNED_BLOCK, PRUNED_TILE, TILE
 
     if name == "nearest_sq_pruned":
-        return int(tiles) * PRUNED_BLOCK * PRUNED_BLOCK
-    qb = -(-min(nq, kq) // TILE)
-    tb = -(-min(nt, kt) // TILE)
+        return int(tiles) * PRUNED_BLOCK * PRUNED_TILE
+    b = TILE if name == "nearest_sq" else DUAL_TILE
+    qb = -(-min(nq, kq) // b)
+    tb = -(-min(nt, kt) // b)
     if name == "nearest_sq":
-        return qb * tb * TILE * TILE
+        return qb * tb * b * b
     live = sum(1 for i in range(qb) for j in range(tb)
-               if (i + 1) * TILE > hq or (j + 1) * TILE > ht)
-    return live * TILE * TILE
+               if (i + 1) * b > hq or (j + 1) * b > ht)
+    return live * b * b
 
 
 def kernel_record(name, shape, dtype, err, tol, t, p_ms, nbytes, flops, steps=1,
@@ -380,28 +386,30 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def search_phase(torch, dev, seg_f, seg_m):
-    """Phase 3e: the three search kernels against their plain versions in
-    the roles the HD95 engine gives them, tolerance 0 at meaningful entries
-    (exact integer arithmetic on both sides).  Returns the records of the
-    label-surface case (the evaluation's shapes) and every case's numbers."""
+def search_cases(torch, dev, seg_f, seg_m):
+    """Phase 3e's inputs: ``(cases, groups, caps, bufs)``.  ``cases`` maps
+    a case name to one search's points and counts: the largest label
+    surface of the phase-4c pair as the engine buffers it ("surface"), a
+    large organ's surface at 192^3 ("large") and a ragged case (K and the
+    counts not multiples of any block); ``groups``, ``caps`` and ``bufs``
+    are the pair's label buckets, caps and label buffers."""
     from convexadam_torch.core.edt import (
         _caps_offsets,
         label_buffers,
         suggest_hd95_caps,
         surface_lists,
     )
-    from convexadam_torch.kernels import edt as ke
+    from convexadam_torch.kernels.edt import COORD_PAD
 
-    # the largest label surface of the phase-4c pair, as the engine buffers it
     groups, gcap = suggest_hd95_caps(seg_f, seg_m, L2R_LABELS)
     caps = [0] * (L2R_LABELS + 1)
     for labs, k in groups:
         for lab in labs:
             caps[lab] = k
+    caps = tuple(caps)
     pre = surface_lists(torch.from_numpy(seg_f).to(dev), torch.from_numpy(seg_m).to(dev),
                         L2R_LABELS, gcap)
-    bufs = label_buffers(pre, L2R_LABELS, tuple(caps))
+    bufs = label_buffers(pre, L2R_LABELS, caps)
     lab = int(np.argmax(bufs.n_inner_m.cpu().numpy()[1:])) + 1
     k, off = caps[lab], _caps_offsets(caps)[0][lab]
 
@@ -418,17 +426,30 @@ def search_phase(torch, dev, seg_f, seg_m):
 
     def cloud(K, n, extent):
         flat = np.sort(rng.choice(extent ** 3, size=n, replace=False))
-        pts = np.full((3, K), ke.COORD_PAD, np.float32)
+        pts = np.full((3, K), COORD_PAD, np.float32)
         pts[:, :n] = np.stack(np.unravel_index(flat, (extent,) * 3))
         return torch.from_numpy(pts).to(dev)
 
-    # a large organ's surface at 192^3, and a ragged case (K and the counts
-    # not multiples of any block)
     for name, K, nq, nt, hq, ht, extent in (("large", 65536, 60000, 58000, 20000, 15000, 192),
                                              ("ragged", 5000, 4321, 4777, 1234, 2345, 64)):
         t = cloud(K, nt, extent)
         cases[name] = dict(q=cloud(K, nq, extent), t=t, t_out=t, nq=nq, nt=nt, hq=hq, ht=ht,
                            nt_out=nt)
+    return cases, groups, caps, bufs
+
+
+def search_phase(torch, dev, seg_f, seg_m):
+    """Phase 3e: the three search kernels against their plain versions in
+    the roles the HD95 engine gives them, tolerance 0 at meaningful entries
+    (exact integer arithmetic on both sides), the pruned tiles equal: one
+    search at a time on :func:`search_cases`, then every search of each
+    label bucket of the pair in one batched call, as the engine builds
+    them.  Returns the records of the label-surface case (the evaluation's
+    shapes) and every case's numbers."""
+    from convexadam_torch.core.edt import pruned_searches
+    from convexadam_torch.kernels import edt as ke
+
+    cases, groups, caps, bufs = search_cases(torch, dev, seg_f, seg_m)
 
     def err_at(a, b, lo, hi):
         return float((a[lo:hi] - b[lo:hi]).abs().max()) if hi > lo else 0.0
@@ -468,7 +489,7 @@ def search_phase(torch, dev, seg_f, seg_m):
                       "different tiles")
                 tiles = int(ko[1].sum())
                 cells = search_cells(name, kq, kt, nq, nt, tiles=tiles)
-                gi, gj = ko[1].numel(), -(-kt // ke.PRUNED_BLOCK)
+                gi, gj = ko[1].numel(), -(-kt // ke.PRUNED_TILE)
                 nbytes = 4 * (3 * kq + 3 * kt + kq) + 8 * gi * gj + 4 * gi
             tol = 0.0  # exact integer distances on both sides
             check(err <= tol, f"{name} {cname}: max err {err} > {tol} at meaningful entries")
@@ -488,6 +509,40 @@ def search_phase(torch, dev, seg_f, seg_m):
                     CELL_FLOPS * cells,
                 ))
             detail.append(row)
+
+    # the evaluation's searches of this pair as the engine builds them: every
+    # search of a label bucket in one batched call, read in place from the
+    # label buffers, kernel against plain
+    for labs, K in groups:
+        src, searches, lo, hi, nt = pruned_searches(bufs, caps, K, labs)
+        args = (src, searches, lo, hi, nt, K, K)
+        kern = (lambda a=args: ke.nearest_sq_pruned_batched(*a, with_tiles=True))
+        plain = (lambda a=args: ke.nearest_sq_pruned_batched_plain(*a, with_tiles=True))
+        ko, po = kern(), plain()
+        torch.cuda.synchronize()
+        cname = f"batched K={K}"
+        check(torch.equal(ko[1], po[1]), f"nearest_sq_pruned {cname}: kernel and plain visit "
+              "different tiles")
+        bounds = list(zip(lo.tolist(), hi.tolist()))
+        err = max(err_at(ko[0][s], po[0][s], a, b) for s, (a, b) in enumerate(bounds))
+        tol = 0.0
+        check(err <= tol, f"nearest_sq_pruned {cname}: max err {err} > {tol} at meaningful entries")
+        S = len(searches)
+        tiles = int(ko[1].sum())
+        cells = search_cells("nearest_sq_pruned", K, K, 0, 0, tiles=tiles)
+        gi, gj = K // ke.PRUNED_BLOCK, K // ke.PRUNED_TILE
+        nbytes = S * (4 * (3 * K + 3 * K + K) + 8 * gi * gj + 4 * gi)
+        times = timed_turns(torch, kern, GLOBALS["nearest_sq_pruned"])
+        row = {"case": cname, "name": "nearest_sq_pruned", "K": [K, K], "searches": S,
+               "labels": list(labs), "max_abs_err": err, "cells": cells, "tiles": tiles,
+               "ms": times["call_ms"], "device_ms": times["device_ms"],
+               "device_launches": times["device_launches"], "plain_ms": cuda_ms(torch, plain)}
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, CELL_FLOPS * cells)
+        print(f"nearest_sq_pruned {cname}: {S} searches, max_abs_err {err:.1e} (tol 0), "
+              f"{cells} cells, {tiles} tiles, {times['device_launches']:.0f} launches a call",
+              flush=True)
+        print_times(f"nearest_sq_pruned {cname}", times, row["plain_ms"], row["bound_ms"])
+        detail.append(row)
     return records, detail
 
 
@@ -685,17 +740,18 @@ def ptxas_entry(usage, *parts) -> dict:
     raise AssertionError(f"ptxas reported no kernel named like {parts}")
 
 
-NO_SPILL_KERNELS = ("warp_ssd_kernel", "mind_kernel", "sample_trilinear_kernel", "cost_volume")
+NO_SPILL_KERNELS = ("warp_ssd_kernel", "mind_kernel", "sample_trilinear_kernel", "cost_volume",
+                    "nearest_sq_dual_kernel", "nearest_sq_pruned_kernel")
 
 
 def ptxas_report(_build) -> dict:
     """Print ptxas's registers and spills for the kernels of ``warp.cu``,
-    ``mind.cu`` and ``cost_volume.cu`` and check them: the backward sampler
-    fits 64 registers; the data term, the forward sampler, the compile-time
-    MIND kernels and every cost-volume kernel do not spill.  Returns every
-    source's report."""
+    ``mind.cu``, ``cost_volume.cu`` and ``edt.cu`` and check them: the
+    backward sampler fits 64 registers; the data term, the forward sampler,
+    the compile-time MIND kernels, every cost-volume kernel and the dual and
+    pruned searches do not spill.  Returns every source's report."""
     usage = {name: _build.resource_usage(name) for name in _build.KERNEL_SOURCES}
-    for src in ("warp", "mind", "cost_volume"):
+    for src in ("warp", "mind", "cost_volume", "edt"):
         for mangled, use in usage[src].items():
             print(f"ptxas {src}.cu {mangled}: {use}", flush=True)
             if "sample_trilinear_bwd_kernel" in mangled:
@@ -1365,6 +1421,9 @@ def main() -> int:
 
     # 3e. the HD95 engine's nearest-neighbour searches
     search_records, search_detail = search_phase(torch, dev, seg_f, seg_m)
+    for rec in search_records:
+        if rec["name"] != "nearest_sq":
+            rec.update(ptxas_entry(results["ptxas"]["edt"], GLOBALS[rec["name"]][0]))
     records += search_records
     results["searches"] = search_detail
 
@@ -1450,7 +1509,7 @@ def main() -> int:
             rec["launches_run"] = "evaluate_field"
         else:
             # the default branch takes the pruned search at every K up to
-            # 524288, so these two run only in the evaluation with it
+            # 1048576, so these two run only in the evaluation with it
             # switched off: their launches are that run's
             rec["launches"] = tiled_launches[name]
             rec["launches_run"] = "evaluate_field with the pruned search switched off"

@@ -21,8 +21,9 @@ Reference semantics kept exactly:
 
 What the JAX package needed only on the TPU is left out: the
 ``optimization_barrier`` fences, the ``lax.map``/``vmap`` label chunking
-(``label_chunk``; labels run in a Python loop here), the
-``CONVEXADAM_HD95_PALLAS`` switch to the XLA searches and the bfloat16
+(``label_chunk``; here the pruned branch runs every search of a label
+bucket in one batched call, and the percentiles of all its labels in one
+sort), the ``CONVEXADAM_HD95_PALLAS`` switch to the XLA searches and the bfloat16
 cross term (``coords_bf16_exact``).  On the card nothing routes the searches
 to their plain versions; for CPU tensors the kernel wrappers run them.
 """
@@ -39,9 +40,10 @@ from convexadam_torch import _resolve_device
 from convexadam_torch.core.features import label_counts
 from convexadam_torch.kernels.edt import (
     COORD_PAD,
+    host_ints,
     nearest_sq,
     nearest_sq_dual,
-    nearest_sq_pruned,
+    nearest_sq_pruned_batched,
 )
 
 #: Per-axis extent limit of the engine.  Label buffers move coordinates as one
@@ -68,28 +70,40 @@ def _compact(mask_flat: torch.Tensor, K: int):
     return buf[:K], count
 
 
-def _pruned_search_enabled(K: int) -> bool:
-    """Whether :func:`hd95_from_buffers` takes the pruned search; otherwise
-    the dual pass and two tiled searches run.
+#: Largest label-bucket K at which the pruned search has been measured on the
+#: card (``scripts/time_kernels.py --threshold``)
+PRUNED_SEARCH_MAX_K = 1 << 20
 
-    The threshold is the JAX package's: its pruned Pallas kernel kept the
-    whole (3, K) target set resident in the TPU's VMEM at 12 bytes a point,
-    so it was capped at 6 MB.  The Hopper kernel reads each visited target
-    tile from global memory and has no such limit; the threshold stays so
-    that both packages take the same branch, until it is re-derived for the
-    card."""
-    return K % 128 == 0 and K * 12 <= 6 * 1024 * 1024
+
+def _pruned_search_enabled(K: int) -> bool:
+    """Whether :func:`hd95_from_buffers` takes the batched pruned search;
+    otherwise the dual pass and two tiled searches run.
+
+    The JAX package caps the pruned search at K * 12 <= 6 MB, its TPU
+    kernel's whole target set in VMEM.  The Hopper kernel reads each visited
+    tile from global memory and the order tables stay within
+    ``PRUNED_TABLE_ENTRIES`` a launch, so that limit does not apply.  On an
+    H100 (``scripts/time_kernels.py --threshold``: one organ against its
+    copy rolled by a few voxels) the pruned search's kernels take a fraction
+    of the dual + tiled searches' device time at every K from 16384 to
+    1048576, and its whole call is the shorter one from K = 131072 up; below
+    that, one label's call is the longer one by its fixed host cost, which
+    the labels of a bucket share.  So it runs at every K that is a multiple
+    of its tile up to :data:`PRUNED_SEARCH_MAX_K`; above, unmeasured, the
+    dual + tiled branch stays.  Both branches give the same HD95."""
+    return K % 128 == 0 and K <= PRUNED_SEARCH_MAX_K
 
 
 def _percentile_sorted(vals: torch.Tensor, n: torch.Tensor, q: float) -> torch.Tensor:
     """numpy's linear-interpolation percentile of the first ``n`` entries
-    of ascending ``vals`` (the tail is +inf)."""
+    of ascending ``vals`` (the tail is +inf), per row of ``vals`` (..., K)
+    with ``n`` of shape (...)."""
     rank = (q / 100.0) * (n.to(torch.float32) - 1.0)
     k = torch.clamp(torch.floor(rank).long(), min=0)
     frac = rank - k.to(torch.float32)
     k2 = torch.minimum(k + 1, torch.clamp(n.long() - 1, min=0))
-    vk = vals[k]
-    vk2 = vals[k2]
+    vk = vals.gather(-1, k[..., None])[..., 0]
+    vk2 = vals.gather(-1, k2[..., None])[..., 0]
     return torch.where(n > 0, vk + frac * (vk2 - vk), 0.0)
 
 
@@ -414,6 +428,37 @@ def caps_overflow(
     )
 
 
+def pruned_searches(bufs: LabelBuffers, label_caps: "tuple[int, ...]", K: int,
+                    labels: "tuple[int, ...]"):
+    """The four pruned searches of each label of a bucket, as
+    :func:`convexadam_torch.kernels.edt.nearest_sq_pruned_batched` takes
+    them: ``(sources, searches, q_lo, q_hi, n_target)``, label-major, in
+    the order (inner_m -> inner_f, inner_f -> inner_m, inner_m -> outer_f,
+    inner_f -> outer_m).  The queries and targets are read in place at each
+    label's offset of the buffers; the counts stay on the card.
+
+    Each direction's queries are the other volume's inner surface: those
+    inside this volume's mask (the head segment) search its outer shell,
+    those outside (the tail) its inner surface."""
+    offs = _caps_offsets(label_caps)[0]
+    labs = host_ints(labels, bufs.inner_f.device).long()
+    n_f, n_m = bufs.n_inner_f[labs], bufs.n_inner_m[labs]
+    # segment boundaries clamp to the cap (overflow keeps inside first)
+    in_f = torch.clamp(bufs.n_inside_f[labs], max=K)
+    in_m = torch.clamp(bufs.n_inside_m[labs], max=K)
+    zero = torch.zeros_like(in_f)
+    q_lo = torch.stack([in_m, in_f, zero, zero], 1).reshape(-1)
+    q_hi = torch.stack([torch.clamp(n_m, max=K), torch.clamp(n_f, max=K), in_m, in_f],
+                       1).reshape(-1)
+    n_target = torch.stack([n_f, n_m, bufs.n_outer_f[labs], bufs.n_outer_m[labs]], 1).reshape(-1)
+    sources = (bufs.inner_f, bufs.inner_m, bufs.outer_f, bufs.outer_m)
+    searches = []
+    for lab in labels:
+        o = offs[lab]
+        searches += [(1, o, 0, o), (0, o, 1, o), (1, o, 2, o), (0, o, 3, o)]
+    return sources, searches, q_lo, q_hi, n_target
+
+
 def hd95_from_buffers(
     bufs: LabelBuffers,
     label_caps: "tuple[int, ...]",
@@ -423,54 +468,52 @@ def hd95_from_buffers(
 ) -> torch.Tensor:
     """Per-label HD95 of ``labels`` from :class:`LabelBuffers`, each of cap
     ``max_surface`` (the label buckets of :func:`suggest_hd95_caps`) →
-    (len(labels),) float32."""
+    (len(labels),) float32.  The pruned branch runs every search of the
+    bucket in one batched call; the dual + tiled branch runs three per
+    label.  Both end in one sort over the (2 x labels, K) distances."""
     K = max_surface
     for lab in labels:
         if label_caps[lab] != K:
             raise ValueError(f"label {lab} has cap {label_caps[lab]} != bucket K {K}")
-    offs = _caps_offsets(label_caps)[0]
-    iota = torch.arange(K, device=bufs.inner_f.device)
-
-    def directed(d_in, d_out, n_inside, n_q):
-        """p95 of the distance to the nearest opposite-class voxel over the
-        query surface (the other volume's inner surface of the label)."""
-        d2 = torch.where(iota < n_inside, d_out, d_in)
-        d = torch.where(iota < n_q, torch.sqrt(d2), torch.inf)
-        # truncated surfaces: first-K bias
-        return _percentile_sorted(torch.sort(d).values, torch.clamp(n_q, max=K), 95.0)
-
-    out = []
-    for lab in labels:
-        sl = slice(offs[lab], offs[lab] + K)
-        ci_f = bufs.inner_f[:, sl].contiguous()
-        ci_m = bufs.inner_m[:, sl].contiguous()
-        co_f = bufs.outer_f[:, sl].contiguous()
-        co_m = bufs.outer_m[:, sl].contiguous()
-        n_f = bufs.n_inner_f[lab]
-        n_m = bufs.n_inner_m[lab]
-        # segment boundaries clamp to the cap (overflow keeps inside first)
-        in_f = torch.clamp(bufs.n_inside_f[lab], max=K)
-        in_m = torch.clamp(bufs.n_inside_m[lab], max=K)
-        # each direction's queries are the other volume's inner surface:
-        # those inside this volume's mask (the head segment) search its
-        # outer shell, those outside (the tail) its inner surface
-        if _pruned_search_enabled(K):
-            d_in_m = nearest_sq_pruned(ci_m, ci_f, in_m, torch.clamp(n_m, max=K), n_f)
-            d_in_f = nearest_sq_pruned(ci_f, ci_m, in_f, torch.clamp(n_f, max=K), n_m)
-            d_out_m = nearest_sq_pruned(ci_m, co_f, 0, in_m, bufs.n_outer_f[lab])
-            d_out_f = nearest_sq_pruned(ci_f, co_m, 0, in_f, bufs.n_outer_m[lab])
-        else:
+    dev = bufs.inner_f.device
+    labs = host_ints(labels, dev).long()
+    if _pruned_search_enabled(K):
+        out = nearest_sq_pruned_batched(*pruned_searches(bufs, label_caps, K, labels), K, K)
+        d_in_m, d_in_f, d_out_m, d_out_f = out.reshape(len(labels), 4, K).unbind(1)
+    else:
+        offs = _caps_offsets(label_caps)[0]
+        parts = []
+        for lab in labels:
+            sl = slice(offs[lab], offs[lab] + K)
+            ci_f = bufs.inner_f[:, sl].contiguous()
+            ci_m = bufs.inner_m[:, sl].contiguous()
+            in_f = torch.clamp(bufs.n_inside_f[lab], max=K)
+            in_m = torch.clamp(bufs.n_inside_m[lab], max=K)
             # the shared inner x inner block: direction 1 takes its row
             # minima and direction 2 its column minima from one pass
-            d_in_m, d_in_f = nearest_sq_dual(
-                ci_m, ci_f, n_query=n_m, n_target=n_f, head_query=in_m, head_target=in_f
-            )
-            d_out_m = nearest_sq(ci_m, co_f, n_query=in_m, n_target=bufs.n_outer_f[lab])
-            d_out_f = nearest_sq(ci_f, co_m, n_query=in_f, n_target=bufs.n_outer_m[lab])
-        hd = torch.maximum(directed(d_in_m, d_out_m, in_m, n_m), directed(d_in_f, d_out_f, in_f, n_f))
-        present = (bufs.counts_f[lab] > 0) & (bufs.counts_m[lab] > 0)
-        out.append(torch.where(present, hd, missing_value))
-    return torch.stack(out).to(torch.float32)
+            d_in = nearest_sq_dual(ci_m, ci_f, n_query=bufs.n_inner_m[lab],
+                                   n_target=bufs.n_inner_f[lab], head_query=in_m, head_target=in_f)
+            d_out_m = nearest_sq(ci_m, bufs.outer_f[:, sl].contiguous(), n_query=in_m,
+                                 n_target=bufs.n_outer_f[lab])
+            d_out_f = nearest_sq(ci_f, bufs.outer_m[:, sl].contiguous(), n_query=in_f,
+                                 n_target=bufs.n_outer_m[lab])
+            parts.append((*d_in, d_out_m, d_out_f))
+        d_in_m, d_in_f, d_out_m, d_out_f = (torch.stack(p) for p in zip(*parts))
+    # the p95 of the distance to the nearest opposite-class voxel over each
+    # direction's query surface (the other volume's inner surface of the
+    # label): rows [0, L) direction 1, [L, 2L) direction 2
+    d_in = torch.cat([d_in_m, d_in_f])
+    d_out = torch.cat([d_out_m, d_out_f])
+    n_inside = torch.clamp(torch.cat([bufs.n_inside_m[labs], bufs.n_inside_f[labs]]), max=K)
+    n_q = torch.cat([bufs.n_inner_m[labs], bufs.n_inner_f[labs]])
+    iota = torch.arange(K, device=dev)
+    d2 = torch.where(iota < n_inside[:, None], d_out, d_in)
+    d = torch.where(iota < n_q[:, None], torch.sqrt(d2), torch.inf)
+    # truncated surfaces: first-K bias
+    p95 = _percentile_sorted(torch.sort(d, dim=1).values, torch.clamp(n_q, max=K), 95.0)
+    hd = torch.maximum(p95[:len(labels)], p95[len(labels):])
+    present = (bufs.counts_f[labs] > 0) & (bufs.counts_m[labs] > 0)
+    return torch.where(present, hd, missing_value).to(torch.float32)
 
 
 def surface_stats(seg, num_labels: int):

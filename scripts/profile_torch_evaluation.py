@@ -3,7 +3,12 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 scripts/profile_torch_evaluation.py [--runs 3]
+    python3 scripts/profile_torch_evaluation.py [--runs 3] [--root DIR]
+
+``--root`` imports ``convexadam_torch`` from another checkout (for example an
+unpacked parent commit), so two versions can be profiled in one run of the
+card, in turns; the inputs always come from this checkout's
+``chip_smoke.py``.
 
 It registers the 192^3 headline pair of ``chip_smoke.py`` (seed 0, shift
 (5, -4, 3), default config) and scores the field on ``chip_smoke.py``'s
@@ -21,7 +26,10 @@ It registers the 192^3 headline pair of ``chip_smoke.py`` (seed 0, shift
   that ends without a wait hands its device work on to the next.
 * the same trace's device time by kernel name (the search kernels listed
   apart, per launch) and the device-busy share (summed device time over
-  the profiled wall time).
+  the profiled wall time);
+* the search launches of each label bucket (each call of
+  ``hd95_from_buffers``) in one evaluation, and the ``hd95.searches``
+  range's host time.
 
 It prints a JSON line and writes ``chiprun_out/profile_torch_evaluation.json``.
 """
@@ -44,14 +52,18 @@ sys.path.insert(0, str(ROOT))
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--root", type=pathlib.Path, default=ROOT)
     args = ap.parse_args()
+    # the inputs come from this checkout, the package from --root
+    from chip_smoke import HEADLINE_SHIFT, L2R_LABELS, L2R_MARGIN, headline_pair, l2r_label_pair
+
+    sys.path.insert(0, str(args.root.resolve()))
 
     import torch
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import HEADLINE_SHIFT, L2R_LABELS, L2R_MARGIN, headline_pair, l2r_label_pair
     from convexadam_torch import evaluate_field
     from convexadam_torch.core.warp import resize_trilinear
     from convexadam_torch.kernels import _build
@@ -72,7 +84,27 @@ def main() -> int:
     def evaluate():
         return evaluate_field(field, seg_f, seg_m, L2R_LABELS, kf, km, device="cuda")
 
+    import convexadam_torch.core.edt as tedt
+    from convexadam_torch.kernels import LAUNCHES
+
     evaluate()  # warm-up
+    # the search launches of each label bucket: one hd95_from_buffers call each
+    per_bucket = []
+    from_buffers = tedt.hd95_from_buffers
+
+    def counted(bufs, caps, K, *a, **k):
+        before = dict(LAUNCHES)
+        out = from_buffers(bufs, caps, K, *a, **k)
+        per_bucket.append({"K": K, "launches": {
+            n: LAUNCHES[n] - before[n] for n in ("nearest_sq", "nearest_sq_dual",
+                                                  "nearest_sq_pruned") if LAUNCHES[n] > before[n]}})
+        return out
+
+    tedt.hd95_from_buffers = counted
+    try:
+        evaluate()
+    finally:
+        tedt.hd95_from_buffers = from_buffers
     ev_times = []
     for _ in range(args.runs):
         torch.cuda.synchronize()
@@ -113,6 +145,9 @@ def main() -> int:
     }
     res = {
         "card": smi,
+        "package": str(pathlib.Path(tedt.__file__).parents[1]),
+        "launches_per_bucket": per_bucket,
+        "hd95_searches_host_ms": stages.get("hd95.searches", {}).get("host_ms"),
         "evaluate_field_s_median": float(np.median(ev_times)),
         "evaluate_field_s": ev_times,
         "stages": stages,
@@ -126,7 +161,9 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "profile_torch_evaluation.json").write_text(json.dumps(res, indent=1))
     print(f"card: {smi}")
-    print(json.dumps({k: res[k] for k in ("evaluate_field_s_median", "stages", "profiled_wall_s",
+    print(json.dumps({k: res[k] for k in ("package", "evaluate_field_s_median", "stages",
+                                          "launches_per_bucket", "hd95_searches_host_ms",
+                                          "profiled_wall_s",
                                           "device_busy_ms", "device_busy_share",
                                           "own_kernels")}))
     for r in rows[:25]:

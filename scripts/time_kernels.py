@@ -18,15 +18,28 @@ x 26 x 42 at q = 4 and the sweep's 12 x 64 x 53 x 85 at q = 7),
 bfloat16 and float32 volumes, with ``F.grid_sample`` on the float32 volume
 beside it) and ``warp_ssd_loss_grad`` (the 12 x 96^3 Adam grid with
 bfloat16 and float32 moving features, and the semantic Adam grid in
-bfloat16) with ``chip_smoke.py``'s two figures: ``call_ms``, the median
-CUDA-event time of one wrapper call, and ``device_ms``, the device time per
-call of every kernel the call runs (``torch.profiler``).  It prints one
+bfloat16), the three HD95 searches ``nearest_sq``, ``nearest_sq_dual`` and
+``nearest_sq_pruned`` on phase 3e's label-surface and 65536-point cases
+(``search_cases``), and the searches of each label bucket of phase 4c's
+13-organ pair (``hd95_from_buffers`` on the zero-field pair's label buffers:
+the searches, the percentiles and their sort; with the pruned search and
+with it switched off), with ``chip_smoke.py``'s two figures: ``call_ms``,
+the median CUDA-event time of one call, and ``device_ms``, the device time
+per call of every kernel the call runs (``torch.profiler``; for the
+searches, of the search kernels, with their launches a call).  It prints one
 JSON line with the card's name and power limit.
 
 ``--check`` first runs ``chip_smoke.py``'s ptxas report (registers and
-spills of ``mind.cu``, ``warp.cu`` and ``cost_volume.cu``) and its phases
-3a, 3b, 3c's sampler, 3d and 3f on this checkout's package (every
-comparison to the bit): the short first call for an edited kernel.
+spills of ``mind.cu``, ``warp.cu``, ``cost_volume.cu`` and ``edt.cu``) and
+its phases 3a, 3b, 3c's sampler, 3d, 3e and 3f on this checkout's package
+(every comparison to the bit): the short first call for an edited kernel.
+
+``--threshold`` instead measures, for this checkout only, where the pruned
+search stops paying: one spherical organ and its copy rolled by the
+headline shift, sized so that the surface fills about 85% of the bucket K
+(16384 to 1048576), its ``hd95_from_buffers`` with the batched pruned
+search and with the dual + tiled searches, call time, device time of the
+search kernels, launches and the peak memory the call adds.
 ``--sass`` also counts the machine instructions (``cuobjdump -sass``) of
 the compile-time MIND kernels, the data term, the sampler and the
 cost-volume kernels as built for ``--root``; in the fully unrolled MIND
@@ -50,9 +63,10 @@ def main() -> int:
     ap.add_argument("--root", type=pathlib.Path, default=ROOT)
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--threshold", action="store_true")
     args = ap.parse_args()
-    if args.check and args.root.resolve() != ROOT:
-        ap.error("--check runs this checkout's phases on this checkout's package only")
+    if (args.check or args.threshold) and args.root.resolve() != ROOT:
+        ap.error("--check and --threshold run on this checkout's package only")
     # the inputs and timing helpers come from this checkout, the package from --root
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
@@ -82,6 +96,10 @@ def main() -> int:
     _build.build_all()
     dev = torch.device("cuda")
     res = {"card": smi, "package": str(pathlib.Path(convexadam_torch.__file__).parent)}
+    if args.threshold:
+        res["threshold"] = threshold_sweep(torch, cs, dev)
+        print(json.dumps(res))
+        return 0
     vol_np, mov_np = cs.headline_pair(torch, resize_trilinear)
     vol = torch.from_numpy(vol_np).to(dev)
     feats = [mindssc(torch.from_numpy(v).to(dev), 1, 2, dtype=torch.bfloat16)
@@ -97,6 +115,7 @@ def main() -> int:
         gen = torch.Generator().manual_seed(0)
         _, res["sampler_check"] = cs.sampler_phase(torch, dev, gen, tuple(fix_s.shape[1:]))
         _, res["data_term_check"] = cs.data_term_phase(torch, gen, *feats, 2)
+        _, res["search_check"] = cs.search_phase(torch, dev, *cs.l2r_label_pair())
         _, res["sampler_bwd_check"] = cs.sampler_bwd_phase(torch, dev, gen)
 
     if args.sass:
@@ -111,9 +130,38 @@ def main() -> int:
                 if kernel in name:
                     res["sass_instructions"][name] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s", body))
 
-    def timed(fn):
-        t = {"call_ms": cs.cuda_ms(torch, fn), **cs.device_times(torch, fn)}
+    def timed(fn, kernels=None):
+        t = {"call_ms": cs.cuda_ms(torch, fn), **cs.device_times(torch, fn, kernels)}
         return {k: t[k] for k in ("call_ms", "device_ms", "device_launches")}
+
+    # the HD95 searches first: they need little memory of their own
+    import convexadam_torch.core.edt as tedt
+    from convexadam_torch.kernels import edt as ke
+
+    cases, groups, caps, bufs = cs.search_cases(torch, dev, *cs.l2r_label_pair())
+    for cname in ("surface", "large"):
+        c = cases[cname]
+        q, t, t_out = c["q"], c["t"], c["t_out"]
+        key = f"{cname} {tuple(q.shape)}"
+        res[f"nearest_sq {key}"] = timed(
+            lambda: ke.nearest_sq(q, t_out, c["hq"], c["nt_out"]), cs.GLOBALS["nearest_sq"])
+        res[f"nearest_sq_dual {key}"] = timed(
+            lambda: ke.nearest_sq_dual(q, t, c["nq"], c["nt"], c["hq"], c["ht"]),
+            cs.GLOBALS["nearest_sq_dual"])
+        res[f"nearest_sq_pruned {key}"] = timed(
+            lambda: ke.nearest_sq_pruned(q, t, c["hq"], c["nq"], c["nt"]),
+            cs.GLOBALS["nearest_sq_pruned"])
+    searches = ("nearest_sq_kernel", "nearest_sq_dual_kernel", "nearest_sq_pruned_kernel")
+    enabled = tedt._pruned_search_enabled
+    for labs, K in groups:
+        for branch, rule in (("pruned", enabled), ("pruned off", lambda k: False)):
+            tedt._pruned_search_enabled = rule
+            try:
+                res[f"hd95 searches K={K} ({len(labs)} labels), {branch}"] = timed(
+                    lambda: tedt.hd95_from_buffers(bufs, caps, K, 30.0, labs), searches)
+            finally:
+                tedt._pruned_search_enabled = enabled
+    del cases, bufs
 
     shape, dt, r, d, x = next(cs.mind_cases(torch, vol))
     res[f"mind_ssd_stats {shape} {dt} (r, d) = {(r, d)}"] = timed(lambda: mind_ssd_stats(x, r, d))
@@ -136,6 +184,67 @@ def main() -> int:
                 lambda: warp_ssd_loss_grad(mov, disp, fix, fac, chain))
     print(json.dumps(res))
     return 0
+
+
+def sphere_pair(torch, dev, K: int, shift=(5, -4, 3)):
+    """One spherical organ whose surface fills about 85% of a bucket of K
+    points (a voxel sphere of radius r has about 10.5 r^2 face-boundary
+    voxels), and its copy rolled by ``shift``, on the card."""
+    r = int((0.85 * K / 10.5) ** 0.5)
+    n = 2 * r + 24
+    ax = torch.arange(n, device=dev, dtype=torch.float32) - n / 2
+    zz, yy, xx = ax[:, None, None], ax[None, :, None], ax[None, None, :]
+    seg = ((zz * zz + yy * yy + xx * xx) <= r * r).to(torch.int32)
+    return seg, torch.roll(seg, shift, dims=(0, 1, 2)), r
+
+
+def threshold_sweep(torch, cs, dev) -> list:
+    """``hd95_from_buffers`` of one organ with the batched pruned search and
+    with the dual + tiled searches at K = 16384 to 1048576: the measurement
+    behind ``_pruned_search_enabled``."""
+    import convexadam_torch.core.edt as tedt
+
+    searches = ("nearest_sq_kernel", "nearest_sq_dual_kernel", "nearest_sq_pruned_kernel")
+    enabled = tedt._pruned_search_enabled
+    rows = []
+    for K in (16384, 65536, 131072, 262144, 524288, 1048576):
+        seg_f, seg_m, r = sphere_pair(torch, dev, K)
+        caps = (0, K)
+        pre = tedt.surface_lists(seg_f, seg_m, 1, 4 * K)
+        bufs = tedt.label_buffers(pre, 1, caps)
+        del seg_f, seg_m, pre
+        row = {"K": K, "radius": r, "n_inner_f": int(bufs.n_inner_f[1]),
+               "n_outer_f": int(bufs.n_outer_f[1]),
+               "overflow": bool(max(int(bufs.n_inner_f[1]), int(bufs.n_outer_f[1]),
+                                    int(bufs.n_inner_m[1]), int(bufs.n_outer_m[1])) > K)}
+        hd = {}
+        for branch, rule in (("pruned", lambda k: True), ("dual_tiled", lambda k: False)):
+            tedt._pruned_search_enabled = rule
+            try:
+                def run():
+                    return tedt.hd95_from_buffers(bufs, caps, K, 30.0, (1,))
+
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                hd[branch] = float(run()[0])
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                reps = 3 if K >= 262144 else 10
+                t = {"call_ms": cs.cuda_ms(torch, run, warmup=1, reps=reps),
+                     **cs.device_times(torch, run, searches, warmup=1, reps=reps)}
+                row[branch] = {"call_ms": t["call_ms"], "device_ms": t["device_ms"],
+                               "device_launches": t["device_launches"],
+                               "peak_added_mb": peak / 1e6}
+            finally:
+                tedt._pruned_search_enabled = enabled
+        row["hd95_equal"] = hd["pruned"] == hd["dual_tiled"]
+        row["hd95"] = hd["pruned"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del bufs
+        torch.cuda.empty_cache()
+    return rows
 
 
 if __name__ == "__main__":

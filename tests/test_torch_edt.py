@@ -23,10 +23,12 @@ from convexadam_torch.kernels import LAUNCHES
 from convexadam_torch.kernels.edt import (
     COORD_PAD,
     PRUNED_BLOCK,
+    PRUNED_TILE,
     nearest_sq,
     nearest_sq_dual,
     nearest_sq_plain,
     nearest_sq_pruned,
+    nearest_sq_pruned_batched,
     pruned_block_order,
 )
 from convexadam_torch.core.metrics import hd95 as host_hd95
@@ -97,8 +99,8 @@ def test_nearest_sq_pruned_plain_matches_pallas(rng, K, block):
 
 def test_pruned_ragged_equals_tiled_and_prunes(rng):
     """A ragged case (K and n not multiples of the block): the pruned search
-    equals the full search at its meaningful entries, visits no block past
-    n_target and skips most blocks of well-separated raster slabs."""
+    equals the full search at its meaningful entries, visits no tile past
+    n_target and skips most tiles of well-separated raster slabs."""
     K, n, lo, hi = 1000, 937, 5, 901
     q, t = _points(rng, K, n, extent=64), _points(rng, K, n, extent=64)
     qt, tt = torch.from_numpy(q), torch.from_numpy(t)
@@ -107,11 +109,114 @@ def test_pruned_ragged_equals_tiled_and_prunes(rng):
     np.testing.assert_array_equal(out.numpy()[lo:hi], full[lo:hi])
     order, dsort = pruned_block_order(qt, tt, n)
     gi, gj = order.shape
-    assert (gi, gj) == (8, 8)
-    live_blocks = -(-n // PRUNED_BLOCK)
-    assert int(tiles.max()) <= live_blocks
-    assert int(tiles.sum()) < gi * live_blocks
-    assert bool((dsort[:, live_blocks:] == 3.0e38).all())
+    # K padded to 1024: query blocks of 32, target tiles of 128
+    assert (gi, gj) == (1024 // PRUNED_BLOCK, 1024 // PRUNED_TILE) == (32, 8)
+    live_tiles = -(-n // PRUNED_TILE)
+    assert int(tiles.max()) <= live_tiles
+    assert int(tiles.sum()) < gi * live_tiles
+    assert bool((dsort[:, live_tiles:] == 3.0e38).all())
+
+
+# per layout: the query sets' counts, the target sets' counts, and the
+# searches (query set, target set, q_lo, q_hi, n_target): mixed counts, an
+# empty query range, a search without live targets.  n_target is a set's
+# count or 0: past it a buffer holds pads, as the engine's buffers do (the
+# Pallas kernel reads every point of a live tile)
+_BATCHES = {
+    # K = 512 on the Pallas side, 512-point slots in the buffers
+    "aligned": (512, (450, 300), (260, 500, 37), (
+        (0, 0, 100, 430, 260), (0, 1, 0, 450, 500), (1, 2, 10, 290, 37),
+        (1, 0, 200, 200, 260), (0, 2, 449, 450, 0), (1, 1, 0, 300, 500),
+    )),
+    # ragged K = 300 on the Pallas side, in 384-point slots
+    "ragged": (300, (280, 250), (260, 299, 37), (
+        (0, 0, 17, 280, 260), (1, 1, 0, 250, 299), (0, 2, 3, 277, 37),
+        (1, 0, 120, 120, 260), (1, 2, 0, 1, 0), (0, 1, 250, 279, 299),
+    )),
+}
+
+
+def _batch(rng, layout):
+    """The point sets of a layout (numpy, as the Pallas side takes them) and
+    the same sets in two buffers of whole-tile slots, with the batched
+    call's arguments."""
+    K, nqs, nts, rows = _BATCHES[layout]
+    slot = -(-K // PRUNED_TILE) * PRUNED_TILE
+    qsets = [_points(rng, K, n, extent=24) for n in nqs]
+    tsets = [_points(rng, K, n, extent=24) for n in nts]
+
+    def buffer(sets):
+        buf = np.full((3, slot * len(sets)), COORD_PAD, np.float32)
+        for k, pts in enumerate(sets):
+            buf[:, k * slot:k * slot + K] = pts
+        return torch.from_numpy(buf)
+
+    searches = [(0, qi * slot, 1, ti * slot) for qi, ti, _, _, _ in rows]
+    counts = [torch.tensor([r[c] for r in rows], dtype=torch.int32) for c in (2, 3, 4)]
+    return qsets, tsets, rows, ([buffer(qsets), buffer(tsets)], searches, *counts, slot, slot)
+
+
+@pytest.mark.parametrize("layout", ["aligned", "ragged"])
+def test_pruned_batched_plain_matches_pallas(rng, layout):
+    """Six searches of mixed counts in one batched call, read in place from
+    two buffers, each equal to ``nearest_sq_pruned_pallas`` (interpret mode)
+    on its own sets at the meaningful entries."""
+    from convexadam_tpu.ops.edt_pallas import nearest_sq_pruned_pallas
+
+    qsets, tsets, rows, args = _batch(rng, layout)
+    out, tiles = nearest_sq_pruned_batched(*args, with_tiles=True)
+    assert out.shape == (len(rows), args[-2]) and tiles.shape == (len(rows), args[-2] // PRUNED_BLOCK)
+    for s, (qi, ti, lo, hi, nt) in enumerate(rows):
+        ref = np.asarray(nearest_sq_pruned_pallas(
+            jnp.asarray(qsets[qi]), jnp.asarray(tsets[ti]), jnp.int32(lo), jnp.int32(hi),
+            jnp.int32(nt), interpret=True,
+        ))
+        np.testing.assert_array_equal(out[s].numpy()[lo:hi], ref[lo:hi], err_msg=f"search {s}")
+        if hi <= lo or nt == 0:
+            assert int(tiles[s].sum()) == 0
+
+
+@pytest.mark.parametrize("layout", ["aligned", "ragged"])
+def test_pruned_batched_equals_single_searches(rng, layout):
+    """Batching changes no walk: each search of the batch, and the batch of
+    one, equal the single-search entry on that search's own copies, tiles
+    included."""
+    qsets, tsets, rows, args = _batch(rng, layout)
+    out, tiles = nearest_sq_pruned_batched(*args, with_tiles=True)
+    for s, (qi, ti, lo, hi, nt) in enumerate(rows):
+        q, t = torch.from_numpy(qsets[qi]), torch.from_numpy(tsets[ti])
+        one, one_tiles = nearest_sq_pruned(q, t, lo, hi, nt, with_tiles=True)
+        K = q.shape[1]
+        np.testing.assert_array_equal(out[s, :K].numpy()[lo:hi], one.numpy()[lo:hi])
+        np.testing.assert_array_equal(tiles[s, :one_tiles.shape[0]].numpy(), one_tiles.numpy())
+        (sources, searches, *counts, kq, kt) = args
+        b_out, b_tiles = nearest_sq_pruned_batched(
+            sources, searches[s:s + 1], *(c[s:s + 1] for c in counts), kq, kt, with_tiles=True)
+        np.testing.assert_array_equal(b_out[0].numpy(), out[s].numpy())
+        np.testing.assert_array_equal(b_tiles[0].numpy(), tiles[s].numpy())
+
+
+def test_pruned_batched_parts_and_launches_agree(rng, monkeypatch):
+    """Order tables cut into row parts and several launches (a tiny table
+    limit) give the same minima and tiles as one launch."""
+    import convexadam_torch.kernels.edt as ke
+
+    _, _, _, args = _batch(rng, "aligned")
+    out, tiles = nearest_sq_pruned_batched(*args, with_tiles=True)
+    monkeypatch.setattr(ke, "PRUNED_TABLE_ENTRIES", 2 * 512 // PRUNED_TILE)
+    plan = ke._pruned_plan(*args)
+    assert plan.parts == 512 // PRUNED_BLOCK // 2 and len(plan.launches) == plan.table.shape[0]
+    cut, cut_tiles = nearest_sq_pruned_batched(*args, with_tiles=True)
+    np.testing.assert_array_equal(cut.numpy(), out.numpy())
+    np.testing.assert_array_equal(cut_tiles.numpy(), tiles.numpy())
+
+
+def test_pruned_batched_refuses_unaligned_searches(rng):
+    q = torch.from_numpy(_points(rng, 256, 100))
+    with pytest.raises(ValueError, match="aligned"):
+        nearest_sq_pruned_batched([q], [(0, 64, 0, 0)], 0, 100, 100, 128, 128)
+    with pytest.raises(ValueError, match="multiples"):
+        nearest_sq_pruned_batched([q], [(0, 0, 0, 0)], 0, 100, 100, 200, 256)
 
 
 def test_cpu_search_wrappers_launch_nothing(rng):
@@ -264,6 +369,37 @@ def test_hd95_device_matches_jax_and_host(max_surface):
     assert got[2] == 30.0
 
 
+def _two_bucket_pair():
+    """A large sphere (K = 8192 bucket) and two small ones (K = 4096),
+    moving = fixed rolled by (1, -2, 1)."""
+    zz, yy, xx = np.ogrid[:50, :50, :50]
+    s = np.zeros((50, 50, 50), np.int32)
+    s[((zz - 24) ** 2 + (yy - 25) ** 2 + (xx - 24) ** 2) <= 21 ** 2] = 1
+    s[((zz - 5) ** 2 + (yy - 5) ** 2 + (xx - 44) ** 2) <= 4 ** 2] = 2
+    s[((zz - 44) ** 2 + (yy - 44) ** 2 + (xx - 5) ** 2) <= 3 ** 2] = 3
+    return s, np.roll(s, (1, -2, 1), axis=(0, 1, 2))
+
+
+def test_hd95_two_buckets_match_jax_exactly(monkeypatch):
+    """Each bucket's searches in one batched call and one sort: the HD95 of
+    a pair with two label buckets equals the JAX package's bit for bit, and
+    the host EDT loop's; each bucket is one call of the batched search."""
+    import convexadam_torch.kernels.edt as ke
+    from convexadam_tpu.core.edt import hd95_device_sized
+
+    s1, s2 = _two_bucket_pair()
+    groups, _ = tedt.suggest_hd95_caps(s1, s2, 3)
+    assert groups == (((2, 3), 4096), ((1,), 8192))
+    calls = []
+    batched = ke.nearest_sq_pruned_batched
+    monkeypatch.setattr(tedt, "nearest_sq_pruned_batched",
+                        lambda *a, **k: calls.append(len(a[1])) or batched(*a, **k))
+    got = tedt.hd95_device_sized(s1, s2, 3, device="cpu").numpy()
+    assert calls == [8, 4]
+    np.testing.assert_array_equal(got, np.asarray(hd95_device_sized(s1, s2, 3)))
+    np.testing.assert_allclose(got, host_hd95(s1, s2, 3), atol=1e-5)
+
+
 @pytest.mark.parametrize("entry", ["hd95_device", "hd95_device_sized"])
 def test_hd95_entries_default_to_cuda(monkeypatch, entry):
     """As every entry of the port: a CPU tensor without ``device="cpu"``
@@ -284,11 +420,16 @@ def test_hd95_branches_agree(monkeypatch):
     np.testing.assert_allclose(pruned, host_hd95(s1, s2, 4), atol=1e-5)
 
 
-def test_pruned_search_threshold_is_the_jax_one():
+def test_pruned_search_threshold_is_the_measured_one():
+    """The pruned search runs at every K that is a multiple of its tile up
+    to 1048576, the largest K measured on the card; the JAX package stops at
+    its VMEM limit, 524288.  The packing limit is the JAX package's."""
     from convexadam_tpu.core import edt as jedt
 
-    for K in (4096, 65536, 524288, 1 << 20, 1000):
-        assert tedt._pruned_search_enabled(K) == (K % 128 == 0 and K * 12 <= 6 * 1024 * 1024)
+    for K, want in ((4096, True), (65536, True), (524288, True), (1 << 20, True),
+                    (1 << 21, False), (1000, False)):
+        assert tedt._pruned_search_enabled(K) == want, K
+    assert jedt._pruned_search_enabled(1 << 20) is False  # where the two packages differ
     assert tedt.MAX_PACKED_EXTENT == jedt.MAX_PACKED_EXTENT
 
 
