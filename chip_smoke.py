@@ -11,8 +11,8 @@ Phases, each fatal on failure:
      with the registers and spills ``ptxas`` reports for the kernels of
      ``warp.cu``, ``mind.cu``, ``cost_volume.cu`` and ``edt.cu`` (the backward
      kernel must fit 64 registers; the data term's, the forward sampler's,
-     the compile-time MIND kernels, every cost-volume kernel and the dual and
-     pruned searches must not spill);
+     the compile-time MIND kernels, every cost-volume kernel and the three
+     searches must not spill);
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes and dtypes (and a ragged shape for the MIND and
      sampling kernels; the sampler with float32 and bfloat16 volumes), with
@@ -50,7 +50,11 @@ Phases, each fatal on failure:
      in [0, 192)^3 (a large organ's surface at this size) and on a ragged
      case; then all 52 pruned searches of the pair's two label buckets,
      built as the engine builds them, one batched call a bucket; the pruned
-     kernel must visit the same tiles as its plain version;
+     kernel must visit the same tiles as its plain version; the tiled
+     kernel's whole output, the init past n_query included, also with no
+     live query, with no live target, with Kt = 16383 (a multiple of
+     neither the tile nor the chunk) and with 65535 x 1024 + 1000 targets,
+     more chunks than the grid's y extent;
   3f. the sampler's coordinate-gradient kernel against its plain version to
      the bit at the semantic Adam grid 14 x 96 x 80 x 128 (bf16 and f32
      volumes, a smooth field of a few voxels, as the Adam loop samples) and
@@ -195,6 +199,9 @@ GLOBALS = {
     "nearest_sq_dual": ("nearest_sq_dual_kernel",),
     "nearest_sq_pruned": ("nearest_sq_pruned_kernel",),
 }
+# targets of phase 3e's tiled case past the card's 65535 target chunks of
+# 1024 on the grid's y axis
+TILED_GRID_KT = 65535 * 1024 + 1000
 # FP32 operations per distance cell of the search kernels (three
 # multiply-adds for the cross term, the two norms' add, the min)
 CELL_FLOPS = 8
@@ -333,19 +340,20 @@ def l2r_label_pair(shape=HEADLINE_SHAPE, shift=HEADLINE_SHIFT, n_labels=L2R_LABE
 
 
 def search_cells(name, kq, kt, nq, nt, hq=0, ht=0, tiles=0) -> int:
-    """Distance cells a search kernel evaluates on these counts: whole
-    tiles of its live query blocks x live target tiles (the dual kernel
-    skips the dead head x head corner), or the pruned kernel's visited
-    tiles."""
-    from convexadam_torch.kernels.edt import DUAL_TILE, PRUNED_BLOCK, PRUNED_TILE, TILE
+    """Distance cells a search needs on these counts: for the tiled search
+    every live query against every live target, whatever kernel computes
+    them; for the dual kernel whole tiles of its live query blocks x live
+    target tiles, the dead head x head corner skipped; for the pruned
+    kernel its visited tiles."""
+    from convexadam_torch.kernels.edt import PRUNED_BLOCK, PRUNED_TILE, SEARCH_TILE
 
     if name == "nearest_sq_pruned":
         return int(tiles) * PRUNED_BLOCK * PRUNED_TILE
-    b = TILE if name == "nearest_sq" else DUAL_TILE
+    if name == "nearest_sq":
+        return min(nq, kq) * min(nt, kt)
+    b = SEARCH_TILE
     qb = -(-min(nq, kq) // b)
     tb = -(-min(nt, kt) // b)
-    if name == "nearest_sq":
-        return qb * tb * b * b
     live = sum(1 for i in range(qb) for j in range(tb)
                if (i + 1) * b > hq or (j + 1) * b > ht)
     return live * b * b
@@ -477,6 +485,9 @@ def search_phase(torch, dev, seg_f, seg_m):
             tiles = 0
             if name == "nearest_sq":
                 err = err_at(ko, po, 0, hq)
+                # past n_query both hold the init, bit for bit
+                check(torch.equal(ko[hq:], po[hq:]), f"{name} {cname}: entries past n_query "
+                      "differ from the plain version's init")
                 cells = search_cells(name, kq, t_out.shape[1], hq, nto)
                 nbytes = 4 * (3 * kq + 3 * t_out.shape[1] + kq)
             elif name == "nearest_sq_dual":
@@ -543,7 +554,47 @@ def search_phase(torch, dev, seg_f, seg_m):
               flush=True)
         print_times(f"nearest_sq_pruned {cname}", times, row["plain_ms"], row["bound_ms"])
         detail.append(row)
+
+    # the tiled search's edges: the whole output, init past n_query included
+    for cname, q, t, nq, nt in tiled_edge_cases(torch, dev, cases["surface"]):
+        dnq, dnt = (torch.tensor([v], dtype=torch.int32, device=dev) for v in (nq, nt))
+        ko = ke.nearest_sq(q, t, dnq, dnt)
+        po = ke.nearest_sq_plain(q, t, dnq, dnt)
+        torch.cuda.synchronize()
+        err = err_at(ko, po, 0, q.shape[1])
+        check(torch.equal(ko, po), f"nearest_sq {cname}: max err {err} against the plain version")
+        print(f"nearest_sq {cname} K=({q.shape[1]}, {t.shape[1]}), n = ({nq}, {nt}): "
+              f"max_abs_err {err:.1e} (tol 0) over every entry", flush=True)
+        detail.append({"case": cname, "name": "nearest_sq", "K": [q.shape[1], t.shape[1]],
+                       "nq": nq, "nt": nt, "max_abs_err": err,
+                       "cells": search_cells("nearest_sq", q.shape[1], t.shape[1], nq, nt)})
+        del ko, po, q, t
     return records, detail
+
+
+def tiled_edge_cases(torch, dev, surface):
+    """The tiled search's edge cases, ``(name, query, target, n_query,
+    n_target)``: the surface case with no live query, with no live target
+    and with one target fewer (Kt a multiple of neither the tile nor the
+    chunk), and a target set of more chunks than the grid's y extent
+    (:data:`TILED_GRID_KT`, about 0.8 GB of points), made on the card from a
+    seed: 200 live queries in [0, 64)^3, the targets far away in [512,
+    1024)^3 but for the last chunk's, near the queries, which only a CTA's
+    second stride reaches; past n_target lie copies of the queries, which
+    must not win."""
+    q, t = surface["q"], surface["t_out"]
+    yield "no live query", q, t, 0, surface["nt_out"]
+    yield "no live target", q, t, surface["hq"], 0
+    t_odd = t[:, :-1].contiguous()
+    yield "one target fewer", q, t_odd, surface["hq"], min(surface["nt_out"], t_odd.shape[1])
+    g = torch.Generator(device=dev).manual_seed(0)
+    kq, nq, kt = 256, 200, TILED_GRID_KT
+    q = torch.randint(0, 64, (3, kq), generator=g, device=dev).float()
+    t = torch.randint(512, 1024, (3, kt), generator=g, device=dev).float()
+    # the last chunk holds the last 1000 targets, the first 900 of them live
+    t[:, -1000:-100] = torch.randint(0, 64, (3, 900), generator=g, device=dev).float()
+    t[:, -100:] = q[:, :100]
+    yield "past the grid's chunk limit", q, t, nq, kt - 100
 
 
 def evaluation_phase(torch, field, seg_f, seg_m, results):
@@ -741,15 +792,15 @@ def ptxas_entry(usage, *parts) -> dict:
 
 
 NO_SPILL_KERNELS = ("warp_ssd_kernel", "mind_kernel", "sample_trilinear_kernel", "cost_volume",
-                    "nearest_sq_dual_kernel", "nearest_sq_pruned_kernel")
+                    "nearest_sq_kernel", "nearest_sq_dual_kernel", "nearest_sq_pruned_kernel")
 
 
 def ptxas_report(_build) -> dict:
     """Print ptxas's registers and spills for the kernels of ``warp.cu``,
     ``mind.cu``, ``cost_volume.cu`` and ``edt.cu`` and check them: the
     backward sampler fits 64 registers; the data term, the forward sampler,
-    the compile-time MIND kernels, every cost-volume kernel and the dual and
-    pruned searches do not spill.  Returns every source's report."""
+    the compile-time MIND kernels, every cost-volume kernel and the three
+    searches do not spill.  Returns every source's report."""
     usage = {name: _build.resource_usage(name) for name in _build.KERNEL_SOURCES}
     for src in ("warp", "mind", "cost_volume", "edt"):
         for mangled, use in usage[src].items():
@@ -1422,8 +1473,7 @@ def main() -> int:
     # 3e. the HD95 engine's nearest-neighbour searches
     search_records, search_detail = search_phase(torch, dev, seg_f, seg_m)
     for rec in search_records:
-        if rec["name"] != "nearest_sq":
-            rec.update(ptxas_entry(results["ptxas"]["edt"], GLOBALS[rec["name"]][0]))
+        rec.update(ptxas_entry(results["ptxas"]["edt"], GLOBALS[rec["name"]][0]))
     records += search_records
     results["searches"] = search_detail
 
@@ -1509,7 +1559,7 @@ def main() -> int:
             rec["launches_run"] = "evaluate_field"
         else:
             # the default branch takes the pruned search at every K up to
-            # 1048576, so these two run only in the evaluation with it
+            # 2097152, so these two run only in the evaluation with it
             # switched off: their launches are that run's
             rec["launches"] = tiled_launches[name]
             rec["launches_run"] = "evaluate_field with the pruned search switched off"

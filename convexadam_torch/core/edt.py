@@ -70,7 +70,7 @@ def _compact(mask_flat: torch.Tensor, K: int):
     return buf[:K], count
 
 
-#: Largest label-bucket K at which the pruned search has been measured on the
+#: Largest label-bucket K at which the pruned search runs, as measured on the
 #: card (``scripts/time_kernels.py --threshold``)
 PRUNED_SEARCH_MAX_K = 1 << 20
 
@@ -89,8 +89,12 @@ def _pruned_search_enabled(K: int) -> bool:
     1048576, and its whole call is the shorter one from K = 131072 up; below
     that, one label's call is the longer one by its fixed host cost, which
     the labels of a bucket share.  So it runs at every K that is a multiple
-    of its tile up to :data:`PRUNED_SEARCH_MAX_K`; above, unmeasured, the
-    dual + tiled branch stays.  Both branches give the same HD95."""
+    of its tile up to :data:`PRUNED_SEARCH_MAX_K`.  A larger bucket is filled
+    by a speckled prediction (a ball filling a 192^3 volume has about 10^5
+    surface voxels), and on a speckled organ the dual + tiled call is the
+    shorter one at every K from 65536 to 2097152: it does only the live
+    pairs, while the pruned call builds order tables for the whole bucket.
+    Both branches give the same HD95."""
     return K % 128 == 0 and K <= PRUNED_SEARCH_MAX_K
 
 

@@ -18,25 +18,29 @@
 // Bound on the H100: operations.  A cell costs about 8 FP32 operations and
 // the searches read only (3, K) rows and write (K,) minima, so at the
 // engine's sizes (K = 4096 to 65536 points) the distance arithmetic over the
-// cells a search evaluates, at 67 TFLOP/s, is the floor.
+// cells a search needs, at 67 TFLOP/s, is the floor.
 //
-// Design.  A target tile is staged in shared memory as float4 (-2x, -2y,
-// -2z, |t|^2), so a cell is one broadcast 16-byte shared load shared by
-// several cells, three FMAs and the min.  Targets at or past n_target are
-// staged as (0, 0, 0, +inf) and never win.  The TPU walked its grid in
-// order and could carry an accumulator from one grid step to the next;
-// Hopper blocks run in no order, so
-//  - nearest_sq loops over the live target tiles inside the CTA, one query
-//    a thread;
-//  - nearest_sq_dual runs a 2-D grid (query blocks of 128 x target chunks
-//    of 1024), so that K = 16384 fills the 132 SMs.  Each thread owns an
-//    8 x 8 register micro-tile of a 128 x 128 tile: one add, three FMAs, a
-//    row min and a column min a cell.  Row minima stay in registers for the
-//    whole chunk; column minima are reduced over the CTA once a tile,
-//    through shared memory.  Both outputs are merged across CTAs with
-//    atomicMin on the int bit pattern: every value is >= 0, where the
-//    order of IEEE floats is that of their bits, and min is order-free, so
-//    the result is deterministic;
+// Design.  Targets are staged in shared memory as float4 (-2x, -2y, -2z,
+// |t|^2), so one 16-byte shared load serves several cells of three FMAs and
+// a min.  Targets at or past n_target are staged as (0, 0, 0, +inf) and
+// never win.  The TPU walked its grid in order and could carry an
+// accumulator from one grid step to the next; Hopper blocks run in no
+// order, so
+//  - nearest_sq and nearest_sq_dual run a 2-D grid (query blocks of 128 x
+//    target chunks of 1024), so that K = 16384 fills the 132 SMs, and share
+//    one body (sweep_tiles): each thread owns an 8 x 8 register micro-tile
+//    of a 128 x 128 tile.  The tiled search's cell is three FMAs from |t|^2
+//    and a row min, |q|^2 added once after the min; the dual's adds |q|^2
+//    first (one add more) and also takes a column min, reduced over the CTA
+//    once a tile through shared memory.  Row minima stay in registers over
+//    a CTA's targets.  Both outputs are merged across CTAs with atomicMin on
+//    the int bit pattern into outputs the caller fills with the init: every
+//    value is >= 0, where the order of IEEE floats is that of their bits,
+//    and min is order-free, so the result is deterministic.  Both stage a
+//    chunk once (stage_chunk: plain loads, a thread's all issued first).
+//    The tiled search's grid clamps the chunk axis to the card's 65535 and
+//    a CTA strides over the chunks past it, so every K the engine can give
+//    launches;
 //  - nearest_sq_pruned runs every search of a batch in one launch (grid:
 //    query blocks x searches, a device table of the searches' buffers,
 //    offsets and counts), reading the queries and targets in place.  A
@@ -56,35 +60,31 @@
 namespace {
 
 constexpr float kInit = 4.0f * 8192.0f * 8192.0f;  // the JAX package's _ACC_INIT
-constexpr int TB = 256;                             // tiled: queries and targets per tile
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float4 stage_target(const float* __restrict__ t, int Kt, int idx,
-                                               int live) {
-  if (idx < live) {
-    const float x = t[idx], y = t[Kt + idx], z = t[2 * Kt + idx];
-    const float n = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-    return make_float4(-2.f * x, -2.f * y, -2.f * z, n);
-  }
-  return make_float4(0.f, 0.f, 0.f, INFINITY);
-}
 
 struct Query {
   float x, y, z, n;
 };
 
-// A query at qi < live, else one whose every cell is +inf.
+// A query at qi < live, else one whose norm, and so every whole cell, is +inf.
 __device__ __forceinline__ Query load_query(const float* __restrict__ q, int Kq, int qi,
                                             int live) {
   if (qi < live) {
-    const float x = q[qi], y = q[Kq + qi], z = q[2 * Kq + qi];
+    const size_t K = Kq;
+    const float x = q[qi], y = q[K + qi], z = q[2 * K + qi];
     return Query{x, y, z, __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z))};
   }
   return Query{0.f, 0.f, 0.f, INFINITY};
 }
 
+// |t|^2 + |q|^2 - 2 q.t: the whole cell, for minima over queries
 __device__ __forceinline__ float cell(const float4 t, const Query& q) {
   return fmaf(q.z, t.z, fmaf(q.y, t.y, fmaf(q.x, t.x, __fadd_rn(t.w, q.n))));
+}
+
+// |t|^2 - 2 q.t: the cell without the query's norm, added after the min
+__device__ __forceinline__ float cell_tq(const float4 t, float qx, float qy, float qz) {
+  return fmaf(qz, t.z, fmaf(qy, t.y, fmaf(qx, t.x, t.w)));
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -93,44 +93,145 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(TB)
-nearest_sq_kernel(const float* __restrict__ q, const float* __restrict__ t,
-                  float* __restrict__ out, int Kq, int Kt, const int* __restrict__ nq_p,
-                  const int* __restrict__ nt_p) {
-  __shared__ float4 tile[TB];
-  const int i0 = blockIdx.x * TB;
-  const int qi = i0 + threadIdx.x;
-  const int nq = min(*nq_p, Kq);
-  const int nt = min(*nt_p, Kt);
-  if (i0 >= nq) {  // a query block past n_query: the TPU kernel's init
-    if (qi < Kq) out[qi] = kInit;
-    return;
+constexpr int DT = 128;            // tiled and dual: queries per CTA, targets per tile
+constexpr int DCH = 1024;          // tiled and dual: targets per chunk (the grid's second axis)
+constexpr int DNT = 256;           // tiled and dual: threads per CTA, a 16 x 16 grid
+constexpr int DR = DT / 16;        // queries per thread
+constexpr int DC = DT / 16;        // targets per thread and tile
+constexpr int DSTRIDE = DT + 16;   // dual: row stride of the column partials (a warp's two rows on disjoint banks)
+constexpr int MAX_GRID_Y = 65535;  // the card's limit on gridDim.y
+constexpr int QB = 32;             // pruned: queries per block, one a lane
+constexpr int PT = 128;            // pruned: targets per tile
+constexpr int PW = 4;              // pruned: warps per CTA, tiles per step
+constexpr int PPL = PT / 32;       // pruned: targets a lane stages
+constexpr int PCOLS = 7;           // pruned: q_src, q_off, t_src, t_off, q_lo, q_hi, n_target
+
+// The chunk of DCH targets at c0 of a (3, Kt) buffer into tgt as (-2x, -2y,
+// -2z, |t|^2), or as (0, 0, 0, +inf) at or past live: a thread's DCH / DNT
+// targets, every load issued before the first is converted.  Rows are
+// addressed in size_t: 3 Kt may pass 2^31.  The caller's barrier orders the
+// stores before tgt is read.
+__device__ __forceinline__ void stage_chunk(float4* __restrict__ tgt, const float* __restrict__ t,
+                                            int Kt, int c0, int live) {
+  constexpr int kPer = DCH / DNT;
+  const size_t K = Kt;
+  float x[kPer], y[kPer], z[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int idx = c0 + threadIdx.x + DNT * k;
+    x[k] = y[k] = z[k] = 0.f;
+    if (idx < live) {
+      x[k] = t[idx];
+      y[k] = t[K + idx];
+      z[k] = t[2 * K + idx];
+    }
   }
-  // queries at or past n_query keep the init too (+inf cells)
-  const Query qq = load_query(q, Kq, qi, nq);
-  float m = kInit;
-  for (int j0 = 0; j0 < nt; j0 += TB) {
-    __syncthreads();
-    tile[threadIdx.x] = stage_target(t, Kt, j0 + threadIdx.x, nt);
-    __syncthreads();
-#pragma unroll 16
-    for (int k = 0; k < TB; ++k) m = fminf(m, cell(tile[k], qq));
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const float n =
+        __fadd_rn(__fadd_rn(__fmul_rn(x[k], x[k]), __fmul_rn(y[k], y[k])), __fmul_rn(z[k], z[k]));
+    tgt[threadIdx.x + DNT * k] = c0 + (int)threadIdx.x + DNT * k < live
+                                     ? make_float4(-2.f * x[k], -2.f * y[k], -2.f * z[k], n)
+                                     : make_float4(0.f, 0.f, 0.f, INFINITY);
   }
-  if (qi < Kq) out[qi] = m;
 }
 
+// The body the tiled and the dual search share: a CTA's DT queries against
+// the DT-target tiles [j_first, cend) of the chunk staged in tgt (its first
+// target c0).  Thread (tx, ty) owns the queries ty + 16 r and, in each tile,
+// the targets tx + 16 c, so a warp's 16-byte loads are 16 neighbouring
+// float4.  Row minima go on in rmin: whole cells with kCols, else |t|^2 -
+// 2 q.t, the query's norm added once after the chunks.  With kCols the
+// column partials of each tile meet through colp (double-buffered, so one
+// barrier a tile orders both the writes and the reads of two tiles back) and
+// are merged into outt.
+template <bool kCols>
+__device__ __forceinline__ void sweep_tiles(const float4* __restrict__ tgt, const Query (&qq)[DR],
+                                            float (&rmin)[DR], int c0, int j_first, int cend,
+                                            int nt, float (*colp)[16][DSTRIDE],
+                                            int* __restrict__ outt) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  int buf = 0;
+  for (int j0 = j_first; j0 < cend; j0 += DT) {
+    const float4* tt = tgt + (j0 - c0);
+    float cmin[DC];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const float4 tv = tt[tx + 16 * c];
+      cmin[c] = INFINITY;
+#pragma unroll
+      for (int r = 0; r < DR; ++r) {
+        if constexpr (kCols) {
+          const float d = cell(tv, qq[r]);
+          rmin[r] = fminf(rmin[r], d);
+          cmin[c] = fminf(cmin[c], d);
+        } else {
+          rmin[r] = fminf(rmin[r], cell_tq(tv, qq[r].x, qq[r].y, qq[r].z));
+        }
+      }
+    }
+    if constexpr (kCols) {
+#pragma unroll
+      for (int c = 0; c < DC; ++c) colp[buf][ty][tx + 16 * c] = cmin[c];
+      __syncthreads();
+      if (threadIdx.x < DT) {
+        float v = colp[buf][0][threadIdx.x];
+#pragma unroll
+        for (int r = 1; r < 16; ++r) v = fminf(v, colp[buf][r][threadIdx.x]);
+        const int tj = j0 + threadIdx.x;
+        if (tj < nt && v < kInit) atomicMin(outt + tj, __float_as_int(v));
+      }
+      buf ^= 1;
+    }
+  }
+}
 
-constexpr int DT = 128;           // dual: queries per CTA, targets per tile
-constexpr int DCH = 1024;         // dual: targets per CTA (the grid's second axis)
-constexpr int DNT = 256;          // dual: threads per CTA, a 16 x 16 grid
-constexpr int DR = DT / 16;       // dual: queries per thread
-constexpr int DC = DT / 16;       // dual: targets per thread and tile
-constexpr int DSTRIDE = DT + 16;  // dual: row stride of the column partials (a warp's two rows on disjoint banks)
-constexpr int QB = 32;            // pruned: queries per block, one a lane
-constexpr int PT = 128;           // pruned: targets per tile
-constexpr int PW = 4;             // pruned: warps per CTA, tiles per step
-constexpr int PPL = PT / 32;      // pruned: targets a lane stages
-constexpr int PCOLS = 7;          // pruned: q_src, q_off, t_src, t_off, q_lo, q_hi, n_target
+// Row minima over the 16 threads of a row (lanes tx of one half-warp),
+// merged into outq; with add_norm the query's norm is added first.
+// Queries at or past nq hold +inf and leave outq as it is.
+__device__ __forceinline__ void merge_rows(const float (&rmin)[DR], const Query (&qq)[DR],
+                                           bool add_norm, int* __restrict__ outq, int i0,
+                                           int nq) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int r = 0; r < DR; ++r) {
+    float v = rmin[r];
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
+    if (add_norm) v = __fadd_rn(v, qq[r].n);
+    const int qi = i0 + ty + 16 * r;
+    if (tx == 0 && qi < nq && v < kInit) atomicMin(outq + qi, __float_as_int(v));
+  }
+}
+
+__global__ void __launch_bounds__(DNT)
+nearest_sq_kernel(const float* __restrict__ q, const float* __restrict__ t,
+                  int* __restrict__ out, int Kq, int Kt, const int* __restrict__ nq_p,
+                  const int* __restrict__ nt_p) {
+  __shared__ float4 tgt[DCH];
+  const int i0 = blockIdx.x * DT;
+  const int nq = min(*nq_p, Kq);
+  const int nt = min(*nt_p, Kt);
+  const int chunks = nt / DCH + (nt % DCH != 0);
+  if (i0 >= nq || (int)blockIdx.y >= chunks) return;  // out holds the caller's init there
+  const int ty = threadIdx.x >> 4;
+  Query qq[DR];
+  float rmin[DR];
+#pragma unroll
+  for (int r = 0; r < DR; ++r) {
+    qq[r] = load_query(q, Kq, i0 + ty + 16 * r, nq);
+    rmin[r] = INFINITY;
+  }
+  // chunks past the grid's y extent are taken in strides of it
+  for (int k = blockIdx.y; k < chunks; k += gridDim.y) {
+    const int c0 = k * DCH;
+    if (k != (int)blockIdx.y) __syncthreads();  // every read of the last chunk is done
+    stage_chunk(tgt, t, Kt, c0, nt);
+    __syncthreads();
+    sweep_tiles<false>(tgt, qq, rmin, c0, c0, min(c0 + DCH, nt), nt, nullptr, nullptr);
+  }
+  merge_rows(rmin, qq, true, out, i0, nq);
+}
 
 __global__ void __launch_bounds__(DNT)
 nearest_sq_dual_kernel(const float* __restrict__ q, const float* __restrict__ t,
@@ -151,8 +252,8 @@ nearest_sq_dual_kernel(const float* __restrict__ q, const float* __restrict__ t,
   int j_first = c0;
   while (head_rows && j_first < cend && j_first + DT <= ht) j_first += DT;
   if (j_first >= cend) return;
-  for (int k = threadIdx.x; k < DCH; k += DNT) tgt[k] = stage_target(t, Kt, c0 + k, nt);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  stage_chunk(tgt, t, Kt, c0, nt);
+  const int ty = threadIdx.x >> 4;
   // queries at or past n_query give +inf cells: they take no part in the
   // per-target minima
   Query qq[DR];
@@ -163,45 +264,8 @@ nearest_sq_dual_kernel(const float* __restrict__ q, const float* __restrict__ t,
     rmin[r] = INFINITY;
   }
   __syncthreads();
-  int buf = 0;
-  for (int j0 = j_first; j0 < cend; j0 += DT) {
-    // thread tx takes targets tx + 16 c: a warp's loads are 16 neighbouring float4
-    const float4* tt = tgt + (j0 - c0);
-    float cmin[DC];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const float4 tv = tt[tx + 16 * c];
-      cmin[c] = INFINITY;
-#pragma unroll
-      for (int r = 0; r < DR; ++r) {
-        const float d = cell(tv, qq[r]);
-        rmin[r] = fminf(rmin[r], d);
-        cmin[c] = fminf(cmin[c], d);
-      }
-    }
-    // the column partials of the 16 query rows; double-buffered, so one
-    // barrier a tile orders both the writes and the reads of two tiles back
-#pragma unroll
-    for (int c = 0; c < DC; ++c) colp[buf][ty][tx + 16 * c] = cmin[c];
-    __syncthreads();
-    if (threadIdx.x < DT) {
-      float v = colp[buf][0][threadIdx.x];
-#pragma unroll
-      for (int r = 1; r < 16; ++r) v = fminf(v, colp[buf][r][threadIdx.x]);
-      const int tj = j0 + threadIdx.x;
-      if (tj < nt && v < kInit) atomicMin(outt + tj, __float_as_int(v));
-    }
-    buf ^= 1;
-  }
-  // row minima over the 16 threads of a row (lanes tx of one half-warp)
-#pragma unroll
-  for (int r = 0; r < DR; ++r) {
-    float v = rmin[r];
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(kFull, v, o));
-    const int qi = i0 + ty + 16 * r;
-    if (tx == 0 && qi < nq && v < kInit) atomicMin(outq + qi, __float_as_int(v));
-  }
+  sweep_tiles<true>(tgt, qq, rmin, c0, j_first, cend, nt, colp, outt);
+  merge_rows(rmin, qq, false, outq, i0, nq);
 }
 
 // The point buffers of a batch of pruned searches: (3, ld[k]) rows.
@@ -225,11 +289,6 @@ __device__ __forceinline__ void load_tile(TileCoords& c, const float* __restrict
     c.y[k] = t[ld + idx];
     c.z[k] = t[2 * ld + idx];
   }
-}
-
-// |t|^2 - 2 q.t: the cell without the query's norm, added after the min
-__device__ __forceinline__ float cell_tq(const float4 t, float qx, float qy, float qz) {
-  return fmaf(qz, t.z, fmaf(qy, t.y, fmaf(qx, t.x, t.w)));
 }
 
 __global__ void __launch_bounds__(PW * 32)
@@ -332,14 +391,19 @@ nearest_sq_pruned_kernel(const Sources src, const int* __restrict__ table,
 
 }  // namespace
 
-// query (3, Kq) and target (3, Kt) float32; out (Kq,) float32; n_query and
-// n_target are int32 scalars on the card.  block must be the kernel's TB.
+// query (3, Kq) and target (3, Kt) float32; out (Kq,) int32 bits of float32,
+// which the caller fills with the init value 4 * 8192^2 before the launch;
+// n_query and n_target are int32 scalars on the card.  block and chunk must
+// be the kernel's DT and DCH.  Where Kt has more chunks than the grid's y
+// extent allows, each CTA strides over its further chunks.
 extern "C" int nearest_sq(const void* q, const void* t, void* out, int Kq, int Kt,
-                          const void* nq, const void* nt, int block, void* stream) {
-  if (block != TB) return (int)cudaErrorInvalidValue;
-  if (Kq <= 0) return 0;
-  nearest_sq_kernel<<<(Kq + TB - 1) / TB, TB, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(t), static_cast<float*>(out), Kq,
+                          const void* nq, const void* nt, int block, int chunk, void* stream) {
+  if (block != DT || chunk != DCH) return (int)cudaErrorInvalidValue;
+  if (Kq <= 0 || Kt <= 0) return 0;
+  const int chunks = Kt / DCH + (Kt % DCH != 0);
+  const dim3 grid((Kq + DT - 1) / DT, chunks < MAX_GRID_Y ? chunks : MAX_GRID_Y);
+  nearest_sq_kernel<<<grid, DNT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(t), static_cast<int*>(out), Kq,
       Kt, static_cast<const int*>(nq), static_cast<const int*>(nt));
   return (int)cudaGetLastError();
 }

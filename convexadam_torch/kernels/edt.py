@@ -18,7 +18,7 @@ JAX package, and callers mask them):
 
 * :func:`nearest_sq`: queries ``[0, n_query)``, each the least squared
   distance to the targets ``[0, n_target)`` (:data:`ACC_INIT` when there
-  are none);
+  are none); the queries past ``n_query`` hold :data:`ACC_INIT` too;
 * :func:`nearest_sq_dual`: the same per query in ``[head_query, n_query)``
   and per target in ``[head_target, n_target)`` (the min over queries
   ``[0, n_query)``); the (head_query x head_target) corner is dead;
@@ -42,12 +42,10 @@ from convexadam_torch.kernels import LAUNCHES, _build
 
 COORD_PAD = 8192.0  # padded points: distance² ≥ (8192 - 1024)², never wins
 ACC_INIT = 4.0 * COORD_PAD * COORD_PAD  # above any distance involving a pad
-#: queries per CTA and targets per shared-memory tile of the tiled kernel
-TILE = 256
-#: queries per CTA and targets per tile of the dual kernel
-DUAL_TILE = 128
-#: targets a CTA of the dual kernel sweeps (the grid's second axis)
-DUAL_CHUNK = 1024
+#: queries per CTA and targets per tile of the tiled and the dual kernel
+SEARCH_TILE = 128
+#: targets a CTA of the tiled and the dual kernel stages at once (the grid's second axis)
+SEARCH_CHUNK = 1024
 #: queries per block of the pruned search (one warp; each block keeps its own bound)
 PRUNED_BLOCK = 32
 #: targets per tile of the pruned search
@@ -108,19 +106,22 @@ def nearest_sq_plain(query, target, n_query=None, n_target=None) -> torch.Tensor
 
 def nearest_sq(query, target, n_query=None, n_target=None) -> torch.Tensor:
     """Per query point (3, Kq), the least squared distance to the target
-    points (3, Kt) ``[0, n_target)`` → (Kq,) float32."""
+    points (3, Kt) ``[0, n_target)`` → (Kq,) float32; queries at or past
+    ``n_query`` hold :data:`ACC_INIT`."""
     if query.device.type == "cpu":
         return nearest_sq_plain(query, target, n_query, n_target)
     _check("nearest_sq", query, target)
     dev = query.device
     kq, kt = query.shape[1], target.shape[1]
     nq, nt = _count(n_query, kq, dev), _count(n_target, kt, dev)
-    out = torch.empty((kq,), dtype=torch.float32, device=dev)
+    # the minima are merged across target chunks by atomicMin; queries at or
+    # past n_query keep the init
+    out = torch.full((kq,), ACC_INIT, dtype=torch.float32, device=dev)
     P, I = _build.P, _build.I  # noqa: E741
-    fn = _build.bind("edt", "nearest_sq", [P, P, P, I, I, P, P, I, P])
+    fn = _build.bind("edt", "nearest_sq", [P, P, P, I, I, P, P, I, I, P])
     err = _build.call_on(
         dev, fn, query.data_ptr(), target.data_ptr(), out.data_ptr(), kq, kt, nq.data_ptr(),
-        nt.data_ptr(), TILE,
+        nt.data_ptr(), SEARCH_TILE, SEARCH_CHUNK,
     )
     _build.check(err, "nearest_sq")
     LAUNCHES["nearest_sq"] += 1
@@ -173,7 +174,7 @@ def nearest_sq_dual(query, target, n_query=None, n_target=None, head_query=None,
     fn = _build.bind("edt", "nearest_sq_dual", [P, P, P, P, I, I, P, P, P, P, I, I, P])
     err = _build.call_on(
         dev, fn, query.data_ptr(), target.data_ptr(), outq.data_ptr(), outt.data_ptr(), kq, kt,
-        nq.data_ptr(), nt.data_ptr(), hq.data_ptr(), ht.data_ptr(), DUAL_TILE, DUAL_CHUNK,
+        nq.data_ptr(), nt.data_ptr(), hq.data_ptr(), ht.data_ptr(), SEARCH_TILE, SEARCH_CHUNK,
     )
     _build.check(err, "nearest_sq_dual")
     LAUNCHES["nearest_sq_dual"] += 1

@@ -35,11 +35,14 @@ its phases 3a, 3b, 3c's sampler, 3d, 3e and 3f on this checkout's package
 (every comparison to the bit): the short first call for an edited kernel.
 
 ``--threshold`` instead measures, for this checkout only, where the pruned
-search stops paying: one spherical organ and its copy rolled by the
-headline shift, sized so that the surface fills about 85% of the bucket K
-(16384 to 1048576), its ``hd95_from_buffers`` with the batched pruned
-search and with the dual + tiled searches, call time, device time of the
-search kernels, launches and the peak memory the call adds.
+search stops paying: one spherical organ against its copy rolled by the
+headline shift, smooth (the pruned search's best case) and speckled (2% of
+the volume's voxels flipped, a noisy prediction: its hard case), each sized
+so that its larger surface list fills about 85% of the bucket K (16384 to
+2097152), its ``hd95_from_buffers`` with the batched pruned search and with
+the dual + tiled searches, call time, device time of the search kernels
+(and of the tiled kernel alone), launches and the peak memory the call
+adds.
 ``--sass`` also counts the machine instructions (``cuobjdump -sass``) of
 the compile-time MIND kernels, the data term, the sampler and the
 cost-volume kernels as built for ``--root``; in the fully unrolled MIND
@@ -159,6 +162,10 @@ def main() -> int:
             try:
                 res[f"hd95 searches K={K} ({len(labs)} labels), {branch}"] = timed(
                     lambda: tedt.hd95_from_buffers(bufs, caps, K, 30.0, labs), searches)
+                if branch == "pruned off":
+                    res[f"hd95 searches K={K} ({len(labs)} labels), pruned off, tiled kernel"] = (
+                        timed(lambda: tedt.hd95_from_buffers(bufs, caps, K, 30.0, labs),
+                              cs.GLOBALS["nearest_sq"]))
             finally:
                 tedt._pruned_search_enabled = enabled
     del cases, bufs
@@ -198,23 +205,56 @@ def sphere_pair(torch, dev, K: int, shift=(5, -4, 3)):
     return seg, torch.roll(seg, shift, dims=(0, 1, 2)), r
 
 
+def speckled_pair(torch, dev, K: int, rate=0.02, shift=(5, -4, 3)):
+    """One spherical organ, and its copy rolled by ``shift`` with ``rate``
+    of the volume's voxels flipped (seed 0, on the card): a speckled
+    predicted segmentation, whose surface is mostly isolated voxels spread
+    over the volume.  The radius is refitted until the larger of the
+    speckled copy's two surface lists fills 75-95% of a bucket of K
+    points."""
+    import convexadam_torch.core.edt as tedt
+
+    # a flipped voxel adds about six points to one surface list
+    r = int((0.85 * K / (27 * rate)) ** (1 / 3))
+    for _ in range(8):
+        n = 2 * r + 24
+        ax = torch.arange(n, device=dev, dtype=torch.float32) - n / 2
+        zz, yy, xx = ax[:, None, None], ax[None, :, None], ax[None, None, :]
+        seg = ((zz * zz + yy * yy + xx * xx) <= r * r).to(torch.int32)
+        g = torch.Generator(device=dev).manual_seed(0)
+        flip = torch.rand(seg.shape, generator=g, device=dev) < rate
+        mov = torch.where(flip, 1 - seg, seg).roll(shift, dims=(0, 1, 2))
+        pre = tedt.surface_lists(seg, mov, 1, 8 * K)
+        bufs = tedt.label_buffers(pre, 1, (0, 4 * K))
+        most = max(int(bufs.n_inner_m[1]), int(bufs.n_outer_m[1]),
+                   int(bufs.n_inner_f[1]), int(bufs.n_outer_f[1]))
+        if 0.75 * K <= most <= 0.95 * K:
+            break
+        r = int(r * (0.85 * K / most) ** (1 / 3))
+    return seg, mov, r
+
+
 def threshold_sweep(torch, cs, dev) -> list:
-    """``hd95_from_buffers`` of one organ with the batched pruned search and
-    with the dual + tiled searches at K = 16384 to 1048576: the measurement
-    behind ``_pruned_search_enabled``."""
+    """``hd95_from_buffers`` of one organ, smooth and speckled, with the
+    batched pruned search and with the dual + tiled searches at K = 16384 to
+    2097152: the measurement behind ``_pruned_search_enabled``."""
     import convexadam_torch.core.edt as tedt
 
     searches = ("nearest_sq_kernel", "nearest_sq_dual_kernel", "nearest_sq_pruned_kernel")
     enabled = tedt._pruned_search_enabled
     rows = []
-    for K in (16384, 65536, 131072, 262144, 524288, 1048576):
-        seg_f, seg_m, r = sphere_pair(torch, dev, K)
+    cases = [(organ, pair, K)
+             for organ, pair in (("sphere", sphere_pair), ("speckled", speckled_pair))
+             for K in (16384, 65536, 131072, 262144, 524288, 1048576, 2097152)]
+    for organ, pair, K in cases:
+        seg_f, seg_m, r = pair(torch, dev, K)
         caps = (0, K)
         pre = tedt.surface_lists(seg_f, seg_m, 1, 4 * K)
         bufs = tedt.label_buffers(pre, 1, caps)
         del seg_f, seg_m, pre
-        row = {"K": K, "radius": r, "n_inner_f": int(bufs.n_inner_f[1]),
-               "n_outer_f": int(bufs.n_outer_f[1]),
+        row = {"organ": organ, "K": K, "radius": r, "n_inner_f": int(bufs.n_inner_f[1]),
+               "n_outer_f": int(bufs.n_outer_f[1]), "n_inner_m": int(bufs.n_inner_m[1]),
+               "n_outer_m": int(bufs.n_outer_m[1]),
                "overflow": bool(max(int(bufs.n_inner_f[1]), int(bufs.n_outer_f[1]),
                                     int(bufs.n_inner_m[1]), int(bufs.n_outer_m[1])) > K)}
         hd = {}
@@ -236,6 +276,9 @@ def threshold_sweep(torch, cs, dev) -> list:
                 row[branch] = {"call_ms": t["call_ms"], "device_ms": t["device_ms"],
                                "device_launches": t["device_launches"],
                                "peak_added_mb": peak / 1e6}
+                if branch == "dual_tiled":
+                    row[branch]["tiled_device_ms"] = cs.device_times(
+                        torch, run, cs.GLOBALS["nearest_sq"], warmup=1, reps=reps)["device_ms"]
             finally:
                 tedt._pruned_search_enabled = enabled
         row["hd95_equal"] = hd["pruned"] == hd["dual_tiled"]

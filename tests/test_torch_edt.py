@@ -21,6 +21,7 @@ from scipy.ndimage import uniform_filter
 import convexadam_torch.core.edt as tedt
 from convexadam_torch.kernels import LAUNCHES
 from convexadam_torch.kernels.edt import (
+    ACC_INIT,
     COORD_PAD,
     PRUNED_BLOCK,
     PRUNED_TILE,
@@ -52,16 +53,37 @@ _CASES = {
 }
 
 
-@pytest.mark.parametrize("K", [256, 512])
-def test_nearest_sq_plain_matches_pallas(rng, K):
+# the tiled search in the engine's roles: Kq, Kt, real query points,
+# n_query, real target points, n_target, the Pallas target block (None: its
+# own choice).  The engine's n_query is the head of the surface that lies
+# inside the other mask, so real points follow it
+_TILED = {
+    "256": (256, 256, 200, 200, 180, 180, None),
+    "512": (512, 512, 450, 450, 300, 300, None),
+    "head of the surface": (512, 512, 450, 260, 300, 300, None),
+    "no live query": (256, 256, 200, 0, 180, 180, None),
+    "no live target": (256, 256, 200, 200, 180, 0, None),
+    "Kt 1000": (256, 1000, 200, 200, 937, 937, None),
+    "Kt 2600": (256, 2600, 200, 170, 2411, 2411, 1300),
+}
+
+
+@pytest.mark.parametrize("case", list(_TILED))
+def test_nearest_sq_plain_matches_pallas(rng, case):
+    """The meaningful entries equal the Pallas kernel's (interpret mode);
+    every query at or past n_query holds ACC_INIT, which the CUDA kernel's
+    atomicMin merge keeps from the wrapper's fill."""
     from convexadam_tpu.ops.edt_pallas import nearest_sq_pallas
 
-    nq, nt = _CASES[K][:2]
-    q, t = _points(rng, K, nq), _points(rng, K, nt)
+    kq, kt, real_q, nq, real_t, nt, bt = _TILED[case]
+    q, t = _points(rng, kq, real_q), _points(rng, kt, real_t)
     ref = np.asarray(nearest_sq_pallas(jnp.asarray(q), jnp.asarray(t), jnp.int32(nq),
-                                       jnp.int32(nt), interpret=True))
+                                       jnp.int32(nt), interpret=True, bt=bt))
     out = nearest_sq(torch.from_numpy(q), torch.from_numpy(t), nq, nt).numpy()
     np.testing.assert_array_equal(out[:nq], ref[:nq])
+    np.testing.assert_array_equal(out[nq:], np.full(kq - nq, ACC_INIT, np.float32))
+    if nt == 0:
+        assert bool((out == ACC_INIT).all())
 
 
 @pytest.mark.parametrize("K", [256, 512])
