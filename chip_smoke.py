@@ -92,7 +92,33 @@ Phases, each fatal on failure:
      differentiable warp against the fused step (loss 1e-5 relative,
      gradient 1e-4 relative L2), then 80 iterations of each (median |diff|
      < 0.05, p99 < 0.5 voxels), 80 sampler and 80 backward launches;
-  5. output: one JSON line per result, ``{"kernels": [...]}`` (nine records:
+  5. the sweep (``convexadam_torch.selfconfig``) at the Abdomen shape 192 x
+     160 x 256 on three 13-organ subjects (predictions = ground truth),
+     pairs (0, 1) and (1, 2):
+  5a. ``run_stage1_sweep`` over the first seeded setting of the (grid_sp,
+     disp_hw) classes (2, 5), (3, 7), (4, 4) and (5, 2): launches 2 cost
+     volumes and 15 inverse-consistency steps per (setting, pair), one
+     pruned search per label bucket per case, nothing else; the winner's
+     Dice above the identity's; every (setting, pair)'s Dice and HD95 equal
+     to ``convex_field_semantic`` + ``evaluate_field`` composed outside the
+     engine, SDlogJ to 1e-4 relative, the negative fraction to 1e-6; times
+     per class and the (2, 5) class's peak memory;
+  5b. ``run_stage2_sweep`` from 5a's winner over the first seeded Adam
+     settings with grid_sp_adam 1 and 2: launches 120 data terms per
+     (setting, pair), pass A's 2 + 15 per pair, 16 x buckets pruned searches
+     per (setting, pair); the 16 variants of one (setting, pair) recomputed
+     outside the engine, Dice and HD95 equal to ``evaluate_field``'s;
+  5c. both paired sweeps on two MIND pairs at 192^3 (20 keypoints each):
+     three settings with distinct (r, d), then one Adam setting; 2 MIND
+     launches per (setting, pair); the winners' TRE below the initial TRE;
+  5d. 5a resumed from its checkpoint with rolled predictions: the same
+     arrays, no launch;
+  5e. the kernels at shapes only the sweep gives them, against their plain
+     versions: the cost volume (to the bit) and the inverse-consistency
+     steps of the (2, 5) class (14 x 96 x 80 x 128, q = 5), the data term on
+     the grid_sp_adam 1 grid 14 x 192 x 160 x 256 bf16, the batched pruned
+     search at the sweep's label buckets, each timed;
+  6. output: one JSON line per result, ``{"kernels": [...]}`` (nine records:
      the eight Pallas functions' kernels and the inverse-consistency steps)
      second to last, then ``{"ok": true, "device": {...}}`` last.
 
@@ -102,6 +128,7 @@ a result when no CUDA device is visible.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -199,6 +226,20 @@ GLOBALS = {
     "nearest_sq_dual": ("nearest_sq_dual_kernel",),
     "nearest_sq_pruned": ("nearest_sq_pruned_kernel",),
 }
+# phase 5, the sweep at the Abdomen shape, its depth cut to two pairs, four
+# stage-1 and two stage-2 settings: three subjects (one organ layout rolled
+# by three shifts), the first seeded stage-1 setting of the largest dense
+# class, the widest displacement, the commonest class and the smallest, the
+# first seeded Adam settings at grid_sp_adam 1 and 2; two MIND pairs for the
+# paired sweeps
+SWEEP_SHIFTS = ((0, 0, 0), HEADLINE_SHIFT, (-3, 4, -2))
+SWEEP_PAIRS = ((0, 1), (1, 2))
+SWEEP_CLASSES = ((2, 5), (3, 7), (4, 4), (5, 2))  # (grid_sp, disp_hw)
+SWEEP_ADAM_GRIDS = (1, 2)
+ADAM_ITERS = 120  # the sweep's Adam iterations (settings.STAGE2_SNAPSHOT_ITERS' last)
+PAIRED_SHIFTS = (HEADLINE_SHIFT, (-4, 3, 5))
+PAIRED_KEYPOINTS = 20
+SWEEP_CHECKPOINT = OUT_DIR / "sweep_stage1"
 # targets of phase 3e's tiled case past the card's 65535 target chunks of
 # 1024 on the grid's y axis
 TILED_GRID_KT = 65535 * 1024 + 1000
@@ -446,6 +487,53 @@ def search_cases(torch, dev, seg_f, seg_m):
     return cases, groups, caps, bufs
 
 
+def _err_at(a, b, lo, hi) -> float:
+    return float((a[lo:hi] - b[lo:hi]).abs().max()) if hi > lo else 0.0
+
+
+def pruned_bucket_rows(torch, bufs, caps, groups, what="batched", plain_reps=20):
+    """Every search of each label bucket ``(labels, K)`` of ``groups`` in one
+    batched call, as the HD95 engine builds them from ``bufs`` and ``caps``,
+    against the plain version: tolerance 0 at meaningful entries, the same
+    tiles visited; then timed.  Returns one row a bucket."""
+    from convexadam_torch.core.edt import pruned_searches
+    from convexadam_torch.kernels import edt as ke
+
+    rows = []
+    for labs, K in groups:
+        src, searches, lo, hi, nt = pruned_searches(bufs, caps, K, labs)
+        args = (src, searches, lo, hi, nt, K, K)
+        kern = (lambda a=args: ke.nearest_sq_pruned_batched(*a, with_tiles=True))
+        plain = (lambda a=args: ke.nearest_sq_pruned_batched_plain(*a, with_tiles=True))
+        ko, po = kern(), plain()
+        torch.cuda.synchronize()
+        cname = f"{what} K={K}"
+        check(torch.equal(ko[1], po[1]), f"nearest_sq_pruned {cname}: kernel and plain visit "
+              "different tiles")
+        bounds = list(zip(lo.tolist(), hi.tolist()))
+        err = max(_err_at(ko[0][s], po[0][s], a, b) for s, (a, b) in enumerate(bounds))
+        tol = 0.0
+        check(err <= tol, f"nearest_sq_pruned {cname}: max err {err} > {tol} at meaningful entries")
+        S = len(searches)
+        tiles = int(ko[1].sum())
+        cells = search_cells("nearest_sq_pruned", K, K, 0, 0, tiles=tiles)
+        gi, gj = K // ke.PRUNED_BLOCK, K // ke.PRUNED_TILE
+        nbytes = S * (4 * (3 * K + 3 * K + K) + 8 * gi * gj + 4 * gi)
+        times = timed_turns(torch, kern, GLOBALS["nearest_sq_pruned"])
+        row = {"case": cname, "name": "nearest_sq_pruned", "K": [K, K], "searches": S,
+               "labels": list(labs), "max_abs_err": err, "cells": cells, "tiles": tiles,
+               "ms": times["call_ms"], "device_ms": times["device_ms"],
+               "device_launches": times["device_launches"],
+               "plain_ms": cuda_ms(torch, plain, min(3, plain_reps), plain_reps)}
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, CELL_FLOPS * cells)
+        print(f"nearest_sq_pruned {cname}: {S} searches, max_abs_err {err:.1e} (tol 0), "
+              f"{cells} cells, {tiles} tiles, {times['device_launches']:.0f} launches a call",
+              flush=True)
+        print_times(f"nearest_sq_pruned {cname}", times, row["plain_ms"], row["bound_ms"])
+        rows.append(row)
+    return rows
+
+
 def search_phase(torch, dev, seg_f, seg_m):
     """Phase 3e: the three search kernels against their plain versions in
     the roles the HD95 engine gives them, tolerance 0 at meaningful entries
@@ -454,13 +542,9 @@ def search_phase(torch, dev, seg_f, seg_m):
     label bucket of the pair in one batched call, as the engine builds
     them.  Returns the records of the label-surface case (the evaluation's
     shapes) and every case's numbers."""
-    from convexadam_torch.core.edt import pruned_searches
     from convexadam_torch.kernels import edt as ke
 
     cases, groups, caps, bufs = search_cases(torch, dev, seg_f, seg_m)
-
-    def err_at(a, b, lo, hi):
-        return float((a[lo:hi] - b[lo:hi]).abs().max()) if hi > lo else 0.0
 
     records, detail = [], []
     for cname, c in cases.items():
@@ -484,18 +568,18 @@ def search_phase(torch, dev, seg_f, seg_m):
             torch.cuda.synchronize()
             tiles = 0
             if name == "nearest_sq":
-                err = err_at(ko, po, 0, hq)
+                err = _err_at(ko, po, 0, hq)
                 # past n_query both hold the init, bit for bit
                 check(torch.equal(ko[hq:], po[hq:]), f"{name} {cname}: entries past n_query "
                       "differ from the plain version's init")
                 cells = search_cells(name, kq, t_out.shape[1], hq, nto)
                 nbytes = 4 * (3 * kq + 3 * t_out.shape[1] + kq)
             elif name == "nearest_sq_dual":
-                err = max(err_at(ko[0], po[0], hq, nq), err_at(ko[1], po[1], ht, nt))
+                err = max(_err_at(ko[0], po[0], hq, nq), _err_at(ko[1], po[1], ht, nt))
                 cells = search_cells(name, kq, kt, nq, nt, hq, ht)
                 nbytes = 4 * (3 * kq + 3 * kt + kq + kt)
             else:
-                err = err_at(ko[0], po[0], hq, nq)
+                err = _err_at(ko[0], po[0], hq, nq)
                 check(torch.equal(ko[1], po[1]), f"{name} {cname}: kernel and plain visit "
                       "different tiles")
                 tiles = int(ko[1].sum())
@@ -524,36 +608,7 @@ def search_phase(torch, dev, seg_f, seg_m):
     # the evaluation's searches of this pair as the engine builds them: every
     # search of a label bucket in one batched call, read in place from the
     # label buffers, kernel against plain
-    for labs, K in groups:
-        src, searches, lo, hi, nt = pruned_searches(bufs, caps, K, labs)
-        args = (src, searches, lo, hi, nt, K, K)
-        kern = (lambda a=args: ke.nearest_sq_pruned_batched(*a, with_tiles=True))
-        plain = (lambda a=args: ke.nearest_sq_pruned_batched_plain(*a, with_tiles=True))
-        ko, po = kern(), plain()
-        torch.cuda.synchronize()
-        cname = f"batched K={K}"
-        check(torch.equal(ko[1], po[1]), f"nearest_sq_pruned {cname}: kernel and plain visit "
-              "different tiles")
-        bounds = list(zip(lo.tolist(), hi.tolist()))
-        err = max(err_at(ko[0][s], po[0][s], a, b) for s, (a, b) in enumerate(bounds))
-        tol = 0.0
-        check(err <= tol, f"nearest_sq_pruned {cname}: max err {err} > {tol} at meaningful entries")
-        S = len(searches)
-        tiles = int(ko[1].sum())
-        cells = search_cells("nearest_sq_pruned", K, K, 0, 0, tiles=tiles)
-        gi, gj = K // ke.PRUNED_BLOCK, K // ke.PRUNED_TILE
-        nbytes = S * (4 * (3 * K + 3 * K + K) + 8 * gi * gj + 4 * gi)
-        times = timed_turns(torch, kern, GLOBALS["nearest_sq_pruned"])
-        row = {"case": cname, "name": "nearest_sq_pruned", "K": [K, K], "searches": S,
-               "labels": list(labs), "max_abs_err": err, "cells": cells, "tiles": tiles,
-               "ms": times["call_ms"], "device_ms": times["device_ms"],
-               "device_launches": times["device_launches"], "plain_ms": cuda_ms(torch, plain)}
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, CELL_FLOPS * cells)
-        print(f"nearest_sq_pruned {cname}: {S} searches, max_abs_err {err:.1e} (tol 0), "
-              f"{cells} cells, {tiles} tiles, {times['device_launches']:.0f} launches a call",
-              flush=True)
-        print_times(f"nearest_sq_pruned {cname}", times, row["plain_ms"], row["bound_ms"])
-        detail.append(row)
+    detail += pruned_bucket_rows(torch, bufs, caps, groups)
 
     # the tiled search's edges: the whole output, init past n_query included
     for cname, q, t, nq, nt in tiled_edge_cases(torch, dev, cases["surface"]):
@@ -561,7 +616,7 @@ def search_phase(torch, dev, seg_f, seg_m):
         ko = ke.nearest_sq(q, t, dnq, dnt)
         po = ke.nearest_sq_plain(q, t, dnq, dnt)
         torch.cuda.synchronize()
-        err = err_at(ko, po, 0, q.shape[1])
+        err = _err_at(ko, po, 0, q.shape[1])
         check(torch.equal(ko, po), f"nearest_sq {cname}: max err {err} against the plain version")
         print(f"nearest_sq {cname} K=({q.shape[1]}, {t.shape[1]}), n = ({nq}, {nt}): "
               f"max_abs_err {err:.1e} (tol 0) over every entry", flush=True)
@@ -1396,6 +1451,404 @@ def autodiff_phase(torch, adam_inputs, results):
     return launches
 
 
+def sweep_subjects():
+    """Phase 5's three subjects at the Abdomen shape: the 13-organ layout
+    of :func:`l2r_label_pair` (seed 0) rolled by each of
+    :data:`SWEEP_SHIFTS`, as (3, H, W, D) int32; predictions = ground truth,
+    as in the JAX package's sweep tests."""
+    base, _ = l2r_label_pair(shape=ABDOMEN_SHAPE, margin=ABDOMEN_MARGIN)
+    return np.stack([np.roll(base, s, axis=(0, 1, 2)) for s in SWEEP_SHIFTS])
+
+
+def _launch_checks(what, launches, expected, at_least=()):
+    """Every kernel's launches against ``expected``; the names in
+    ``at_least`` may launch more (exact re-scoring of an overflow case)."""
+    print(f"launches, {what}: {launches}", flush=True)
+    for name, want in expected.items():
+        ok = launches[name] >= want if name in at_least else launches[name] == want
+        check(ok, f"{what}: {launches[name]} launches of {name}, expected {want}")
+
+
+def sweep_expected(**per_kernel):
+    """Expected launches of every kernel: 0 but for ``per_kernel``."""
+    out = {name: 0 for name in GLOBALS}
+    out.update(per_kernel)
+    return out
+
+
+def sweep_stage1_phase(torch, dev, segs, smi, results):
+    """Phase 5a: ``run_stage1_sweep`` on the three subjects, pairs
+    :data:`SWEEP_PAIRS`, over the first seeded setting of each class of
+    :data:`SWEEP_CLASSES`; its launches, its winner against the identity,
+    and every (setting, pair) against ``convex_field_semantic`` +
+    ``evaluate_field`` composed outside the engine.  Returns the settings,
+    the result, the launches, the label buckets and the (2, 5) class's field
+    of the first pair (for phase 5e)."""
+    from convexadam_torch import evaluate_field
+    from convexadam_torch.core.metrics import dice_coeff
+    from convexadam_torch.kernels import LAUNCHES, reset_launches
+    from convexadam_torch.selfconfig import run_stage1_sweep, stage1_settings
+    from convexadam_torch.selfconfig.checkpoint import SweepCheckpointer
+    from convexadam_torch.selfconfig.engine import _suggest_label_groups, convex_field_semantic
+
+    seeded = stage1_settings()
+    settings = []
+    for cls in SWEEP_CLASSES:
+        idx = [i for i, s in enumerate(seeded) if (s.grid_sp, s.disp_hw) == cls]
+        check(bool(idx), f"no seeded stage-1 setting of class {cls}")
+        settings.append(seeded[idx[0]])
+    groups, global_cap = _suggest_label_groups(segs, L2R_LABELS)
+    SweepCheckpointer(SWEEP_CHECKPOINT).clear()
+    P, S = len(SWEEP_PAIRS), len(settings)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_stage1_sweep(segs, segs, SWEEP_PAIRS, settings, L2R_LABELS,
+                           checkpoint_path=SWEEP_CHECKPOINT, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    sweep_peak = torch.cuda.max_memory_allocated() / 1e9
+    n = S * P
+    _launch_checks("stage-1 sweep", launches, sweep_expected(
+        cost_volume=2 * n, sample_trilinear_ic=IC_ITERS * n,
+        nearest_sq_pruned=len(groups) * n), at_least=("nearest_sq_pruned",) if res.rescored else ())
+    check(res.dice.shape == (S, 2) and bool(np.isfinite(res.dice).all())
+          and bool(np.isfinite(res.hd95).all()) and bool((res.times > 0).all()),
+          "bad stage-1 sweep result")
+    ident = float(np.mean([
+        dice_coeff(torch.from_numpy(segs[f]), torch.from_numpy(segs[m]), L2R_LABELS + 1).mean()
+        for f, m in SWEEP_PAIRS]))
+    check(res.dice[res.best, 0] > ident,
+          f"stage-1 winner's Dice {res.dice[res.best, 0]:.4f} not above the identity's {ident:.4f}")
+
+    # every (setting, pair) composed outside the engine; the first field of
+    # the (2, 5) class gives that class's peak memory
+    rows, field25 = [], None
+    sd_tol, neg_tol = 1e-4, 1e-6  # float32 std and mean against evaluate_field's float64
+    worst = {"dice": 0.0, "hd95": 0.0, "sdlogj_rel": 0.0, "neg_jac_frac": 0.0}
+    peak25 = None
+    for s, st in enumerate(settings):
+        for i, (f, m) in enumerate(SWEEP_PAIRS):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            field = convex_field_semantic(segs[f], segs[m], st.nn_mult, L2R_LABELS + 1,
+                                          st.grid_sp, st.disp_hw, device=dev)
+            torch.cuda.synchronize()
+            if (st.grid_sp, st.disp_hw) == (2, 5) and i == 0:
+                peak25, field25 = torch.cuda.max_memory_allocated() / 1e9, field
+            ev = evaluate_field(field.permute(1, 2, 3, 0), segs[f], segs[m], L2R_LABELS,
+                                device=dev)
+            c = {k: res.cases[k][s, i] for k in ("dice", "hd95", "sdlogj", "neg_jac_frac")}
+            hd_case = float(np.mean(ev["hd95"].astype(np.float64)))
+            errs = {"dice": float(np.abs(ev["dice"] - c["dice"]).max()),
+                    "hd95": abs(hd_case - float(c["hd95"])),
+                    "sdlogj_rel": abs(ev["sdlogj"] - float(c["sdlogj"])) / ev["sdlogj"],
+                    "neg_jac_frac": abs(ev["neg_jac_frac"] - float(c["neg_jac_frac"]))}
+            for k in worst:
+                worst[k] = max(worst[k], errs[k])
+            where = f"stage 1 {st}, pair {(f, m)}"
+            check(errs["dice"] == 0.0, f"{where}: engine Dice differs from evaluate_field's")
+            check(errs["hd95"] == 0.0, f"{where}: engine HD95 {c['hd95']} != {hd_case}")
+            check(errs["sdlogj_rel"] <= sd_tol, f"{where}: SDlogJ rel err {errs['sdlogj_rel']}")
+            check(errs["neg_jac_frac"] <= neg_tol, f"{where}: neg. Jacobian err {errs['neg_jac_frac']}")
+            rows.append({"setting": list(dataclasses.astuple(st)), "pair": [f, m],
+                         "dice_mean": float(np.mean(ev["dice"])), "hd95_mean": hd_case,
+                         "sdlogj": ev["sdlogj"], "neg_jac_frac": ev["neg_jac_frac"]})
+    check(peak25 is not None, "no (2, 5) setting composed")
+    out = {
+        "shape": list(ABDOMEN_SHAPE), "labels": L2R_LABELS, "pairs": [list(p) for p in SWEEP_PAIRS],
+        "settings": [list(dataclasses.astuple(s)) for s in settings],
+        "classes": [list(c) for c in SWEEP_CLASSES], "label_buckets": [[list(l), k] for l, k in groups],
+        "global_cap": global_cap, "dice": res.dice.tolist(), "jstd": res.jstd.tolist(),
+        "hd95": res.hd95.tolist(), "times_s": res.times.tolist(), "rank": res.rank.tolist(),
+        "best": res.best, "identity_dice": ident, "rescored": res.rescored,
+        "rescore_s": res.rescore_sec, "wall_s": wall, "sweep_peak_gb": sweep_peak,
+        "peak_gb_grid_sp2_disp_hw5": peak25, "max_err_vs_composed": worst,
+        "tolerances": {"dice": 0.0, "hd95": 0.0, "sdlogj_rel": sd_tol, "neg_jac_frac": neg_tol},
+        "composed": rows, "launches": launches, "card": smi,
+    }
+    for s, st in enumerate(settings):
+        print(f"stage 1, class {(st.grid_sp, st.disp_hw)} {st}: {res.times[s]:.4f} s per setting "
+              f"({P} pairs at {ABDOMEN_SHAPE}); Dice {res.dice[s, 0]:.4f}, HD95 "
+              f"{res.hd95[s]:.4f} [{smi}]", flush=True)
+    print(f"stage 1: winner {settings[res.best]} Dice {res.dice[res.best, 0]:.4f} (identity "
+          f"{ident:.4f}); rescored {res.rescored}; sweep {wall:.2f} s wall, peak "
+          f"{sweep_peak:.2f} GB; class (2, 5) peak {peak25:.2f} GB [{smi}]; engine vs composed: "
+          f"Dice {worst['dice']}, HD95 {worst['hd95']}, SDlogJ rel {worst['sdlogj_rel']:.2e} "
+          f"(tol {sd_tol}), neg. fraction {worst['neg_jac_frac']:.2e} (tol {neg_tol})", flush=True)
+    results["sweep_stage1"] = out
+    return settings, res, launches, field25
+
+
+def sweep_stage2_phase(torch, dev, segs, winner, smi, results):
+    """Phase 5b: ``run_stage2_sweep`` from 5a's winner over the first seeded
+    Adam settings with grid_sp_adam 1 and 2; its launches; the 16 variants
+    of the first (setting, pair) recomputed outside the engine against
+    ``evaluate_field``."""
+    from convexadam_torch import evaluate_field
+    from convexadam_torch.kernels import LAUNCHES, reset_launches
+    from convexadam_torch.selfconfig import run_stage2_sweep, stage2_settings
+    from convexadam_torch.selfconfig.engine import (
+        _cost_scale,
+        _stage2_variants,
+        _suggest_label_groups,
+        convex_field_semantic,
+    )
+
+    seeded = stage2_settings()
+    adam = [next(s for s in seeded if s.grid_sp_adam == g) for g in SWEEP_ADAM_GRIDS]
+    groups, _ = _suggest_label_groups(segs, L2R_LABELS)
+    P, S = len(SWEEP_PAIRS), len(adam)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_stage2_sweep(segs, segs, SWEEP_PAIRS, winner, adam, L2R_LABELS, device=dev)
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _launch_checks("stage-2 sweep", launches, sweep_expected(
+        cost_volume=2 * P, sample_trilinear_ic=IC_ITERS * P, warp_ssd_loss_grad=ADAM_ITERS * S * P,
+        nearest_sq_pruned=len(groups) * 16 * S * P),
+        at_least=("nearest_sq_pruned",) if res.rescored else ())
+    check(res.dice.shape == (S * 16, 2) and bool(np.isfinite(res.dice).all())
+          and bool(np.isfinite(res.hd95).all()) and bool(np.isfinite(res.jstd).all()),
+          "bad stage-2 sweep result")
+
+    # setting 0 (grid_sp_adam 1), pair 0: the 16 fields recomputed outside
+    st, (f, m) = adam[0], SWEEP_PAIRS[0]
+    pf, pm = (torch.from_numpy(segs[k]).to(dev) for k in (f, m))
+    coarse = convex_field_semantic(pf, pm, winner.nn_mult, L2R_LABELS + 1, winner.grid_sp,
+                                   winner.disp_hw, coarse=True, device=dev)
+    fields = _stage2_variants(pf, pm, coarse, winner.nn_mult, st.lambda_weight, st.grid_sp_adam,
+                              st.effective_avg_n, L2R_LABELS, _cost_scale(pf, pm, L2R_LABELS))
+    worst = {"dice": 0.0, "hd95": 0.0}
+    for v, field in enumerate(fields):
+        ev = evaluate_field(field.permute(1, 2, 3, 0), segs[f], segs[m], L2R_LABELS, device=dev)
+        it, kk = divmod(v, 4)
+        d_err = float(np.abs(ev["dice"] - res.cases["dice"][0, 0, it, kk]).max())
+        h_err = abs(float(np.mean(ev["hd95"].astype(np.float64))) - res.cases["hd95"][0, 0, it, kk])
+        worst = {"dice": max(worst["dice"], d_err), "hd95": max(worst["hd95"], h_err)}
+        check(d_err == 0.0 and h_err == 0.0, f"stage 2 {st} variant {v}: Dice err {d_err}, HD95 "
+              f"err {h_err} against evaluate_field")
+    out = {
+        "convex_setting": list(dataclasses.astuple(winner)),
+        "adam_settings": [list(dataclasses.astuple(s)) for s in adam],
+        "dice": res.dice.tolist(), "jstd": res.jstd.tolist(), "hd95": res.hd95.tolist(),
+        "times_s": res.times.tolist(), "best": res.best, "rescored": res.rescored,
+        "rescore_s": res.rescore_sec, "wall_s": wall, "peak_gb": peak,
+        "max_err_vs_recomputed": worst, "launches": launches, "card": smi,
+    }
+    for s, a in enumerate(adam):
+        print(f"stage 2, {a}: {res.times[s]:.4f} s per setting ({P} pairs x 16 variants at "
+              f"{ABDOMEN_SHAPE}); best Dice {res.dice[s * 16:(s + 1) * 16, 0].max():.4f} "
+              f"[{smi}]", flush=True)
+    print(f"stage 2: winner variant {res.best} Dice {res.dice[res.best, 0]:.4f}; rescored "
+          f"{res.rescored}; sweep {wall:.2f} s wall, peak {peak:.2f} GB; 16 variants vs "
+          f"evaluate_field: Dice {worst['dice']}, HD95 {worst['hd95']}", flush=True)
+    results["sweep_stage2"] = out
+    return adam, launches
+
+
+def sweep_paired_phase(torch, dev, adam, smi, results):
+    """Phase 5c: both paired sweeps on two MIND pairs at 192^3 (headline
+    texture, two seeds and shifts, 20 keypoints each): the first seeded
+    paired settings with distinct (r, d) and grid_sp >= 3, then one Adam
+    setting (grid_sp_adam 2).  Returns the two runs' launches."""
+    from convexadam_torch.core.warp import resize_trilinear
+    from convexadam_torch.kernels import LAUNCHES, reset_launches
+    from convexadam_torch.selfconfig import stage1_paired_settings
+    from convexadam_torch.selfconfig.paired import (
+        run_stage1_paired_sweep,
+        run_stage2_paired_sweep,
+    )
+
+    vols, movs, kfs, kms = [], [], [], []
+    rng = np.random.default_rng(3)
+    c = HEADLINE_SHAPE[0] // 6  # keypoints away from the faces, as in phase 4c
+    for seed, shift in enumerate(PAIRED_SHIFTS):
+        v, mv = headline_pair(torch, resize_trilinear, HEADLINE_SHAPE, shift, seed)
+        vols.append(v)
+        movs.append(mv)
+        kf = rng.uniform(c, HEADLINE_SHAPE[0] - c, (PAIRED_KEYPOINTS, 3)).astype(np.float32)
+        kfs.append(kf)
+        kms.append(kf + np.asarray(shift, np.float32))
+    tre0 = float(np.mean([np.linalg.norm(s) for s in PAIRED_SHIFTS]))
+    settings, seen = [], set()
+    for st in stage1_paired_settings():
+        if st.grid_sp >= 3 and (st.mind_r, st.mind_d) not in seen:
+            seen.add((st.mind_r, st.mind_d))
+            settings.append(st)
+        if len(settings) == 3:
+            break
+    P, S = len(vols), len(settings)
+    torch.cuda.synchronize()
+    reset_launches()
+    r1 = run_stage1_paired_sweep(np.stack(vols), np.stack(movs), kfs, kms, settings, device=dev)
+    l1 = dict(LAUNCHES)
+    _launch_checks("paired stage 1", l1, sweep_expected(
+        mind_ssd_stats=2 * S * P, cost_volume=2 * S * P, sample_trilinear_ic=IC_ITERS * S * P))
+    check(r1.dice[r1.best, 0] < tre0,
+          f"paired stage 1: winner TRE {r1.dice[r1.best, 0]:.4f} not below the initial {tre0:.4f}")
+    torch.cuda.synchronize()
+    reset_launches()
+    r2 = run_stage2_paired_sweep(np.stack(vols), np.stack(movs), kfs, kms, settings[r1.best],
+                                 [adam], device=dev)
+    l2 = dict(LAUNCHES)
+    _launch_checks("paired stage 2", l2, sweep_expected(
+        mind_ssd_stats=2 * P, cost_volume=2 * P, sample_trilinear_ic=IC_ITERS * P,
+        warp_ssd_loss_grad=ADAM_ITERS * P))
+    check(bool(np.isfinite(r2.dice).all()) and r2.dice[r2.best, 0] < tre0,
+          f"paired stage 2: winner TRE {r2.dice[r2.best, 0]:.4f} not below the initial {tre0:.4f}")
+    out = {"shape": list(HEADLINE_SHAPE), "shifts": [list(s) for s in PAIRED_SHIFTS],
+           "keypoints": PAIRED_KEYPOINTS, "initial_tre": tre0,
+           "stage1_settings": [list(dataclasses.astuple(s)) for s in settings],
+           "stage1_tre": r1.dice.tolist(), "stage1_times_s": r1.times.tolist(), "stage1_best": r1.best,
+           "adam_setting": list(dataclasses.astuple(adam)), "stage2_tre": r2.dice.tolist(),
+           "stage2_times_s": r2.times.tolist(), "stage2_best": r2.best,
+           "launches_stage1": l1, "launches_stage2": l2, "card": smi}
+    print(f"paired stage 1 at {HEADLINE_SHAPE}: TRE {np.round(r1.dice[:, 0], 4).tolist()} "
+          f"(initial {tre0:.4f}), {np.round(r1.times, 4).tolist()} s per setting; stage 2 "
+          f"{adam}: best TRE {r2.dice[r2.best, 0]:.4f}, {r2.times[0]:.4f} s [{smi}]", flush=True)
+    results["sweep_paired"] = out
+    return l1, l2
+
+
+def sweep_resume_phase(torch, dev, segs, settings, first, results):
+    """Phase 5d: 5a resumed from its checkpoint with rolled (garbage)
+    predictions: the arrays come back as they were, no cost volume runs."""
+    from convexadam_torch.kernels import LAUNCHES, reset_launches
+    from convexadam_torch.selfconfig import run_stage1_sweep
+    from convexadam_torch.selfconfig.checkpoint import SweepCheckpointer
+
+    torch.cuda.synchronize()
+    reset_launches()
+    res = run_stage1_sweep(np.roll(segs, 7, axis=1), segs, SWEEP_PAIRS, settings, L2R_LABELS,
+                           checkpoint_path=SWEEP_CHECKPOINT, resume=True, device=dev)
+    launches = dict(LAUNCHES)
+    _launch_checks("stage-1 resume", launches, sweep_expected())
+    for k in ("dice", "jstd", "hd95", "times", "rank"):
+        check(np.array_equal(getattr(res, k), getattr(first, k)), f"resume: {k} differs")
+    check(res.best == first.best, "resume: another winner")
+    SweepCheckpointer(SWEEP_CHECKPOINT).clear()
+    print("stage-1 resume from the checkpoint: arrays identical, no kernel launched", flush=True)
+    results["sweep_resume"] = {"identical": True, "launches": launches}
+    return launches
+
+
+def sweep_kernel_phase(torch, dev, segs, settings, field25, records, results):
+    """Phase 5e: the kernels at shapes the sweep gives them and no earlier
+    phase did, each against its plain version: the cost volume and the
+    inverse-consistency steps of the (2, 5) class (14 x 96 x 80 x 128 at
+    q = 5), the data term on the grid_sp_adam = 1 grid (14 x 192 x 160 x
+    256, bfloat16), and the batched pruned search at the sweep's label
+    buckets on the (2, 5) class's warped labels.  Adds each reading to the
+    kernel's record as ``at_sweep_shape``."""
+    from convexadam_torch.core.features import semantic_features
+    from convexadam_torch.core.smoothing import avg_pool3d
+    from convexadam_torch.core.warp import resize_trilinear
+    from convexadam_torch.kernels.cost_volume import cost_volume, cost_volume_plain
+    from convexadam_torch.kernels.warp import (
+        inverse_consistency_steps,
+        inverse_consistency_steps_plain,
+        warp_ssd_loss_grad,
+        warp_ssd_loss_grad_plain,
+    )
+    from convexadam_torch.selfconfig.engine import (
+        _HD95Scorer,
+        _suggest_label_groups,
+        evaluate_field_semantic,
+    )
+
+    by_name = {r["name"]: r for r in records}
+    out = {}
+    st = next(s for s in settings if (s.grid_sp, s.disp_hw) == (2, 5))
+    f, m = SWEEP_PAIRS[0]
+    sf, sm = (torch.from_numpy(segs[k]).to(dev) for k in (f, m))
+    with torch.no_grad():
+        ff, fm = semantic_features(sf, sm, L2R_LABELS + 1, mult=1.0)
+        fix_s = avg_pool3d(ff * st.nn_mult, st.grid_sp).contiguous()
+        mov_s = avg_pool3d(fm * st.nn_mult, st.grid_sp).contiguous()
+    C, h, w, d = fix_s.shape
+    q, K3, n = st.disp_hw, (2 * st.disp_hw + 1) ** 3, h * w * d
+    ck = cost_volume(fix_s, mov_s, q)
+    cp = cost_volume_plain(fix_s, mov_s, q)
+    torch.cuda.synchronize()
+    err = max_err(ck, cp)
+    del ck, cp
+    check(err == 0.0, f"cost_volume at the (2, 5) class {(C, h, w, d)}: max err {err}")
+    t = timed_turns(torch, lambda: cost_volume(fix_s, mov_s, q), GLOBALS["cost_volume"])
+    p_ms = cuda_ms(torch, lambda: cost_volume_plain(fix_s, mov_s, q), 1, 3)
+    b_ms, b_by = bound_ms(2 * C * n * 4 + K3 * n * 4, 3.0 * K3 * n * C, PEAK_F32_UNFUSED)
+    out["cost_volume"] = {"shape": [C, h, w, d, q], "max_abs_err": err, "call_ms": t["call_ms"],
+                          "device_ms": t["device_ms"], "plain_ms": p_ms, "bound_ms": b_ms,
+                          "bound_by": b_by}
+    print_times(f"cost_volume at the (2, 5) class {(C, h, w, d)} q={q} (max_abs_err {err})", t,
+                p_ms, b_ms)
+    del fix_s, mov_s
+
+    gen = torch.Generator().manual_seed(5)
+    fields = (torch.randn((2, 3, h, w, d), generator=gen) * 0.1).to(dev)
+    ko = inverse_consistency_steps(fields, IC_ITERS)
+    po = inverse_consistency_steps_plain(fields, IC_ITERS)
+    torch.cuda.synchronize()
+    err = max_err(ko, po)
+    check(err == 0.0, f"inverse_consistency_steps at {(2, 3, h, w, d)}: max err {err}")
+    t = timed_turns(torch, lambda: inverse_consistency_steps(fields, IC_ITERS),
+                    GLOBALS["sample_trilinear_ic"])
+    p_ms = cuda_ms(torch, lambda: inverse_consistency_steps_plain(fields, IC_ITERS), 1, 3)
+    b_ms, b_by = bound_ms(2 * (2 * 3 * n * 4) + 4 * (h + w + d), 2.0 * n * (30 + 3 * 17))
+    out["sample_trilinear_ic"] = {"shape": [2, 3, h, w, d], "max_abs_err": err,
+                                  "call_ms": t["call_ms"] / IC_ITERS,
+                                  "device_ms": t["device_ms"] / IC_ITERS,
+                                  "plain_ms": p_ms / IC_ITERS, "bound_ms": b_ms, "bound_by": b_by}
+    print_times(f"inverse_consistency_steps {(2, 3, h, w, d)} x {IC_ITERS} (max_abs_err {err})",
+                t, p_ms)
+    del fields, ko, po
+
+    # the data term on the full-resolution Adam grid, bf16 moving features
+    H, W, D = ABDOMEN_SHAPE
+    N = H * W * D
+    fix_flat = ff.float().reshape(C, N).contiguous() * st.nn_mult
+    mov = (fm * st.nn_mult).to(torch.bfloat16).contiguous()
+    del ff, fm
+    coarse = torch.randn((3, H // 8, W // 8, D // 8), generator=gen) * 2.0
+    disp = resize_trilinear(coarse, (H, W, D)).to(dev).contiguous()
+    fac = (H / (H - 1.0), W / (W - 1.0), D / (D - 1.0))
+    chain = 2.0 * 14.0 / (C * N)
+    ssq_k, rows_k = warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain)
+    ssq_p, rows_p = warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain)
+    torch.cuda.synchronize()
+    err = max_err(rows_k, rows_p)
+    ssq_rel = abs(float(ssq_k) - float(ssq_p)) / float(ssq_p)
+    del rows_k, rows_p
+    check(err == 0.0 and ssq_rel <= 1e-5,
+          f"warp_ssd_loss_grad at {(C, H, W, D)} bf16: rows err {err}, sum(res^2) rel {ssq_rel}")
+    t = timed_turns(torch, lambda: warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain),
+                    GLOBALS["warp_ssd_loss_grad"])
+    p_ms = cuda_ms(torch, lambda: warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain), 1, 3)
+    b_ms, b_by = bound_ms(C * N * (2 + 4) + 3 * N * 4 * 2, 1.0 * N * (C * 37 + 110))
+    out["warp_ssd_loss_grad"] = {"shape": [C, H, W, D], "dtype": "bfloat16", "max_abs_err": err,
+                                 "ssq_rel_err": ssq_rel, "call_ms": t["call_ms"],
+                                 "device_ms": t["device_ms"], "plain_ms": p_ms,
+                                 "bound_ms": b_ms, "bound_by": b_by}
+    print_times(f"warp_ssd_loss_grad {(C, H, W, D)} bf16 (rows max_abs_err {err}, sum(res^2) rel "
+                f"{ssq_rel:.2e})", t, p_ms, b_ms)
+    del mov, disp, fix_flat
+
+    # the batched pruned search at the sweep's buckets, on the (2, 5) field
+    groups, kg = _suggest_label_groups(segs, L2R_LABELS)
+    scorer = _HD95Scorer(L2R_LABELS, groups, kg, dev)
+    _, _, _, seg_w = evaluate_field_semantic(field25, sf, sm, L2R_LABELS, device=dev)
+    _, bufs = scorer.buffers(sf, scorer.prep(sf), seg_w)
+    rows = pruned_bucket_rows(torch, bufs, scorer.caps, groups, "sweep bucket", plain_reps=3)
+    out["nearest_sq_pruned"] = rows
+    for name, reading in out.items():
+        by_name[name]["at_sweep_shape"] = reading
+    results["sweep_kernels"] = out
+
+
 def main() -> int:
     import torch
 
@@ -1544,9 +1997,23 @@ def main() -> int:
     multi_output_phase(torch, dev, vol_np, mov_np, out, results)
     autodiff_launches = autodiff_phase(torch, adam_inputs, results)
 
-    # 5. output: each kernel's launches on the path that runs it
+    # 5. the sweep at the Abdomen shape: stage 1, stage 2, the paired sweeps,
+    # resume, and the kernels at the shapes only the sweep gives them
+    segs = sweep_subjects()
+    s1_settings, s1, sweep_l1, field25 = sweep_stage1_phase(torch, dev, segs, smi, results)
+    adam, sweep_l2 = sweep_stage2_phase(torch, dev, segs, s1_settings[s1.best], smi, results)
+    paired_l1, paired_l2 = sweep_paired_phase(torch, dev, adam[SWEEP_ADAM_GRIDS.index(2)], smi,
+                                              results)
+    resume_l = sweep_resume_phase(torch, dev, segs, s1_settings, s1, results)
+    sweep_kernel_phase(torch, dev, segs, s1_settings, field25, records, results)
+    del field25
+
+    # 6. output: each kernel's launches on the path that runs it
     for rec in records:
         name = rec["name"]
+        rec["launches_sweep"] = {"stage1": sweep_l1[name], "stage2": sweep_l2[name],
+                                 "paired_stage1": paired_l1[name], "paired_stage2": paired_l2[name],
+                                 "stage1_resume": resume_l[name]}
         if name in ("sample_trilinear", "sample_trilinear_bwd"):
             rec["launches"] = rec["launches_per_autodiff_adam"] = autodiff_launches[name]
             rec["launches_run"] = "80-iteration autodiff Adam of phase 4f"
@@ -1573,6 +2040,10 @@ def main() -> int:
                                      if not isinstance(v, list)}}))
     for key in ("semantic", "multi_output", "autodiff"):
         print(json.dumps({key: results[key]}))
+    for key in ("sweep_stage1", "sweep_stage2", "sweep_paired"):
+        print(json.dumps({key: {k: v for k, v in results[key].items()
+                                if k not in ("composed", "launches", "launches_stage1",
+                                             "launches_stage2")}}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "timing_readings"}
                                   for r in records]}))

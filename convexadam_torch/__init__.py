@@ -4,8 +4,9 @@ The main path is the default MIND registration
 (:func:`convexadam_torch.pipeline.convex_adam.convex_adam`); the nnU-Net
 semantic registration of two label volumes is
 :func:`convex_adam_semantic_torch`, the self-configuring grid's nine-variant
-run :func:`convex_adam_multi_output`, and the Learn2Reg evaluation of a
-registered case :func:`evaluate_field`.  Their hot
+run :func:`convex_adam_multi_output`, the Learn2Reg evaluation of a
+registered case :func:`evaluate_field`, and the self-configuring sweep over
+convex and Adam settings :mod:`convexadam_torch.selfconfig`.  Their hot
 kernels are hand-written CUDA for ``sm_90a`` under ``csrc/``, wrapped in
 ``kernels/``; each wrapper runs its plain PyTorch version only for tensors
 that lie on the CPU.

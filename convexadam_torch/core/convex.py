@@ -22,10 +22,33 @@ COUPLING_COEFFS = (0.003, 0.01, 0.03, 0.1, 0.3, 1.0)
 # only so far and refuses such settings instead.
 COST_VOLUME_STREAM_THRESHOLD = 12_000_000_000
 
+# bytes of one (3, K^3, chunk) float32 temporary of the coupled argmin: at
+# the sweep's largest dense setting (K^3 = 1331, 983,040 coarse voxels) the
+# unchunked difference and its square took 15.7 GB each
+COUPLED_CHUNK_BYTES = 1 << 30
+
 
 def _gather_disp(disp_mesh: torch.Tensor, argmin: torch.Tensor) -> torch.Tensor:
     """disp_mesh (3, K^3) at argmin (h, w, d) → field (3, h, w, d)."""
     return disp_mesh[:, argmin.reshape(-1)].reshape((3,) + tuple(argmin.shape))
+
+
+def _coupled_argmin(ssd_flat, disp_mesh, s, c, chunk):
+    """Per coarse voxel the first displacement minimising
+    ``ssd + c * ((sq0 + sq1) + sq2)``, ``chunk`` voxels at a time: the
+    (3, K^3, chunk) temporaries stay bounded, and no voxel's arithmetic
+    depends on the chunking."""
+    n = ssd_flat.shape[1]
+    out = torch.empty(n, dtype=torch.int64, device=ssd_flat.device)
+    for a in range(0, n, chunk):
+        b = min(a + chunk, n)
+        diff = disp_mesh[:, :, None] - s[:, None, a:b]  # (3, K^3, chunk)
+        sq = diff * diff
+        del diff
+        coupled = ssd_flat[:, a:b] + c * (sq[0] + sq[1] + sq[2])
+        del sq
+        out[a:b] = torch.argmin(coupled, dim=0)
+    return out
 
 
 def coupled_convex(
@@ -34,17 +57,17 @@ def coupled_convex(
     """Solve the coupled convex problem in its exact form.
 
     ``ssd`` (K^3, h, w, d), ``ssd_argmin`` (h, w, d), ``disp_mesh``
-    (3, K^3).  Returns ``disp_soft`` (3, h, w, d) in coarse voxels.
+    (3, K^3).  Returns ``disp_soft`` (3, h, w, d) in coarse voxels.  The
+    coupled argmin runs over chunks of voxels whose (3, K^3, chunk) float32
+    difference takes at most :data:`COUPLED_CHUNK_BYTES`.
     """
     shape = ssd.shape[1:]
     ssd_flat = ssd.reshape(ssd.shape[0], -1)
+    chunk = max(1, COUPLED_CHUNK_BYTES // (3 * ssd.shape[0] * 4))
     disp_soft = avg_pool3d(_gather_disp(disp_mesh, ssd_argmin), 3, stride=1, padding=1)
     for c in COUPLING_COEFFS:
         s = disp_soft.reshape(3, -1)
-        diff = disp_mesh[:, :, None] - s[:, None, :]  # (3, K^3, N)
-        sq = diff * diff
-        coupled = ssd_flat + c * (sq[0] + sq[1] + sq[2])
-        argmin = torch.argmin(coupled, dim=0).reshape(shape)
+        argmin = _coupled_argmin(ssd_flat, disp_mesh, s, c, chunk).reshape(shape)
         disp_soft = avg_pool3d(_gather_disp(disp_mesh, argmin), 3, stride=1, padding=1)
     return disp_soft
 

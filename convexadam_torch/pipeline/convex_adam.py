@@ -72,12 +72,14 @@ def _convex_stage(
     cfg: ConvexAdamConfig,
     full_shape: "tuple[int, int, int]",
     for_adam_init: bool = False,
+    coarse: bool = False,
 ) -> torch.Tensor:
     """Pooling, cost volume, coupled convex and inverse consistency.
 
     Returns the displacement (3, H, W, D) in full-resolution voxels; with
     ``for_adam_init`` and ``ic=False`` it stays on the coarse grid, so that
-    one resize takes it to the Adam grid.
+    one resize takes it to the Adam grid; with ``coarse`` it stays there in
+    either case (the sweep's stage-2 cache), still in full-resolution voxels.
     """
     H, W, D = full_shape
     g = cfg.grid_sp
@@ -98,8 +100,9 @@ def _convex_stage(
         ).reshape(3, 1, 1, 1)
         disp_soft_r = convex_displacement(mov_s, fix_s, cfg.disp_hw, **kw)
         disp_ice, _ = inverse_consistency(disp_soft / scale, disp_soft_r / scale, iters=15)
-        return resize_trilinear(disp_ice * scale * g, (H, W, D), align_corners=False)
-    if for_adam_init:
+        disp_lr = disp_ice * scale * g
+        return disp_lr if coarse else resize_trilinear(disp_lr, (H, W, D), align_corners=False)
+    if for_adam_init or coarse:
         return disp_soft * g
     return resize_trilinear(disp_soft * g, (H, W, D), align_corners=False)
 

@@ -1,2 +1,20 @@
 """Self-configuration and Learn2Reg evaluation (counterpart of
-``convexadam_tpu/selfconfig``); so far the per-case evaluator."""
+``convexadam_tpu/selfconfig``): the two-stage random search over convex and
+Adam settings scored by rank aggregation (``engine.py``, ``paired.py``,
+``settings.py``, ``rank.py``, ``checkpoint.py``) and the per-case evaluator
+(``l2r.py``).  The task driver (``L2RTask`` and the CLIs) is not ported yet.
+"""
+
+from convexadam_torch.selfconfig.settings import (  # noqa: F401
+    Stage1PairedSetting,
+    Stage1Setting,
+    Stage2Setting,
+    decode_adam_variant,
+    stage1_paired_settings,
+    stage1_settings,
+    stage2_settings,
+)
+from convexadam_torch.selfconfig.engine import (  # noqa: F401
+    run_stage1_sweep,
+    run_stage2_sweep,
+)
