@@ -118,9 +118,41 @@ Phases, each fatal on failure:
      steps of the (2, 5) class (14 x 96 x 80 x 128, q = 5), the data term on
      the grid_sp_adam 1 grid 14 x 192 x 160 x 256 bf16, the batched pruned
      search at the sweep's label buckets, each timed;
-  6. output: one JSON line per result, ``{"kernels": [...]}`` (nine records:
-     the eight Pallas functions' kernels and the inverse-consistency steps)
-     second to last, then ``{"ok": true, "device": {...}}`` last.
+  6. the file-level path, from NIfTI files written under ``chiprun_out/phase6``
+     (removed afterwards), every kernel count set to 0 just before each run:
+  6a. ``cli.register.main`` with ``--use_mask True`` on a masked MIND pair at
+     192 x 160 x 256 (the headline texture and shift, an ellipsoidal body
+     mask moved with the image): launches 2 / 2 / 15 / 80, ``disp.nii.gz``
+     equal to ``convex_adam(mask_infill(...))`` on the files' arrays to the
+     bit, the fixed image's affine, the shift within 1 voxel on > 90% of the
+     crop; then ``--multi_iters 40,60,80``: nine files, (80, 0) equal to the
+     single-output field to the bit;
+  6b. ``cli.apply.main`` with 6a's field: equal to ``map_coordinates_trilinear``
+     composed outside to the bit, a smaller SSD to the fixed image than the
+     unwarped image's in the crop;
+  6c. ``convex_adam_translation`` on ``MedicalImage``s of 128 x 128 x 96 at
+     (1.5, 1.5, 2.0) mm (192^3 at 1 mm) whose origins differ by (2, -3, 1)
+     voxels, plain and masked mean: the translation equal to the truth;
+  6d. the task driver at the Abdomen shape on phase 5's three subjects with
+     CT-like intensities (``AbdomenCTCT``: images, labels, a 13-organ labels
+     table, one validation and one test pair): ``L2RTask.load`` →
+     ``run_validation_grid`` over one setting, both arms (iterations cut to
+     80) → ``select_winner`` → ``run_testset``; launches 2 / 2 / 15 / 80 (MIND)
+     and 0 / 2 / 15 / 80 (nnUNet) an arm and case, one pruned search per
+     label bucket per evaluation; every variant recomputed outside the task driver,
+     its metrics equal to ``evaluate_field``'s and its file to its field; the
+     winner's Dice above the identity's; the host split per case (load,
+     register, evaluate, write);
+  6e. ``cli.l2r.main`` on a 64 x 48 x 64 task with its own six settings: a
+     ``WINNER`` line, 108 validation fields and the test field;
+  6f. ``cli.sweep.main(["infer", ...])`` from 6d's label files: launches 2 /
+     15 / iterations (cost volume, IC steps, data term), Dice above the
+     identity's;
+  7. output: one JSON line per result, ``{"phase6": {...}}``,
+     ``{"kernels": [...]}`` (nine records: the eight Pallas functions'
+     kernels and the inverse-consistency steps, each with its launches on
+     every path, phase 6's under ``launches_file``) second to last, then
+     ``{"ok": true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero without
 a result when no CUDA device is visible.
@@ -240,6 +272,29 @@ ADAM_ITERS = 120  # the sweep's Adam iterations (settings.STAGE2_SNAPSHOT_ITERS'
 PAIRED_SHIFTS = (HEADLINE_SHIFT, (-4, 3, 5))
 PAIRED_KEYPOINTS = 20
 SWEEP_CHECKPOINT = OUT_DIR / "sweep_stage1"
+# phase 6, the file-level path: inputs written as NIfTI under FILE_DIR with a
+# CT-like affine (0.8 x 0.8 x 1.5 mm), the masked MIND pair at the Abdomen
+# shape, the translation case (128 x 128 x 96 voxels of 1.5 x 1.5 x 2.0 mm,
+# 192^3 at 1 mm, moved by whole voxels), the task driver on phase 5's three
+# subjects (one setting, both arms, every variant), a small task for the
+# l2r CLI's own six settings, and test-set inference from label files
+FILE_DIR = OUT_DIR / "phase6"
+FILE_AFFINE = np.array([[0.8, 0.0, 0.0, -76.4], [0.0, 0.8, 0.0, -60.2],
+                        [0.0, 0.0, 1.5, -190.0], [0.0, 0.0, 0.0, 1.0]])
+FILE_CROP = 32  # voxels from every face, as phase 4's crop
+BODY_AXES = 0.6
+FILE_MULTI_ITERS = (40, 60, 80)
+TRANSLATION_SIZE = (128, 128, 96)  # (x, y, z)
+TRANSLATION_SPACING = (1.5, 1.5, 2.0)
+TRANSLATION_VOXELS = (2, -3, 1)  # the moving image's origin shift, (x, y, z) voxels
+L2R_TASK = "AbdomenCTCT"
+L2R_GRID = ([6], [4], [1.25])  # (grid_sp, disp_hw, lambda) of 6d's one setting
+# 6d's iteration list cut from the task driver's (40, 60, 80) to (80,): three
+# fields an arm, not nine (the host's gzip of each 94 MB field takes about 5 s)
+L2R_GRID_ITERS = (80,)
+L2R_SMALL_TASK = "SmallCT"
+L2R_SMALL_SHAPE = (64, 48, 64)
+INFER_ADAM_S2 = 5  # the decoded variant: 80 iterations, one extra box pass
 # targets of phase 3e's tiled case past the card's 65535 target chunks of
 # 1024 on the grid's y axis
 TILED_GRID_KT = 65535 * 1024 + 1000
@@ -1848,6 +1903,454 @@ def sweep_kernel_phase(torch, dev, segs, settings, field25, records, results):
         by_name[name]["at_sweep_shape"] = reading
     results["sweep_kernels"] = out
 
+# ---------------------------------------------------------------------------
+# phase 6: the file-level path, from files on disk
+# ---------------------------------------------------------------------------
+
+
+def _write_nib(path, data, affine=None):
+    from convexadam_torch.geometry.io import save_volume_nib_order
+
+    save_volume_nib_order(data, FILE_AFFINE if affine is None else affine, path)
+
+
+def _read_nib(path):
+    from convexadam_torch.geometry.io import load_volume_nib_order
+
+    return load_volume_nib_order(path)
+
+
+def _counted(torch, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after (the card synchronized): (result, launches, seconds)."""
+    from convexadam_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(LAUNCHES), time.perf_counter() - t0
+
+
+def _bits_equal(a, b) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and bool(np.array_equal(a, b))
+
+
+def body_mask(shape):
+    """An ellipsoidal body mask, semi-axes :data:`BODY_AXES` of each extent
+    (it holds the central crop and leaves the corners out), uint8."""
+    grids = np.ogrid[tuple(slice(0, s) for s in shape)]
+    r2 = sum(((g - (s - 1) / 2) / (BODY_AXES * s)) ** 2 for g, s in zip(grids, shape))
+    return (r2 <= 1.0).astype(np.uint8)
+
+
+def ct_volume(seg, seed):
+    """CT-like intensities of a label volume: a soft-tissue body, a
+    Hounsfield-like value per organ, smooth noise."""
+    import torch
+
+    from convexadam_torch.core.warp import resize_trilinear
+
+    rng = np.random.default_rng(seed)
+    hu = np.concatenate([[-100.0], rng.uniform(20, 220, seg.max())]).astype(np.float32)
+    noise = rng.standard_normal([max(2, s // 4) for s in seg.shape]).astype(np.float32)
+    noise = resize_trilinear(torch.from_numpy(noise)[None], seg.shape)[0].numpy()
+    return hu[seg] + 25.0 * noise
+
+
+def register_file_phase(torch, dev, d, results):
+    """Phase 6a: ``cli.register.main`` on a masked MIND pair at the Abdomen
+    shape, against ``convex_adam(mask_infill(...))`` on the same arrays;
+    then the nine-variant files.  Returns the launches and the paths."""
+    from convexadam_torch.cli import register
+    from convexadam_torch.core.warp import resize_trilinear
+    from convexadam_torch.pipeline.convex_adam import convex_adam
+    from convexadam_torch.pipeline.preprocess import mask_infill
+
+    vol, mov = headline_pair(torch, resize_trilinear, shape=ABDOMEN_SHAPE, shift=HEADLINE_SHIFT)
+    mask_f = body_mask(ABDOMEN_SHAPE)
+    mask_m = np.roll(mask_f, HEADLINE_SHIFT, axis=(0, 1, 2))
+    t0 = time.perf_counter()
+    paths = {k: d / f"{k}.nii.gz" for k in ("fixed", "moving", "mask_fixed", "mask_moving")}
+    for k, a in zip(paths, (vol, mov, mask_f, mask_m)):
+        _write_nib(paths[k], a)
+    inputs_s = time.perf_counter() - t0
+    args = ["-f", str(paths["fixed"]), "-m", str(paths["moving"]), "--use_mask", "True",
+            "--path_mask_fixed", str(paths["mask_fixed"]),
+            "--path_mask_moving", str(paths["mask_moving"]), "--device", str(dev)]
+    _, launches, reg_s = _counted(torch, lambda: register.main(args + ["--result_path", str(d)]))
+    _launch_checks("cli.register --use_mask", launches, sweep_expected(**EXPECTED_LAUNCHES))
+    disp, affine = _read_nib(d / "disp.nii.gz")
+
+    # composed outside the CLI on the arrays the files hold
+    f_arr, f_aff = _read_nib(paths["fixed"])
+    m_arr, _ = _read_nib(paths["moving"])
+    mf, mm = _read_nib(paths["mask_fixed"])[0], _read_nib(paths["mask_moving"])[0]
+    ref = convex_adam(mask_infill(np.asarray(f_arr, np.float32), np.asarray(mf, np.float32),
+                                  device=dev),
+                      mask_infill(np.asarray(m_arr, np.float32), np.asarray(mm, np.float32),
+                                  device=dev), device=dev)
+    disp32 = np.asarray(disp, np.float32)
+    check(_bits_equal(disp32, ref), "6a: disp.nii.gz differs from convex_adam(mask_infill(...)) "
+          f"by {float(np.abs(disp32 - ref).max())}")
+    check(bool(np.array_equal(affine, f_aff)), "6a: disp.nii.gz's affine is not the fixed image's")
+    c = FILE_CROP
+    err = np.abs(disp32[c:-c, c:-c, c:-c] - np.array(HEADLINE_SHIFT, np.float32))
+    frac = float(np.mean(np.all(err < 1.0, axis=-1)))
+    check(frac > 0.9, f"6a: shift recovered in only {frac:.2%} of the crop")
+
+    # the nine-variant files of one run
+    multi = d / "multi"
+    multi_args = args + ["--result_path", str(multi), "--multi_iters",
+                         ",".join(map(str, FILE_MULTI_ITERS))]
+    _, multi_launches, multi_s = _counted(torch, lambda: register.main(multi_args))
+    _launch_checks("cli.register --multi_iters", multi_launches, sweep_expected(
+        **dict(EXPECTED_LAUNCHES, warp_ssd_loss_grad=max(FILE_MULTI_ITERS))))
+    written = sorted(p.name for p in multi.glob("disp_*.nii.gz"))
+    want = sorted(f"disp_{it}_{sm}.nii.gz" for it in FILE_MULTI_ITERS for sm in (0, 3, 5))
+    check(written == want, f"6a: --multi_iters wrote {written}")
+    last = np.asarray(_read_nib(multi / f"disp_{max(FILE_MULTI_ITERS)}_0.nii.gz")[0], np.float32)
+    check(_bits_equal(last, disp32), "6a: the (80, 0) file differs from the single-output field "
+          f"by {float(np.abs(last - disp32).max())}")
+    out = {"shape": list(ABDOMEN_SHAPE), "inputs_write_s": inputs_s, "register_cli_s": reg_s,
+           "multi_cli_s": multi_s, "frac_within_1vox": frac, "launches": launches,
+           "launches_multi": multi_launches, "mask_inside_frac": float(mask_f.mean())}
+    print(f"6a cli.register --use_mask at {ABDOMEN_SHAPE}: {reg_s:.2f} s (field written), "
+          f"equal to convex_adam(mask_infill(...)) to the bit, {frac:.2%} within 1 voxel; "
+          f"--multi_iters: {multi_s:.2f} s for 9 files, (80, 0) equal to the single field; "
+          f"inputs written in {inputs_s:.2f} s", flush=True)
+    results["file_register"] = out
+    return launches, paths, d / "disp.nii.gz", (vol, mov)
+
+
+def apply_file_phase(torch, dev, d, paths, field_path, vols, results):
+    """Phase 6b: ``cli.apply.main`` with 6a's field against
+    ``map_coordinates_trilinear`` composed outside; the warp brings the
+    moving image closer to the fixed one."""
+    from convexadam_torch.cli import apply as apply_cli
+    from convexadam_torch.core.warp import identity_grid_voxels, map_coordinates_trilinear
+
+    out_path = d / "warped.nii.gz"
+    args = ["--input_field", str(field_path), "--input_moving", str(paths["moving"]),
+            "--output_warped", str(out_path), "--device", str(dev)]
+    _, launches, secs = _counted(torch, lambda: apply_cli.main(args))
+    _launch_checks("cli.apply", launches, sweep_expected())
+    warped = np.asarray(_read_nib(out_path)[0], np.float32)
+    disp = torch.from_numpy(np.asarray(_read_nib(field_path)[0], np.float32)).to(dev)
+    mov = torch.from_numpy(np.asarray(_read_nib(paths["moving"])[0], np.float32)).to(dev)
+    coords = identity_grid_voxels(mov.shape, dev) + disp.permute(3, 0, 1, 2)
+    ref = map_coordinates_trilinear(mov, coords, mode="constant").cpu().numpy()
+    check(_bits_equal(warped, ref), "6b: the warped file differs from map_coordinates_trilinear "
+          f"by {float(np.abs(warped - ref).max())}")
+    fixed, moving = vols
+    c = FILE_CROP
+    crop = (slice(c, -c),) * 3
+    ssd_w = float(np.mean((warped[crop] - fixed[crop]) ** 2))
+    ssd_0 = float(np.mean((moving[crop] - fixed[crop]) ** 2))
+    check(ssd_w < ssd_0, f"6b: warped SSD {ssd_w} not below the unwarped {ssd_0}")
+    results["file_apply"] = {"apply_cli_s": secs, "ssd_warped": ssd_w, "ssd_unwarped": ssd_0}
+    print(f"6b cli.apply: {secs:.2f} s, equal to map_coordinates_trilinear to the bit; "
+          f"SSD in the crop {ssd_w:.2f} against {ssd_0:.2f} unwarped", flush=True)
+    return launches
+
+
+def translation_file_phase(torch, dev, results):
+    """Phase 6c: ``convex_adam_translation`` on ``MedicalImage``s of
+    :data:`TRANSLATION_SIZE` at :data:`TRANSLATION_SPACING` with a known
+    whole-voxel origin shift, plain and masked mean."""
+    from convexadam_torch.core.warp import resize_trilinear
+    from convexadam_torch.geometry.image import MedicalImage
+    from convexadam_torch.pipeline.translation import convex_adam_translation
+
+    nx, ny, nz = TRANSLATION_SIZE
+    data, _ = headline_pair(torch, resize_trilinear, shape=(nz, ny, nx), shift=(0, 0, 0), seed=3)
+    origin = (-120.0, 35.5, 410.0)
+    truth = tuple(v * s for v, s in zip(TRANSLATION_VOXELS, TRANSLATION_SPACING))
+    fixed = MedicalImage(data, TRANSLATION_SPACING, origin)
+    moving = MedicalImage(data, TRANSLATION_SPACING, tuple(o + t for o, t in zip(origin, truth)))
+    seg = MedicalImage(body_mask(data.shape), TRANSLATION_SPACING, moving.origin)
+    out = {"size_xyz": list(TRANSLATION_SIZE), "spacing": list(TRANSLATION_SPACING),
+           "truth_xyz_mm": list(truth)}
+    launches = None
+    for name, segmentation in (("mean", None), ("masked_mean", seg)):
+        (t, moved, co), launches, secs = _counted(torch, lambda: convex_adam_translation(
+            fixed, moving, segmentation=segmentation, co_moving_images=[moving], device=dev))
+        _launch_checks(f"convex_adam_translation ({name})", launches,
+                       sweep_expected(**EXPECTED_LAUNCHES))
+        check(tuple(float(v) for v in t) == truth, f"6c ({name}): translation {t} != {truth}")
+        check(np.allclose(moved.origin, origin, rtol=0, atol=1e-9)
+              and np.allclose(co[0].origin, origin, rtol=0, atol=1e-9),
+              f"6c ({name}): moved origin {moved.origin} != {origin}")
+        out[name] = {"translation_xyz_mm": [float(v) for v in t], "seconds": secs}
+        print(f"6c convex_adam_translation ({name}) at {TRANSLATION_SIZE} x "
+              f"{TRANSLATION_SPACING} mm: {tuple(float(v) for v in t)} mm = the truth, "
+              f"{secs:.2f} s", flush=True)
+    results["file_translation"] = out
+    return launches
+
+
+def l2r_task_dir(root, name, segs, shape, val, test):
+    """A Learn2Reg-style task directory: ``images/`` and ``labels/`` of
+    ``segs`` (CT-like intensities), ``<name>_dataset.json`` (modality CT, a
+    labels table, the given validation and test pairs) and
+    ``<name>_VAL_evaluation_config.json``."""
+    import json as _json
+
+    task = root / name
+    (task / "images").mkdir(parents=True, exist_ok=True)
+    (task / "labels").mkdir(exist_ok=True)
+    for i, seg in enumerate(segs):
+        _write_nib(task / "images" / f"{name}_{i:04d}_0000.nii.gz", ct_volume(seg, seed=i))
+        _write_nib(task / "labels" / f"{name}_{i:04d}_0000.nii.gz", seg.astype(np.uint8))
+    n = int(max(s.max() for s in segs))
+
+    def pair(f, m):
+        return {"fixed": f"images/{name}_{f:04d}_0000.nii.gz",
+                "moving": f"images/{name}_{m:04d}_0000.nii.gz"}
+
+    dataset = {
+        "name": name, "modality": {"0": "CT"},
+        "provided_data": {"0": ["image", "label"]},
+        "labels": {"0": "background", **{str(k): f"organ_{k}" for k in range(1, n + 1)}},
+        "registration_val": [pair(*p) for p in val],
+        "registration_test": [pair(*p) for p in test],
+    }
+    (task / f"{name}_dataset.json").write_text(_json.dumps(dataset))
+    (task / f"{name}_VAL_evaluation_config.json").write_text(_json.dumps({
+        "evaluation_methods": [{"name": "dice"}, {"name": "hd95"}, {"name": "sdlogj"}],
+        "expected_shape": list(shape)}))
+    return task
+
+
+def l2r_grid_phase(torch, dev, root, segs, results):
+    """Phase 6d: the task driver at the Abdomen shape: ``L2RTask.load`` →
+    ``run_validation_grid`` (one setting, both arms, every variant written)
+    → ``select_winner`` → ``run_testset``; every variant recomputed outside
+    the task driver and equal."""
+    from convexadam_torch import evaluate_field
+    from convexadam_torch.core.edt import suggest_hd95_caps
+    from convexadam_torch.core.metrics import dice_coeff
+    from convexadam_torch.core.warp import warp_with_displacement
+    from convexadam_torch.kernels import LAUNCHES, reset_launches
+    from convexadam_torch.pipeline.convex_adam import ConvexAdamConfig, convex_adam_multi_output
+    from convexadam_torch.selfconfig.l2r import (
+        L2RTask,
+        _arm_features,
+        _case_name,
+        _load_case,
+        run_testset,
+        run_validation_grid,
+        select_winner,
+    )
+
+    t0 = time.perf_counter()
+    l2r_task_dir(root, L2R_TASK, segs, ABDOMEN_SHAPE, val=[(0, 1)], test=[(1, 2)])
+    inputs_s = time.perf_counter() - t0
+    task = L2RTask.load(root, L2R_TASK)
+    check(task.num_labels == L2R_LABELS and task.semantic_features
+          and tuple(task.expected_shape) == ABDOMEN_SHAPE, f"6d: task loaded as {task}")
+    val_dir = root / "l2r_out" / "validation"
+    timings: list = []
+    results_grid, launches, grid_s = _counted(torch, lambda: run_validation_grid(
+        task, val_dir, iters=L2R_GRID_ITERS, dtype="float32", verbose=False,
+        grid_override=L2R_GRID, device=dev, timings=timings))
+    n_var = len(L2R_GRID_ITERS) * 3
+
+    # every variant recomputed outside the task driver, one arm at a time
+    pair = task.registration_val[0]
+    case = _load_case(task, pair, device=dev)
+    sf = torch.from_numpy(case["seg_f"]).to(dev)
+    sm = torch.from_numpy(case["seg_m"]).to(dev)
+    buckets, worst, arms = 0, {"dice": 0.0, "hd95": 0.0, "sdlogj": 0.0}, {}
+    g, hw, lam = (v[0] for v in L2R_GRID)
+    for arm in ("MIND", "nnUNet"):
+        cfg = ConvexAdamConfig(mind_r=1, mind_d=2, lambda_weight=lam, grid_sp=g, disp_hw=hw,
+                               dtype="float32")
+
+        def register_arm():
+            ff, fm = _arm_features(arm, case, 1, 2, torch.float32, dev)
+            return convex_adam_multi_output(ff, fm, cfg, L2R_GRID_ITERS, (0, 3, 5), device=dev)
+
+        fields, arm_launches, _ = _counted(torch, register_arm)
+        _launch_checks(f"6d {arm} arm, one case", arm_launches, sweep_expected(
+            mind_ssd_stats=2 if arm == "MIND" else 0, cost_volume=2,
+            sample_trilinear_ic=IC_ITERS, warp_ssd_loss_grad=max(L2R_GRID_ITERS)))
+        arms[arm] = arm_launches
+        for a, it in enumerate(L2R_GRID_ITERS):
+            for b, smooth in enumerate((0, 3, 5)):
+                key = f"{arm};{g};{hw};{lam};{it};{smooth}"
+                field = fields[a, b]
+                r = results_grid[key]
+                ev = evaluate_field(field, sf, sm, L2R_LABELS, device=dev)
+                errs = {"dice": float(np.abs(ev["dice"] - r["dice"][0]).max()),
+                        "hd95": float(np.abs(ev["hd95"] - r["hd95"][0]).max()),
+                        "sdlogj": abs(ev["sdlogj"] - float(r["sdlogj"][0]))}
+                for k in worst:
+                    worst[k] = max(worst[k], errs[k])
+                check(all(v == 0.0 for v in errs.values()),
+                      f"6d {key}: driver metrics differ from evaluate_field's: {errs}")
+                name = f"disp_{key.replace(';', '_')}_{_case_name(pair)}.nii.gz"
+                back = np.asarray(_read_nib(val_dir / name)[0], np.float32)
+                check(_bits_equal(back, field.cpu().numpy()), f"6d: {name} differs from its field")
+                warped = warp_with_displacement(sm.float()[None], field.permute(3, 0, 1, 2),
+                                                mode="nearest")[0].round().to(torch.int32)
+                buckets += len(suggest_hd95_caps(case["seg_f"], warped.cpu().numpy(),
+                                                 L2R_LABELS)[0])
+    check(len(results_grid) == 2 * n_var, f"6d: {len(results_grid)} variants")
+    _launch_checks("6d run_validation_grid", launches, sweep_expected(
+        mind_ssd_stats=2, cost_volume=4, sample_trilinear_ic=2 * IC_ITERS,
+        warp_ssd_loss_grad=2 * max(L2R_GRID_ITERS), nearest_sq_pruned=buckets))
+
+    t_w = time.perf_counter()
+    winner, agg = select_winner(results_grid)
+    select_s = time.perf_counter() - t_w
+    ident = float(dice_coeff(sf, sm, L2R_LABELS + 1).mean())
+    win_dice = float(results_grid[winner]["dice"].mean())
+    check(win_dice > ident, f"6d: winner {winner} Dice {win_dice:.4f} not above the identity "
+          f"{ident:.4f}")
+    test_dir = root / "l2r_out" / "testset"
+    written, test_launches, test_s = _counted(
+        torch, lambda: run_testset(task, winner, test_dir, dtype="float32", device=dev))
+    arm_w, it_w = winner.split(";")[0], int(winner.split(";")[4])
+    _launch_checks("6d run_testset", test_launches, sweep_expected(
+        mind_ssd_stats=2 if arm_w == "MIND" else 0, cost_volume=2,
+        sample_trilinear_ic=IC_ITERS, warp_ssd_loss_grad=it_w))
+    check(len(written) == 1 and written[0].exists(), f"6d: test set wrote {written}")
+    test_field = np.asarray(_read_nib(written[0])[0], np.float32)
+    check(test_field.shape == ABDOMEN_SHAPE + (3,) and bool(np.isfinite(test_field).all()),
+          "6d: bad test-set field")
+
+    per_field = [t["write"] / n_var for t in timings]
+    out = {"shape": list(ABDOMEN_SHAPE), "grid": [list(v) for v in L2R_GRID],
+           "iters": list(L2R_GRID_ITERS), "variants": len(results_grid),
+           "inputs_write_s": inputs_s, "grid_s": grid_s, "select_s": select_s,
+           "testset_s": test_s, "host_split_per_case": timings, "write_s_per_field": per_field,
+           "winner": winner, "winner_dice": win_dice, "identity_dice": ident,
+           "max_err_vs_outside": worst, "pruned_buckets": buckets, "launches": launches,
+           "launches_per_arm": arms, "launches_testset": test_launches}
+    for t in timings:
+        print(f"6d {t['key']} case {t['case']}: load {t['load']:.3f} s, register "
+              f"{t['register']:.3f} s, evaluate {t['evaluate']:.3f} s, write {t['write']:.3f} s "
+              f"({t['write'] / n_var:.3f} s a field)", flush=True)
+    print(f"6d run_validation_grid: {len(results_grid)} variants in {grid_s:.2f} s, every one "
+          f"equal to evaluate_field outside and its file to its field; winner {winner} Dice "
+          f"{win_dice:.4f} (identity {ident:.4f}); select {select_s:.2f} s, test set "
+          f"{test_s:.2f} s; inputs written in {inputs_s:.2f} s", flush=True)
+    results["file_l2r_grid"] = out
+    return launches, test_launches
+
+
+def l2r_cli_phase(torch, dev, root, results):
+    """Phase 6e: ``cli.l2r.main`` end to end on a small task, the task's own
+    grid settings."""
+    import contextlib
+    import io
+
+    from convexadam_torch.cli import l2r as l2r_cli
+
+    segs = np.stack([np.roll(l2r_small_labels(), s, axis=(0, 1, 2)) for s in SWEEP_SHIFTS])
+    l2r_task_dir(root, L2R_SMALL_TASK, segs, L2R_SMALL_SHAPE, val=[(0, 1)], test=[(1, 2)])
+    out_dir = root / "l2r_small_out"
+    buf = io.StringIO()
+    args = ["--data_dir", str(root), "--task_name", L2R_SMALL_TASK, "--output_dir",
+            str(out_dir), "--device", str(dev)]
+    with contextlib.redirect_stdout(buf):
+        _, launches, secs = _counted(torch, lambda: l2r_cli.main(args))
+    text = buf.getvalue()
+    winner = [ln for ln in text.splitlines() if ln.startswith("WINNER: ")]
+    check(len(winner) == 1, f"6e: no WINNER line in {text!r}")
+    n_val = len(list((out_dir / "validation").glob("disp_*.nii.gz")))
+    test = list((out_dir / "testset").glob("disp_*.nii.gz"))
+    check(n_val == 6 * 2 * 9, f"6e: {n_val} validation fields, expected 108")
+    check(len(test) == 1, f"6e: test fields {test}")
+    results["file_l2r_cli"] = {"shape": list(L2R_SMALL_SHAPE), "seconds": secs,
+                               "winner": winner[0], "validation_fields": n_val,
+                               "launches": launches}
+    print(f"6e cli.l2r at {L2R_SMALL_SHAPE}: {winner[0]}; {n_val} validation fields and "
+          f"{len(test)} test field in {secs:.2f} s", flush=True)
+    return launches
+
+
+def l2r_small_labels():
+    """Four box organs in :data:`L2R_SMALL_SHAPE`."""
+    h, w, d = L2R_SMALL_SHAPE
+    seg = np.zeros(L2R_SMALL_SHAPE, np.int32)
+    seg[h // 6: h // 2, w // 5: 3 * w // 5, d // 6: d // 2] = 1
+    seg[h // 2 + 2: 5 * h // 6, w // 5: w // 2, d // 4: 3 * d // 4] = 2
+    seg[h // 5: 3 * h // 4, 3 * w // 5 + 2: 4 * w // 5, d // 2 + 2: 5 * d // 6] = 3
+    seg[h // 3: h // 2, w // 4: w // 2, d // 2 + 3: 3 * d // 4] = 4
+    return seg
+
+
+def sweep_infer_phase(torch, dev, root, results):
+    """Phase 6f: ``cli.sweep.main(["infer", ...])`` from 6d's label files,
+    one test pair, one seeded setting with grid_sp_adam 2."""
+    import json as _json
+
+    from convexadam_torch.cli import sweep as sweep_cli
+    from convexadam_torch.core.metrics import dice_coeff
+    from convexadam_torch.core.warp import warp_with_displacement
+    from convexadam_torch.selfconfig import decode_adam_variant, stage1_settings, stage2_settings
+
+    labels = root / L2R_TASK / "labels"
+    pattern = str(labels / f"{L2R_TASK}_%04d_0000.nii.gz")
+    s1 = next(i for i, s in enumerate(stage1_settings()) if (s.grid_sp, s.disp_hw) == (4, 4))
+    a1 = next(i for i, s in enumerate(stage2_settings()) if s.grid_sp_adam == 2)
+    iters, _ = decode_adam_variant(INFER_ADAM_S2)
+    out_dir = root / "infer_out"
+    config = {"topk": [0, 1, 2], "topk_pair": [[0, 1]], "test": [0, 1, 2], "test_pair": [[1, 2]],
+              "HWD": list(ABDOMEN_SHAPE), "f_predict": pattern, "f_gt": pattern,
+              "num_labels": L2R_LABELS + 1, "output": str(root / "infer_stage1.npz"),
+              "output_dir": str(out_dir)}
+    cfg_path = root / "infer_config.json"
+    cfg_path.write_text(_json.dumps(config))
+    args = ["infer", str(cfg_path), "--convex_s", str(s1), "--adam_s1", str(a1),
+            "--adam_s2", str(INFER_ADAM_S2), "--device", str(dev)]
+    _, launches, secs = _counted(torch, lambda: sweep_cli.main(args))
+    _launch_checks("6f cli.sweep infer", launches, sweep_expected(
+        cost_volume=2, sample_trilinear_ic=IC_ITERS, warp_ssd_loss_grad=iters))
+    field = np.asarray(_read_nib(out_dir / "disp_1_2.nii.gz")[0], np.float32)
+    seg_f = torch.from_numpy(np.asarray(_read_nib(pattern % 1)[0], np.int32)).to(dev)
+    seg_m = torch.from_numpy(np.asarray(_read_nib(pattern % 2)[0], np.int32)).to(dev)
+    d = torch.from_numpy(field).to(dev).permute(3, 0, 1, 2)
+    warped = warp_with_displacement(seg_m.float()[None], d, mode="nearest")[0].round().int()
+    dice = float(dice_coeff(seg_f, warped, L2R_LABELS + 1).mean())
+    ident = float(dice_coeff(seg_f, seg_m, L2R_LABELS + 1).mean())
+    check(dice > ident, f"6f: Dice {dice:.4f} not above the identity {ident:.4f}")
+    results["file_sweep_infer"] = {"convex_s": s1, "adam_s1": a1, "adam_s2": INFER_ADAM_S2,
+                                   "iters": iters, "seconds": secs, "dice": dice,
+                                   "identity_dice": ident, "launches": launches}
+    print(f"6f cli.sweep infer (s1 {s1}, adam {a1}, variant {INFER_ADAM_S2}: {iters} "
+          f"iterations): {secs:.2f} s, Dice {dice:.4f} (identity {ident:.4f})", flush=True)
+    return launches
+
+
+def file_phase(torch, dev, results):
+    """Phase 6: 6a-6f from files under :data:`FILE_DIR`, which is removed
+    afterwards (several GB of fields); returns each sub-phase's launches."""
+    import shutil
+
+    shutil.rmtree(FILE_DIR, ignore_errors=True)
+    FILE_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    launches = {}
+    try:
+        launches["register_cli"], paths, field_path, vols = register_file_phase(
+            torch, dev, FILE_DIR, results)
+        launches["apply_cli"] = apply_file_phase(torch, dev, FILE_DIR, paths, field_path, vols,
+                                                 results)
+        del vols
+        launches["translation"] = translation_file_phase(torch, dev, results)
+        launches["l2r_grid"], launches["l2r_testset"] = l2r_grid_phase(
+            torch, dev, FILE_DIR, sweep_subjects(), results)
+        launches["l2r_cli"] = l2r_cli_phase(torch, dev, FILE_DIR, results)
+        launches["sweep_infer"] = sweep_infer_phase(torch, dev, FILE_DIR, results)
+    finally:
+        shutil.rmtree(FILE_DIR, ignore_errors=True)
+    results["file_phase_s"] = time.perf_counter() - t0
+    print(f"phase 6: {results['file_phase_s']:.2f} s", flush=True)
+    return launches
 
 def main() -> int:
     import torch
@@ -2008,9 +2511,14 @@ def main() -> int:
     sweep_kernel_phase(torch, dev, segs, s1_settings, field25, records, results)
     del field25
 
-    # 6. output: each kernel's launches on the path that runs it
+    # 6. the file-level path: the CLIs, the translation, the task driver and
+    # test-set inference, from files on disk
+    file_launches = file_phase(torch, dev, results)
+
+    # 7. output: each kernel's launches on the path that runs it
     for rec in records:
         name = rec["name"]
+        rec["launches_file"] = {k: v[name] for k, v in file_launches.items()}
         rec["launches_sweep"] = {"stage1": sweep_l1[name], "stage2": sweep_l2[name],
                                  "paired_stage1": paired_l1[name], "paired_stage2": paired_l2[name],
                                  "stage1_resume": resume_l[name]}
@@ -2044,6 +2552,7 @@ def main() -> int:
         print(json.dumps({key: {k: v for k, v in results[key].items()
                                 if k not in ("composed", "launches", "launches_stage1",
                                              "launches_stage2")}}))
+    print(json.dumps({"phase6": {k: v for k, v in results.items() if k.startswith("file_")}}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "timing_readings"}
                                   for r in records]}))

@@ -5,11 +5,15 @@ The main path is the default MIND registration
 semantic registration of two label volumes is
 :func:`convex_adam_semantic_torch`, the self-configuring grid's nine-variant
 run :func:`convex_adam_multi_output`, the Learn2Reg evaluation of a
-registered case :func:`evaluate_field`, and the self-configuring sweep over
-convex and Adam settings :mod:`convexadam_torch.selfconfig`.  Their hot
-kernels are hand-written CUDA for ``sm_90a`` under ``csrc/``, wrapped in
-``kernels/``; each wrapper runs its plain PyTorch version only for tensors
-that lie on the CPU.
+registered case :func:`evaluate_field`, the self-configuring sweep over
+convex and Adam settings and the Learn2Reg task driver
+:mod:`convexadam_torch.selfconfig`.  Files are read and written by
+:mod:`convexadam_torch.geometry` (NIfTI-1, MetaImage); the reference's
+signatures are :mod:`convexadam_torch.compat`, and the command lines
+:mod:`convexadam_torch.cli` (``register``, ``apply``, ``translation``,
+``sweep``, ``l2r``).  Their hot kernels are hand-written CUDA for
+``sm_90a`` under ``csrc/``, wrapped in ``kernels/``; each wrapper runs its
+plain PyTorch version only for tensors that lie on the CPU.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -42,6 +42,12 @@ def normalize_coord(x, size: int, align_corners: bool):
     return (2.0 * x + 1.0) / size - 1.0
 
 
+def identity_grid_voxels(shape: Sequence[int], device=None, dtype=torch.float32) -> torch.Tensor:
+    """Identity grid in voxel units, shape (3, H, W, D)."""
+    axes = [torch.arange(n, dtype=dtype, device=device) for n in shape]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=0)
+
+
 def identity_grid_normalized(
     shape: Sequence[int], align_corners: bool, device=None, dtype=torch.float32
 ) -> torch.Tensor:

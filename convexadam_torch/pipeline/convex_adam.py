@@ -265,12 +265,41 @@ def convex_adam_multi_output(
 
 
 def validate_volume(img) -> np.ndarray:
-    """numpy arrays and torch tensors → float32 numpy volume."""
+    """numpy arrays, tensors, ``MedicalImage``, nibabel spatial images,
+    SimpleITK images, or anything with ``__array__`` (a ``jax.Array``) →
+    a float32 numpy volume (the reference's ``validate_image`` adapter,
+    convex_adam_utils.py:268-279, and the JAX package's
+    ``validate_volume``).
+
+    nibabel and SimpleITK are duck-typed (neither is a dependency): a
+    nibabel image has ``get_fdata``; a SimpleITK image goes through the
+    ``GetArrayFromImage`` of the module that defines its class, so the
+    caller's own SimpleITK is used, and comes out in (z, y, x) order, as the
+    reference's ``sitk.GetArrayFromImage`` branch gives it."""
+    import sys
+
+    from convexadam_torch.geometry.image import MedicalImage
+
+    if isinstance(img, MedicalImage):
+        return np.asarray(img.data, np.float32)
     if isinstance(img, np.ndarray):
         return np.asarray(img, np.float32)
     if isinstance(img, torch.Tensor):
         return img.detach().cpu().float().numpy()
-    raise ValueError("Input image must be a numpy array or a torch tensor")
+    # nibabel SpatialImage (convex_adam_utils.py:276-277)
+    if hasattr(img, "get_fdata"):
+        return np.asarray(img.get_fdata(), np.float32)
+    # SimpleITK Image (convex_adam_utils.py:272-273)
+    mod = sys.modules.get(type(img).__module__)
+    if mod is not None and hasattr(mod, "GetArrayFromImage"):
+        return np.asarray(mod.GetArrayFromImage(img), np.float32)
+    # a jax.Array, or any other array that numpy can read
+    if hasattr(img, "__array__"):
+        return np.asarray(img, np.float32)
+    raise ValueError(
+        "Input image must be a numpy array, a torch tensor, a MedicalImage, a "
+        "nibabel or SimpleITK image, or an array with __array__ (a jax.Array)"
+    )
 
 
 def convex_adam(
@@ -280,8 +309,8 @@ def convex_adam(
     device: "str | torch.device | None" = None,
     **overrides,
 ) -> np.ndarray:
-    """Host-level entry point: numpy or torch volumes in, numpy field
-    (H, W, D, 3) out.  Runs on ``cuda`` unless ``device="cpu"``; raises when
+    """Host-level entry point: any volume :func:`validate_volume` takes in,
+    numpy field (H, W, D, 3) out.  Runs on ``cuda`` unless ``device="cpu"``; raises when
     no GPU is visible and no device is given.  ``overrides`` are
     :class:`ConvexAdamConfig` fields (e.g. ``grid_sp=4``)."""
     dev = _resolve_device(device)

@@ -1,8 +1,9 @@
 """Self-configuration and Learn2Reg evaluation (counterpart of
 ``convexadam_tpu/selfconfig``): the two-stage random search over convex and
 Adam settings scored by rank aggregation (``engine.py``, ``paired.py``,
-``settings.py``, ``rank.py``, ``checkpoint.py``) and the per-case evaluator
-(``l2r.py``).  The task driver (``L2RTask`` and the CLIs) is not ported yet.
+``settings.py``, ``rank.py``, ``checkpoint.py``), test-set inference with
+the chosen settings (``infer.py``), and the Learn2Reg task driver and its
+per-case evaluator (``l2r.py``).
 """
 
 from convexadam_torch.selfconfig.settings import (  # noqa: F401

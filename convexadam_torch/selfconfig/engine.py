@@ -68,7 +68,7 @@ from convexadam_torch.pipeline.convex_adam import (
     _upsample_and_smooth,
 )
 from convexadam_torch.selfconfig.checkpoint import SweepCheckpointer
-from convexadam_torch.selfconfig.l2r import _on
+from convexadam_torch.selfconfig.l2r import _on, _sync
 from convexadam_torch.selfconfig.settings import (
     STAGE2_SMOOTH_LEVELS,
     STAGE2_SNAPSHOT_ITERS,
@@ -312,11 +312,6 @@ def _load_kernels(dev: torch.device) -> None:
         _build.build_all()
         for name in _build.KERNEL_SOURCES:
             _build.load(name)
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 class _Scoring:

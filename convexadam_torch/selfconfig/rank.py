@@ -11,6 +11,7 @@ double-weights the first similarity metric
 from __future__ import annotations
 
 import numpy as np
+import scipy.special
 import scipy.stats
 
 
@@ -18,15 +19,26 @@ def scores_better(task_metric: np.ndarray, p_threshold: float = 0.05) -> np.ndar
     """For each candidate j, the number of candidates that beat j with
     statistical significance (Wilcoxon rank-sum over per-case values,
     l2r3.py:262-271) — SMALLER is better.  ``task_metric`` is (N, cases),
-    higher values of the metric are better."""
-    n = task_metric.shape[0]
-    better = np.zeros((n, n))
-    for i in range(n):
-        for j in range(n):
-            h, p = scipy.stats.ranksums(task_metric[i], task_metric[j])
-            if (h > 0) and (p < p_threshold):
-                better[i, j] = 1
-    return better.sum(0)
+    higher values of the metric are better.
+
+    All N x N tests at once: ``scipy.stats.ranksums``' statistic and
+    two-sided p-value, computed as it computes them, over each pair's
+    concatenated cases (the reference loops over N^2 calls, 11664 at the
+    task driver's 108 variants, and the ranking makes 200 such scorings).
+    """
+    m = np.asarray(task_metric, np.float64)
+    n, c = m.shape
+    both = np.concatenate(
+        [np.broadcast_to(m[:, None, :], (n, n, c)), np.broadcast_to(m[None, :, :], (n, n, c))],
+        axis=-1,
+    )
+    ranked = scipy.stats.rankdata(both, axis=-1)
+    s = np.sum(ranked[..., :c], axis=-1)
+    expected = c * (c + c + 1) / 2.0
+    z = (s - expected) / np.sqrt(c * c * (c + c + 1) / 12.0)
+    p = 2 * scipy.special.ndtr(-np.abs(z))
+    # better[i, j]: candidate i beats candidate j
+    return ((z > 0) & (p < p_threshold)).sum(0).astype(np.float64)
 
 
 def rankscore_avgtie(scores_int: np.ndarray) -> np.ndarray:
