@@ -32,10 +32,18 @@ Phases, each fatal on failure:
      and the sweep's 12 x 64 x 53 x 85 (q = 7), all timed (the sweep's
      plain version not), and at every q in 1..7 and q = 8 on ragged crops
      across the kernels' tiles and channel chunks, where the profiler must
-     see each q's own kernel (q = 8: the general one);
+     see each q's own kernel (q = 8: the general one); then the variants to
+     the bit, timed: SAD at task 3's coarse grid 36 x 80 x 96 x 112 (q = 3),
+     the semantic grid (q = 5) and task 1's 12 x 48 x 40 x 48 (q = 8, the
+     general kernel), SSD at task 1's grid through the general kernel, one
+     candidate block (one kh) of the (2, 7) class at 14 x 96 x 80 x 128,
+     also against the same slab of the dense volume; SAD at every q in 1..8
+     and blocks of both metrics at q = 1, 4, 7, 8 on the ragged crops;
   3d. the Adam data term, rows to the bit, at 12 x 96^3 (bf16 and f32) and
      at the semantic Adam grid 14 x 96 x 80 x 128 (bf16), all timed, and on a
-     ragged grid with points past every face;
+     ragged grid with points past every face; the strided form (stride 2)
+     on the 12 x 96^3 grid's 48^3 sub-lattice (bf16, timed, and f32) and on a
+     ragged 3 x 37 x 41 x 29 grid that 2 does not divide, rows to the bit;
   3c. the sampler on the inverse-consistency fields (to the bit, and to
      1e-5 against ``F.grid_sample``), and the fused
      inverse-consistency steps (15 per call, 2 x 3 x 32^3 and a ragged 37 x
@@ -54,7 +62,8 @@ Phases, each fatal on failure:
      kernel's whole output, the init past n_query included, also with no
      live query, with no live target, with Kt = 16383 (a multiple of
      neither the tile nor the chunk) and with 65535 x 1024 + 1000 targets,
-     more chunks than the grid's y extent;
+     more chunks than the grid's y extent, where the dual search too must
+     give every entry of both outputs as its plain version;
   3f. the sampler's coordinate-gradient kernel against its plain version to
      the bit at the semantic Adam grid 14 x 96 x 80 x 128 (bf16 and f32
      volumes, a smooth field of a few voxels, as the Adam loop samples) and
@@ -125,8 +134,8 @@ Phases, each fatal on failure:
      mask moved with the image): launches 2 / 2 / 15 / 80, ``disp.nii.gz``
      equal to ``convex_adam(mask_infill(...))`` on the files' arrays to the
      bit, the fixed image's affine, the shift within 1 voxel on > 90% of the
-     crop; then ``--multi_iters 40,60,80``: nine files, (80, 0) equal to the
-     single-output field to the bit;
+     crop; then ``--multi_iters 40,60,80 --multi_smoothings 0``: three files
+     (cut from nine), (80, 0) equal to the single-output field to the bit;
   6b. ``cli.apply.main`` with 6a's field: equal to ``map_coordinates_trilinear``
      composed outside to the bit, a smaller SSD to the fixed image than the
      unwarped image's in the crop;
@@ -148,11 +157,46 @@ Phases, each fatal on failure:
   6f. ``cli.sweep.main(["infer", ...])`` from 6d's label files: launches 2 /
      15 / iterations (cost volume, IC steps, data term), Dice above the
      identity's;
-  7. output: one JSON line per result, ``{"phase6": {...}}``,
-     ``{"kernels": [...]}`` (nine records: the eight Pallas functions'
-     kernels and the inverse-consistency steps, each with its launches on
-     every path, phase 6's under ``launches_file``) second to last, then
-     ``{"ok": true, "device": {...}}`` last.
+  7. the Learn2Reg challenge recipes (``convexadam_torch.pipeline.
+     challenges``) at their published shapes, each run with every kernel
+     count set to 0 just before it, printing its seconds, peak memory and
+     launches:
+  7a. task 1 (Abdomen MR-CT) at 192 x 160 x 192: ``register_tps_densified``
+     with its defaults (disp_hw 8 through the general kernel, IC, Adam at
+     grid 3 for 40 iterations, 4096 TPS control points) equal to
+     ``convex_adam`` + the densification composed outside to the bit, the
+     shift recovered (> 90% of the central box within 1 voxel); then
+     ``task1_field_to_original`` onto a 240 x 200 x 240 grid;
+  7b. task 2 (lung CT) at 192 x 192 x 208 with two ellipsoidal lungs:
+     ``task2_case`` equal to ``convex_adam(mask_infill(...), TASK2_CONFIG)``
+     to the bit, the shift recovered inside the lungs;
+  7c. task 3 (OASIS) at 160 x 192 x 224 with 35 structures and the
+     background, per-pair and template weights: one SAD launch, equal to
+     the composition outside to the bit, median error under 0.5 voxels;
+  7d. CuRIOUS at 256 x 256 x 288 on case 1's landmarks
+     (``tests/curious_landmarks.npz``) with a synthetic anatomy warped by a
+     TPS through the real landmark shift: ``curious_case`` with its
+     defaults, deformable and rigid TRE below the identity TRE;
+  7e. the (grid_sp 2, disp_hw 7) class at 192 x 160 x 256 both ways:
+     streamed (``stream_threshold=0``) equal to dense to the bit, both peaks;
+     the natural dispatch at 256 x 256 x 320 (above the threshold) streams;
+  7f. the 192^3 headline registration with ``adam_sample_stride=2``: 80
+     strided data terms, central p95 |diff| to phase 4's field under 0.5
+     voxels;
+  7g. 7a-7f's recipes (task 3 with its own weights, 7e's natural dispatch)
+     run again with the arguments of the first three calls of each kernel
+     wrapper they reach recorded (every kernel launched must have a
+     recorded call); each recorded call through the kernel and its plain
+     version, to the bit (the data term's ``sum(res^2)`` to 1e-5
+     relative), the first of each kernel and recipe timed;
+  8. output: one JSON line per result, ``{"phase6": {...}}``,
+     ``{"phase7": {...}}``, ``{"kernels": [...]}`` (thirteen records: the
+     eight Pallas functions' kernels, the inverse-consistency steps and the
+     four variants, SAD, candidate block, general cost volume and strided
+     data term, each with its launches on every path, phase 6's under
+     ``launches_file``, phase 7's under ``launches_challenges``, and 7g's
+     readings under ``at_challenge_shape``) second to last, then ``{"ok":
+     true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero without
 a result when no CUDA device is visible.
@@ -160,6 +204,7 @@ a result when no CUDA device is visible.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -234,6 +279,14 @@ REPLACES = {
     "nearest_sq": "convexadam_tpu/ops/edt_pallas.py:79",
     "nearest_sq_dual": "convexadam_tpu/ops/edt_pallas.py:181",
     "nearest_sq_pruned": "convexadam_tpu/ops/edt_pallas.py:290",
+    # variants: the SAD metric and the candidate blocks replace the XLA scans
+    # the JAX package runs for them beside the Pallas SSD kernel (its only
+    # SAD, and its streamed path's per-candidate cost); the general kernel and
+    # the strided data term are the Pallas functions' own
+    "cost_volume_sad": "convexadam_tpu/core/cost_volume.py:131",
+    "cost_volume_block": "convexadam_tpu/core/convex.py:141",
+    "cost_volume_general": "convexadam_tpu/ops/cost_volume_pallas.py:96",
+    "warp_ssd_loss_grad_strided": "convexadam_tpu/ops/warp_pallas.py:268",
 }
 SOURCES = {
     "mind_ssd_stats": "convexadam_torch/csrc/mind.cu",
@@ -245,6 +298,10 @@ SOURCES = {
     "nearest_sq": "convexadam_torch/csrc/edt.cu",
     "nearest_sq_dual": "convexadam_torch/csrc/edt.cu",
     "nearest_sq_pruned": "convexadam_torch/csrc/edt.cu",
+    "cost_volume_sad": "convexadam_torch/csrc/cost_volume.cu",
+    "cost_volume_block": "convexadam_torch/csrc/cost_volume.cu",
+    "cost_volume_general": "convexadam_torch/csrc/cost_volume.cu",
+    "warp_ssd_loss_grad_strided": "convexadam_torch/csrc/warp.cu",
 }
 # the __global__ functions each wrapper launches, as the profiler names them
 GLOBALS = {
@@ -257,6 +314,10 @@ GLOBALS = {
     "nearest_sq": ("nearest_sq_kernel",),
     "nearest_sq_dual": ("nearest_sq_dual_kernel",),
     "nearest_sq_pruned": ("nearest_sq_pruned_kernel",),
+    "cost_volume_sad": ("cost_volume_kernel", "cost_volume_general_kernel"),
+    "cost_volume_block": ("cost_volume_kernel", "cost_volume_general_kernel"),
+    "cost_volume_general": ("cost_volume_general_kernel",),
+    "warp_ssd_loss_grad_strided": ("warp_ssd_kernel", "sum_partials_kernel"),
 }
 # phase 5, the sweep at the Abdomen shape, its depth cut to two pairs, four
 # stage-1 and two stage-2 settings: three subjects (one organ layout rolled
@@ -284,6 +345,10 @@ FILE_AFFINE = np.array([[0.8, 0.0, 0.0, -76.4], [0.0, 0.8, 0.0, -60.2],
 FILE_CROP = 32  # voxels from every face, as phase 4's crop
 BODY_AXES = 0.6
 FILE_MULTI_ITERS = (40, 60, 80)
+# 6a's multi-output run cut from the CLI's nine variants ({0, 3, 5}
+# smoothings) to the three unsmoothed ones: three 94 MB fields, not nine (six
+# gzips of 5-6.5 s each fewer), to keep the script's time as phase 7 joins it
+FILE_MULTI_SMOOTHINGS = (0,)
 TRANSLATION_SIZE = (128, 128, 96)  # (x, y, z)
 TRANSLATION_SPACING = (1.5, 1.5, 2.0)
 TRANSLATION_VOXELS = (2, -3, 1)  # the moving image's origin shift, (x, y, z) voxels
@@ -301,6 +366,42 @@ TILED_GRID_KT = 65535 * 1024 + 1000
 # FP32 operations per distance cell of the search kernels (three
 # multiply-adds for the cross term, the two norms' add, the min)
 CELL_FLOPS = 8
+# phase 3b's variants: task 3's coarse grid (OASIS 160 x 192 x 224 at
+# grid_sp 2, 36 one-hot channels, q = 3, SAD), task 1's (192 x 160 x 192 at
+# grid_sp 4, 12 MIND channels, q = 8: the general kernel), and the (grid_sp
+# 2, disp_hw 7) class's grid at the Abdomen shape for a candidate block
+COST_VOLUME_TASK3 = (36, 80, 96, 112)
+COST_VOLUME_TASK1 = (12, 48, 40, 48)
+COST_VOLUME_STREAM = (14, 96, 80, 128)
+# phase 3d's strided data term: stride 2 on the main path's Adam grid and on
+# a ragged grid that 2 does not divide
+DATA_TERM_STRIDE = 2
+# phase 7, the challenge recipes at their published shapes: Learn2Reg 2021
+# task 1 Abdomen MR-CT (preprocessed at 2 mm) with an original CT grid of
+# 240 x 200 x 240 at 1.6 mm (the same extent), task 2 lung CT, task 3 OASIS
+# with 35 structures and background, CuRIOUS 2020 in the reference's
+# resampled space (case 1's landmarks); the streamed class and a shape above
+# the dense threshold; the strided data term on the headline pair
+TASK1_SHAPE = (192, 160, 192)
+TASK1_SHIFT = (3, -2, 2)
+TASK1_ORIGINAL = ((240, 200, 240), (1.6, 1.6, 1.6))
+TASK2_SHAPE = (192, 192, 208)
+TASK2_SHIFT = (4, -3, 2)
+TASK3_SHAPE = (160, 192, 224)
+TASK3_LABELS = 36
+TASK3_SHIFT = (2, -3, 1)
+TASK3_SCALE = 24  # box width of the smoothing that sets the structures' size
+CURIOUS_CASE = 1
+STREAM_CLASS = (2, 7)  # (grid_sp, disp_hw)
+STREAM_NATURAL_SHAPE = (256, 256, 320)
+# phase 7g: the wrappers whose calls it records, by the module each recipe
+# calls them through, and how many calls of each it records in each recipe
+CAPTURE_SITES = (("convexadam_torch.core.features", "mind_ssd_stats"),
+                 ("convexadam_torch.core.cost_volume", "cost_volume"),
+                 ("convexadam_torch.core.convex", "cost_volume_block"),
+                 ("convexadam_torch.core.warp", "inverse_consistency_steps"),
+                 ("convexadam_torch.core.warp", "warp_ssd_loss_grad"))
+CAPTURE_CALLS = 3
 
 
 def cuda_ms(torch, fn, warmup: int = 3, reps: int = 20) -> float:
@@ -678,7 +779,23 @@ def search_phase(torch, dev, seg_f, seg_m):
         detail.append({"case": cname, "name": "nearest_sq", "K": [q.shape[1], t.shape[1]],
                        "nq": nq, "nt": nt, "max_abs_err": err,
                        "cells": search_cells("nearest_sq", q.shape[1], t.shape[1], nq, nt)})
-        del ko, po, q, t
+        del ko, po
+        if t.shape[1] > 65535 * ke.SEARCH_CHUNK:
+            # the dual search past the grid's chunk limit: every output entry
+            # of both directions, tolerance 0
+            kq_o, kt_o = ke.nearest_sq_dual(q, t, dnq, dnt)
+            pq_o, pt_o = ke.nearest_sq_dual_plain(q, t, dnq, dnt)
+            torch.cuda.synchronize()
+            equal = torch.equal(kq_o, pq_o) and torch.equal(kt_o, pt_o)
+            err = max(_err_at(kq_o, pq_o, 0, nq), _err_at(kt_o, pt_o, 0, nt))
+            check(equal, f"nearest_sq_dual {cname}: max err {err} against the plain version")
+            print(f"nearest_sq_dual {cname} K=({q.shape[1]}, {t.shape[1]}), n = ({nq}, {nt}): "
+                  f"max_abs_err {err:.1e} (tol 0) over every entry of both outputs", flush=True)
+            detail.append({"case": cname, "name": "nearest_sq_dual",
+                           "K": [q.shape[1], t.shape[1]], "nq": nq, "nt": nt,
+                           "max_abs_err": err})
+            del kq_o, kt_o, pq_o, pt_o
+        del q, t
     return records, detail
 
 
@@ -968,8 +1085,7 @@ def cost_volume_phase(torch, fix_s, mov_s, q):
         row = {"case": what, "shape": [C, h, w, d], "q": qc, "kernel": kernel, "max_abs_err": err}
         if what == "ragged" and qc not in profiled:
             profiled.add(qc)
-            # the profiler's name of the instantiation, e.g. cost_volume_kernel<4>
-            want = kernel + (f"<{qc}>" if kernel == "cost_volume_kernel" else "")
+            want = kernel_instance(qc, "ssd")
             ran = device_times(torch, lambda: cost_volume(fix, mov, qc), (want,), 1, 1)
             check(ran["device_launches"] == 1, f"{name}: {ran['device_launches']} launches of {want}")
             row["ran"] = want
@@ -992,6 +1108,143 @@ def cost_volume_phase(torch, fix_s, mov_s, q):
                 record = rec
         detail.append(row)
     return record, detail
+
+
+def kernel_instance(q, metric):
+    """The profiler's name of the cost-volume kernel that computes half-width
+    ``q`` with ``metric``, e.g. ``cost_volume_kernel<4, false>`` (SSD) or
+    ``cost_volume_general_kernel<true>`` (SAD at a q without its own)."""
+    from convexadam_torch.kernels.cost_volume import kernel_for
+
+    sad = "true" if metric == "sad" else "false"
+    kernel = kernel_for(q)
+    return f"{kernel}<{q}, {sad}>" if kernel == "cost_volume_kernel" else f"{kernel}<{sad}>"
+
+
+def cost_volume_variant_phase(torch, dev):
+    """Phase 3b's variants against their plain versions to the bit: SAD at
+    task 3's coarse grid (q = 3), at the semantic grid (q = 5) and at task
+    1's (q = 8, the general kernel), SSD at task 1's grid through the
+    general kernel, and a candidate block (one kh) at the (2, 7) class's
+    grid, also against the same slab of the dense volume, all timed; then
+    SAD at every q in 1..8 and blocks at q = 1, 4, 7, 8 on the ragged crops,
+    where the profiler must see the kernel :func:`kernel_instance` names.
+    Returns the records by name and every case's numbers."""
+    from convexadam_torch.kernels.cost_volume import (
+        cost_volume,
+        cost_volume_block,
+        cost_volume_block_plain,
+        cost_volume_plain,
+    )
+
+    gen = torch.Generator().manual_seed(2)
+
+    def pair(shape, draw=torch.randn):
+        return tuple(draw(shape, generator=gen).to(dev) for _ in range(2))
+
+    records, detail = {}, []
+    timed = (
+        ("cost_volume_sad", "task3", COST_VOLUME_TASK3, 3, "sad", torch.rand),
+        ("cost_volume_sad", "semantic", COST_VOLUME_SEMANTIC, 5, "sad", torch.rand),
+        ("cost_volume_sad", "task1", COST_VOLUME_TASK1, 8, "sad", torch.randn),
+        ("cost_volume_general", "task1", COST_VOLUME_TASK1, 8, "ssd", torch.randn),
+    )
+    for name, what, shape, q, metric, draw in timed:
+        fix, mov = pair(shape, draw)
+        C, h, w, d = shape
+        K3, n = (2 * q + 1) ** 3, h * w * d
+        label = f"{name} {what} {tuple(shape)} q={q}"
+        ck = cost_volume(fix, mov, q, metric)
+        cp = cost_volume_plain(fix, mov, q, metric)
+        torch.cuda.synchronize()
+        err = max_err(ck, cp)
+        del ck, cp
+        check(err == 0.0, f"{label}: max err {err} > 0")
+        want = kernel_instance(q, metric)
+        ran = device_times(torch, lambda: cost_volume(fix, mov, q, metric), (want,), 1, 1)
+        check(ran["device_launches"] == 1, f"{label}: {ran['device_launches']} launches of {want}")
+        # SSD: subtract, square, add; SAD: subtract, add (|x| is an operand
+        # modifier), separately rounded, per output and channel
+        ops = (2.0 if metric == "sad" else 3.0) * K3 * n * C
+        nbytes = 2 * C * n * 4 + K3 * n * 4
+        t = timed_turns(torch, lambda: cost_volume(fix, mov, q, metric), GLOBALS[name])
+        p_ms = cuda_ms(torch, lambda: cost_volume_plain(fix, mov, q, metric), 1, 3)
+        rec = kernel_record(name, [C, h, w, d, q], "float32", err, 0.0, t, p_ms, nbytes, ops,
+                            rate=PEAK_F32_UNFUSED)
+        rec.update({"metric": metric, "kernel": want, "case": what})
+        print_times(f"{label} ({want})", t, p_ms, rec["bound_ms"])
+        detail.append({"case": what, "name": name, "shape": list(shape), "q": q, "metric": metric,
+                       "kernel": want, "max_abs_err": err,
+                       **{k: rec[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")}})
+        records.setdefault(name, rec)
+        del fix, mov
+
+    # one candidate block of the streamed (2, 7) class: the middle kh
+    q, kh = STREAM_CLASS[1], STREAM_CLASS[1]
+    K = 2 * q + 1
+    fix, mov = pair(COST_VOLUME_STREAM, torch.rand)
+    C, h, w, d = COST_VOLUME_STREAM
+    n = h * w * d
+    label = f"cost_volume_block stream {COST_VOLUME_STREAM} q={q} kh={kh}"
+    bk = cost_volume_block(fix, mov, q, kh, 1)
+    bp = cost_volume_block_plain(fix, mov, q, kh, 1)
+    dense = cost_volume(fix, mov, q).reshape(K, K, K, h, w, d)
+    torch.cuda.synchronize()
+    err = max_err(bk, bp)
+    slab_equal = torch.equal(bk.reshape(K, K, h, w, d), dense[:, :, kh])
+    del bp, dense
+    check(err == 0.0 and slab_equal,
+          f"{label}: max err {err}, equal to the dense slab {slab_equal}")
+    nbytes, ops = 2 * C * n * 4 + K * K * n * 4, 3.0 * K * K * n * C
+    t = timed_turns(torch, lambda: cost_volume_block(fix, mov, q, kh, 1),
+                    GLOBALS["cost_volume_block"])
+    p_ms = cuda_ms(torch, lambda: cost_volume_block_plain(fix, mov, q, kh, 1), 1, 3)
+    rec = kernel_record("cost_volume_block", [C, h, w, d, q], "float32", err, 0.0, t, p_ms,
+                        nbytes, ops, rate=PEAK_F32_UNFUSED)
+    rec.update({"metric": "ssd", "kh": kh, "nkh": 1, "equal_to_dense_slab": slab_equal})
+    print_times(label, t, p_ms, rec["bound_ms"])
+    records["cost_volume_block"] = rec
+    detail.append({"case": "stream", "name": "cost_volume_block", "shape": [C, h, w, d], "q": q,
+                   "kh": kh, "max_abs_err": err, "equal_to_dense_slab": slab_equal,
+                   **{k: rec[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")}})
+    del fix, mov, bk
+
+    # ragged crops: SAD at every q, blocks of both metrics
+    for qr in range(1, 9):
+        for si, shape in enumerate(COST_VOLUME_RAGGED):
+            fix, mov = pair(shape)
+            K = 2 * qr + 1
+            ck = cost_volume(fix, mov, qr, "sad")
+            cp = cost_volume_plain(fix, mov, qr, "sad")
+            torch.cuda.synchronize()
+            err = max_err(ck, cp)
+            check(err == 0.0, f"cost_volume_sad ragged {shape} q={qr}: max err {err}")
+            row = {"case": "ragged", "name": "cost_volume_sad", "shape": list(shape), "q": qr,
+                   "max_abs_err": err}
+            if si == 0:
+                want = kernel_instance(qr, "sad")
+                ran = device_times(torch, lambda: cost_volume(fix, mov, qr, "sad"), (want,), 1, 1)
+                check(ran["device_launches"] == 1, f"SAD ragged q={qr}: no launch of {want}")
+                row["ran"] = want
+            detail.append(row)
+            if qr in (1, 4, 7, 8):
+                for metric in ("ssd", "sad"):
+                    kh0, nkh = (qr + si) % K, min(K - (qr + si) % K, 1 + si)
+                    bk = cost_volume_block(fix, mov, qr, kh0, nkh, metric)
+                    bp = cost_volume_block_plain(fix, mov, qr, kh0, nkh, metric)
+                    dense = cost_volume(fix, mov, qr, metric).reshape(K, K, K, *shape[1:])
+                    torch.cuda.synchronize()
+                    slab = dense[:, :, kh0:kh0 + nkh].reshape(bk.shape)
+                    ok = torch.equal(bk, bp) and torch.equal(bk, slab)
+                    check(ok, f"cost_volume_block ragged {shape} q={qr} kh {kh0}+{nkh} {metric}: "
+                          f"max err {max_err(bk, bp)}, to the slab {max_err(bk, slab)}")
+                    detail.append({"case": "ragged", "name": "cost_volume_block",
+                                   "shape": list(shape), "q": qr, "kh0": kh0, "nkh": nkh,
+                                   "metric": metric, "max_abs_err": 0.0})
+            print(f"cost volume variants ragged {shape} q={qr}: SAD max_abs_err {err:.1e} (tol 0)"
+                  + (", blocks equal to plain and to the dense slab" if qr in (1, 4, 7, 8) else "")
+                  + (f", {row['ran']}" if "ran" in row else ""), flush=True)
+    return records, detail
 
 
 def sampler_phase(torch, dev, gen, coarse):
@@ -1214,6 +1467,79 @@ def data_term_phase(torch, gen, feat_f, feat_m, grid_sp_adam):
             row.update({k: rec[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")})
             if record is None:
                 record = rec
+        detail.append(row)
+    return record, detail
+
+
+def strided_data_term_phase(torch, gen, feat_f, feat_m, grid_sp_adam):
+    """Phase 3d's strided data term: ``warp_ssd_loss_grad(..., stride=2)``
+    against its plain version, rows to the bit and ``sum(res^2)`` to 1e-5
+    relative, on the main path's Adam grid 12 x 96^3 (bf16 and f32 moving
+    features; the sub-lattice 48^3 of a smooth field) and on a ragged 3 x
+    37 x 41 x 29 grid that 2 does not divide (19 x 21 x 15 points pushed past
+    every face); the first case timed.  Returns its record and every case's
+    numbers."""
+    from convexadam_torch.core.smoothing import avg_pool3d
+    from convexadam_torch.core.warp import resize_trilinear
+    from convexadam_torch.kernels.warp import (
+        sub_extent,
+        warp_ssd_loss_grad,
+        warp_ssd_loss_grad_plain,
+    )
+
+    s = DATA_TERM_STRIDE
+    dev = feat_f.device
+    pf = avg_pool3d(feat_f.float(), grid_sp_adam).contiguous()
+    pm = avg_pool3d(feat_m.float(), grid_sp_adam).contiguous()
+    sub = tuple(sub_extent(n, s) for n in pf.shape[1:])
+    coarse = torch.randn((3, *[n // 8 for n in sub]), generator=gen) * 2.0
+    mind_disp = resize_trilinear(coarse, sub).to(dev).contiguous()
+    rag_fix, rag_mov = (torch.randn((3, *RAGGED_SHAPE), generator=gen).to(dev) for _ in range(2))
+    rag_sub = tuple(sub_extent(n, s) for n in RAGGED_SHAPE)
+    rag_disp = ((torch.rand((3, *rag_sub), generator=gen) * 2 - 1) * 6).to(dev)
+    cases = [("mind", pf, pm.to(torch.bfloat16), mind_disp), ("mind", pf, pm, mind_disp),
+             ("ragged", rag_fix, rag_mov, rag_disp),
+             ("ragged", rag_fix, rag_mov.to(torch.bfloat16), rag_disp)]
+    record, detail = None, []
+    for what, fix, mov, disp in cases:
+        C, H, W, D = mov.shape
+        n = disp[0].numel()
+        fix_flat = fix[:, ::s, ::s, ::s].reshape(C, n).contiguous()
+        fac = (H / (H - 1.0), W / (W - 1.0), D / (D - 1.0))
+        chain = 2.0 * 12.0 / (C * n)
+        ssq_k, rows_k = warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain, s)
+        ssq_p, rows_p = warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain, s)
+        pos = [s * torch.arange(m, device=dev).reshape([-1 if a == b else 1 for b in range(3)])
+               + disp[a] * fac[a] for a, m in enumerate(disp.shape[1:])]
+        faces = [int((p < 0).sum()) for p in pos] + \
+                [int((p > e - 1).sum()) for p, e in zip(pos, (H, W, D))]
+        torch.cuda.synchronize()
+        ssq_rel = abs(float(ssq_k) - float(ssq_p)) / float(ssq_p)
+        err = max_err(rows_k, rows_p)
+        name = f"warp_ssd_loss_grad stride {s} {what} {(C, H, W, D)} {mov.dtype}"
+        check(ssq_rel <= 1e-5, f"{name}: sum(res^2) relative err {ssq_rel}")
+        check(err == 0.0, f"{name}: rows max err {err} > 0")
+        check(what != "ragged" or min(faces) > 0, f"{name}: points past the faces {faces}")
+        print(f"{name}: {n} points, rows max_abs_err {err:.3e} (tol 0); sum(res^2) rel err "
+              f"{ssq_rel:.3e}; points past the faces {faces}", flush=True)
+        row = {"case": what, "shape": [C, H, W, D], "stride": s, "points": n,
+               "dtype": str(mov.dtype), "max_abs_err": err, "ssq_rel_err": ssq_rel,
+               "points_past_faces": faces}
+        if record is None:
+            t = timed_turns(torch, lambda: warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain, s),
+                            GLOBALS["warp_ssd_loss_grad_strided"])
+            p_ms = cuda_ms(torch, lambda: warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac,
+                                                                   chain, s))
+            # the moving values the corners reach (at most 8 a point, at most
+            # the volume), the sub-lattice's fixed features and field read
+            # once, its rows written once; operations as the dense term's
+            nbytes = (C * min(H * W * D, 8 * n) * mov.element_size() + C * n * 4
+                      + 3 * n * 4 * 2)
+            record = kernel_record("warp_ssd_loss_grad_strided", [C, H, W, D], str(mov.dtype)[6:],
+                                   err, 0.0, t, p_ms, nbytes, 1.0 * n * (C * 37 + 110))
+            record["stride"] = s
+            print_times(name, t, p_ms, record["bound_ms"])
+            row.update({k: record[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")})
         detail.append(row)
     return record, detail
 
@@ -1962,7 +2288,7 @@ def ct_volume(seg, seed):
 def register_file_phase(torch, dev, d, results):
     """Phase 6a: ``cli.register.main`` on a masked MIND pair at the Abdomen
     shape, against ``convex_adam(mask_infill(...))`` on the same arrays;
-    then the nine-variant files.  Returns the launches and the paths."""
+    then the multi-output files.  Returns the launches and the paths."""
     from convexadam_torch.cli import register
     from convexadam_torch.core.warp import resize_trilinear
     from convexadam_torch.pipeline.convex_adam import convex_adam
@@ -2000,15 +2326,17 @@ def register_file_phase(torch, dev, d, results):
     frac = float(np.mean(np.all(err < 1.0, axis=-1)))
     check(frac > 0.9, f"6a: shift recovered in only {frac:.2%} of the crop")
 
-    # the nine-variant files of one run
+    # the multi-output files of one run
     multi = d / "multi"
     multi_args = args + ["--result_path", str(multi), "--multi_iters",
-                         ",".join(map(str, FILE_MULTI_ITERS))]
+                         ",".join(map(str, FILE_MULTI_ITERS)), "--multi_smoothings",
+                         ",".join(map(str, FILE_MULTI_SMOOTHINGS))]
     _, multi_launches, multi_s = _counted(torch, lambda: register.main(multi_args))
     _launch_checks("cli.register --multi_iters", multi_launches, sweep_expected(
         **dict(EXPECTED_LAUNCHES, warp_ssd_loss_grad=max(FILE_MULTI_ITERS))))
     written = sorted(p.name for p in multi.glob("disp_*.nii.gz"))
-    want = sorted(f"disp_{it}_{sm}.nii.gz" for it in FILE_MULTI_ITERS for sm in (0, 3, 5))
+    want = sorted(f"disp_{it}_{sm}.nii.gz" for it in FILE_MULTI_ITERS
+                  for sm in FILE_MULTI_SMOOTHINGS)
     check(written == want, f"6a: --multi_iters wrote {written}")
     last = np.asarray(_read_nib(multi / f"disp_{max(FILE_MULTI_ITERS)}_0.nii.gz")[0], np.float32)
     check(_bits_equal(last, disp32), "6a: the (80, 0) file differs from the single-output field "
@@ -2018,7 +2346,8 @@ def register_file_phase(torch, dev, d, results):
            "launches_multi": multi_launches, "mask_inside_frac": float(mask_f.mean())}
     print(f"6a cli.register --use_mask at {ABDOMEN_SHAPE}: {reg_s:.2f} s (field written), "
           f"equal to convex_adam(mask_infill(...)) to the bit, {frac:.2%} within 1 voxel; "
-          f"--multi_iters: {multi_s:.2f} s for 9 files, (80, 0) equal to the single field; "
+          f"--multi_iters: {multi_s:.2f} s for {len(want)} files, (80, 0) equal to the single "
+          "field; "
           f"inputs written in {inputs_s:.2f} s", flush=True)
     results["file_register"] = out
     return launches, paths, d / "disp.nii.gz", (vol, mov)
@@ -2352,6 +2681,569 @@ def file_phase(torch, dev, results):
     print(f"phase 6: {results['file_phase_s']:.2f} s", flush=True)
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 7: the Learn2Reg challenge recipes at their published shapes
+# ---------------------------------------------------------------------------
+
+
+def _run7(torch, fn):
+    """``fn()`` counted (:func:`_counted`): (result, launches, seconds,
+    peak GB, GB allocated before the run)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    out, launches, secs = _counted(torch, fn)
+    return out, launches, secs, torch.cuda.max_memory_allocated() / 1e9, start
+
+
+def _report7(results, key, launches, secs, peak, **extra):
+    used = {k: v for k, v in launches.items() if v}
+    print(f"7 {key}: {secs:.4f} s, peak {peak:.2f} GB, launches {used}", flush=True)
+    results.setdefault("challenges", {})[key] = {
+        "seconds": secs, "peak_mem_gb": peak, "launches": launches, **extra}
+    return launches
+
+
+def _frac_within(disp, shift, sel=None) -> float:
+    err = np.abs(disp - np.array(shift, np.float32))
+    ok = np.all(err < 1.0, axis=-1)
+    return float(ok[sel].mean() if sel is not None else ok.mean())
+
+
+def _central(shape, frac=4):
+    """The central box, ``1 / frac`` of each extent from every face."""
+    return tuple(slice(s // frac, s - s // frac) for s in shape)
+
+
+def task1_phase(torch, dev, results, recipes):
+    """7a: ``register_tps_densified`` with its defaults (grid_sp 4, disp_hw
+    8 through the general kernel, IC, Adam at grid 3 for 40 iterations,
+    4096 control points) at the task-1 shape; equal to ``convex_adam`` +
+    the densification composed outside, to the bit; the shift recovered in
+    the central quarter-margin box (> 90% within 1 voxel, the JAX test's
+    bar); then ``task1_field_to_original`` onto a 240 x 200 x 240 grid."""
+    from convexadam_torch.core.warp import resize_trilinear
+    from convexadam_torch.pipeline import challenges as ch
+    from convexadam_torch.pipeline.convex_adam import convex_adam
+
+    vol, mov = headline_pair(torch, resize_trilinear, shape=TASK1_SHAPE, shift=TASK1_SHIFT)
+    mask = body_mask(TASK1_SHAPE).astype(np.float32)
+    recipes["7a_task1"] = lambda: ch.register_tps_densified(vol, mov, mask, device=dev)
+    dense, launches, secs, peak, _ = _run7(torch, recipes["7a_task1"])
+    cfg = ch.TASK1_CONFIG
+    _launch_checks("7a task 1", launches, sweep_expected(
+        mind_ssd_stats=2, cost_volume_general=2, sample_trilinear_ic=IC_ITERS,
+        warp_ssd_loss_grad=cfg.selected_niter))
+    check(dense.shape == TASK1_SHAPE + (3,) and bool(np.isfinite(dense).all()), "7a: bad field")
+    disp = convex_adam(vol, mov, cfg, device=dev)
+    composed = ch._tps_densify(disp, mask, 4096, 4, True, 0, dev)
+    check(_bits_equal(dense, composed), "7a: the recipe's field differs from convex_adam + the "
+          f"densification composed outside by {np.abs(dense - composed).max()}")
+    box = _central(TASK1_SHAPE)
+    frac = _frac_within(dense[box], TASK1_SHIFT)
+    check(frac > 0.9, f"7a: shift recovered within 1 voxel in only {frac:.2%} of the central box")
+    o_shape, o_spacing = TASK1_ORIGINAL
+    whole = ((0.0, 0.0, 0.0), tuple(float(v) for v in o_shape))
+    meta = ch.Task1CaseMeta(o_shape, o_spacing, whole, o_shape, o_spacing, whole)
+    sp = np.full(3, 2.0, np.float32)
+    orig, _, orig_s, _, _ = _run7(torch, lambda: ch.task1_field_to_original(dense, sp, sp, meta,
+                                                                          device=dev))
+    want_shape = (3,) + tuple(v // 2 for v in o_shape)
+    check(orig.shape == want_shape and bool(np.isfinite(orig).all()),
+          f"7a: original-space field {orig.shape}, expected {want_shape}, finite")
+    # the shift in original voxels (preprocessed / (192 / 240)), x and y
+    # flipped and negated
+    expect = np.array(TASK1_SHIFT, np.float32) / (TASK1_SHAPE[0] / o_shape[0]) * [-1, -1, 1]
+    med = np.median(orig[(slice(None),) + _central(want_shape[1:])].reshape(3, -1), axis=1)
+    check(bool(np.all(np.abs(med - expect) < 0.5)),
+          f"7a: original-space median {med}, expected {expect}")
+    print(f"7a task 1 {TASK1_SHAPE}: {frac:.2%} of the central box within 1 voxel, equal to the "
+          f"composition; original-space {want_shape} in {orig_s:.4f} s, median {med}", flush=True)
+    return _report7(results, "7a_task1", launches, secs, peak, frac_within_1vox=frac,
+                    original_shape=list(want_shape), original_s=orig_s,
+                    original_median=med.tolist())
+
+
+def lung_masks(shape):
+    """Two ellipsoidal lungs side by side along the second axis, uint8."""
+    grids = np.ogrid[tuple(slice(0, s) for s in shape)]
+    H, W, D = shape
+    out = np.zeros(shape, bool)
+    for cw in (0.3 * W, 0.7 * W):
+        r2 = (((grids[0] - H / 2) / (0.36 * H)) ** 2 + ((grids[1] - cw) / (0.17 * W)) ** 2
+              + ((grids[2] - D / 2) / (0.4 * D)) ** 2)
+        out |= r2 <= 1.0
+    return out.astype(np.uint8)
+
+
+def _eroded(torch, dev, mask, r):
+    """Voxels of ``mask`` at least ``r`` voxels (a box) from its outside."""
+    import torch.nn.functional as F
+
+    m = torch.from_numpy(mask.astype(np.float32)).to(dev)[None, None]
+    return (F.avg_pool3d(m, 2 * r + 1, stride=1, padding=r) > 0.9999)[0, 0].cpu().numpy()
+
+
+def task2_phase(torch, dev, results, recipes):
+    """7b: ``task2_case`` at the lung CT shape with lung-like masks (moving
+    = fixed rolled): equal to ``convex_adam(mask_infill(...))`` with
+    :data:`TASK2_CONFIG` composed outside, to the bit; the shift recovered
+    on > 90% of the lung voxels at least 8 voxels inside the mask."""
+    from convexadam_torch.core.warp import resize_trilinear
+    from convexadam_torch.pipeline import challenges as ch
+    from convexadam_torch.pipeline.convex_adam import convex_adam
+    from convexadam_torch.pipeline.preprocess import mask_infill
+
+    vol, mov = headline_pair(torch, resize_trilinear, shape=TASK2_SHAPE, shift=TASK2_SHIFT)
+    mask_f = lung_masks(TASK2_SHAPE)
+    mask_m = np.roll(mask_f, TASK2_SHIFT, axis=(0, 1, 2))
+    recipes["7b_task2"] = lambda: ch.task2_case(vol, mov, mask_f, mask_m, device=dev)
+    out, launches, secs, peak, _ = _run7(torch, recipes["7b_task2"])
+    cfg = ch.TASK2_CONFIG
+    _launch_checks("7b task 2", launches, sweep_expected(
+        mind_ssd_stats=2, cost_volume=1, warp_ssd_loss_grad=cfg.selected_niter))
+    ref = convex_adam(mask_infill(vol, mask_f, device=dev), mask_infill(mov, mask_m, device=dev),
+                      cfg, device=dev)
+    check(_bits_equal(out["disp"], ref), "7b: task2_case differs from convex_adam(mask_infill) "
+          f"composed outside by {np.abs(out['disp'] - ref).max()}")
+    half = (3,) + tuple(v // 2 for v in TASK2_SHAPE)
+    check(out["disp_half"].shape == half and bool(np.isfinite(out["disp_half"]).all()),
+          "7b: bad half-resolution field")
+    inner = _eroded(torch, dev, mask_f, max(2, min(TASK2_SHAPE) // 24))
+    check(bool(inner.any()), "7b: no lung voxel left inside the eroded mask")
+    frac = _frac_within(out["disp"], TASK2_SHIFT, inner)
+    check(frac > 0.9, f"7b: shift recovered within 1 voxel in only {frac:.2%} of the lungs")
+    print(f"7b task 2 {TASK2_SHAPE}: {frac:.2%} of {int(inner.sum())} inner lung voxels within "
+          "1 voxel, equal to the composition", flush=True)
+    return _report7(results, "7b_task2", launches, secs, peak, frac_within_1vox=frac,
+                    lung_voxels=int(mask_f.sum()))
+
+
+def oasis_labels(torch, dev, seed=0):
+    """A brain-like parcellation of :data:`TASK3_SHAPE`: noise smoothed
+    twice by a :data:`TASK3_SCALE`-wide box, cut at its quantiles into
+    :data:`TASK3_LABELS` classes (0 the background and 35 structures, each
+    a set of smooth shells a few voxels thick), int32 numpy.  The classes'
+    sizes differ by structure (0.5-2x, the same in every subject) and by
+    subject (0.8-1.2x, from ``seed``), so weights frozen from a template
+    pair are not a subject pair's own."""
+    import torch.nn.functional as F
+
+    shape, n_labels = TASK3_SHAPE, TASK3_LABELS
+    sizes = (np.random.default_rng(100).uniform(0.5, 2.0, n_labels)
+             * np.random.default_rng(seed).uniform(0.8, 1.2, n_labels))
+    levels = np.cumsum(sizes / sizes.sum())[:-1]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = torch.randn((1, 1) + tuple(shape), generator=g, device=dev)
+    k = TASK3_SCALE + 1
+    for _ in range(2):
+        v = F.avg_pool3d(v, k, stride=1, padding=k // 2)
+    v = v.reshape(-1)
+    q = torch.quantile(v, torch.tensor(levels, dtype=v.dtype, device=dev))
+    return torch.bucketize(v, q).reshape(shape).int().cpu().numpy()
+
+
+def task3_phase(torch, dev, results, recipes):
+    """7c: ``task3_case`` on an OASIS-shaped parcellation and its roll,
+    with per-pair weights and with weights frozen from another template
+    pair (two other parcellations), as the OASIS script freezes them: one
+    SAD launch (one direction, no IC) and 100 data terms; equal to
+    ``semantic_features`` + ``convex_adam_features`` composed outside, to
+    the bit; the median error under 0.5 voxels per axis in the central box
+    (the JAX test's bar)."""
+    from convexadam_torch.core.features import semantic_features, semantic_template_weights
+    from convexadam_torch.pipeline import challenges as ch
+    from convexadam_torch.pipeline.convex_adam import convex_adam_features
+
+    seg_f = oasis_labels(torch, dev)
+    seg_m = np.roll(seg_f, TASK3_SHIFT, axis=(0, 1, 2))
+    sf, sm = (torch.from_numpy(x).to(dev) for x in (seg_f, seg_m))
+    template = [torch.from_numpy(oasis_labels(torch, dev, seed=k)).to(dev) for k in (1, 2)]
+    weights = semantic_template_weights(*template, TASK3_LABELS).cpu().numpy()
+    own = semantic_template_weights(sf, sm, TASK3_LABELS).cpu().numpy()
+    check(float(np.abs(weights - own).max()) > 1e-3, "7c: the template weights are the pair's own")
+    del template
+    cfg = ch.TASK3_CONFIG
+    out_launches = {}
+    for key, w in (("7c_task3", None), ("7c_task3_template", weights)):
+        recipes[key] = (lambda w=w: ch.task3_case(seg_f, seg_m, TASK3_LABELS, template_weights=w,
+                                                  device=dev))
+        out, launches, secs, peak, _ = _run7(torch, recipes[key])
+        _launch_checks(key, launches, sweep_expected(
+            cost_volume_sad=1, warp_ssd_loss_grad=cfg.selected_niter))
+        with torch.no_grad():
+            ff, fm = semantic_features(
+                sf, sm, TASK3_LABELS, mult=10.0, dtype=cfg.compute_dtype(dev),
+                weights=None if w is None else torch.from_numpy(w).to(dev))
+        ref = convex_adam_features(ff, fm, cfg).cpu().numpy()
+        del ff, fm
+        check(_bits_equal(out["disp"], ref), f"{key}: task3_case differs from the composition "
+              f"outside by {np.abs(out['disp'] - ref).max()}")
+        box = _central(TASK3_SHAPE, 8)
+        err = out["disp"][box] - np.array(TASK3_SHIFT, np.float32)
+        med = np.median(err.reshape(-1, 3), axis=0)
+        frac = _frac_within(out["disp"][box], TASK3_SHIFT)
+        check(bool(np.all(np.abs(med) < 0.5)), f"{key}: median error {med} not under 0.5 voxels")
+        print(f"{key} {TASK3_SHAPE}, {TASK3_LABELS} labels: median error {med}, {frac:.2%} within "
+              "1 voxel, equal to the composition", flush=True)
+        out_launches[key] = _report7(results, key, launches, secs, peak,
+                                     median_err=med.tolist(), frac_within_1vox=frac)
+    return out_launches
+
+
+def curious_landmarks(case=CURIOUS_CASE):
+    """Case ``case``'s landmark balls in the reference's 256 x 256 x 288
+    space (tests/curious_landmarks.npz, read as data): the US and MRI label
+    volumes (int32) and the US and MRI label centroids."""
+    z = np.load(ROOT / "tests" / "curious_landmarks.npz")
+    shape = tuple(int(v) for v in z["shape"])
+    segs = []
+    for mod in ("US", "MRI"):
+        seg = np.zeros(shape, np.int32)
+        c = z[f"coords_{mod}_{case}"].astype(np.int64)
+        seg[c[:, 0], c[:, 1], c[:, 2]] = z[f"labels_{mod}_{case}"]
+        segs.append(seg)
+    return segs, z[f"centroids_US_{case}"].astype(np.float32), \
+        z[f"centroids_MRI_{case}"].astype(np.float32)
+
+
+def curious_inputs(torch, dev, case=CURIOUS_CASE):
+    """A CuRIOUS case in the reference's 256 x 256 x 288 space: case
+    ``case``'s landmarks (:func:`curious_landmarks`) and the volumes
+    :func:`curious_volumes` makes around them."""
+    return curious_volumes(torch, dev, *curious_landmarks(case))
+
+
+def curious_volumes(torch, dev, segs, cen_u, cen_m):
+    """A synthetic anatomy (smoothed noise of two scales, made on the card
+    from a seed) on the grid of the landmark volumes ``segs`` as T1 and
+    FLAIR (another contrast of it); the US the T1 warped by a thin-plate
+    spline through the US -> MRI landmark centroids ``cen_u`` -> ``cen_m``,
+    under a monotone contrast map, zero outside a box around the US
+    landmarks (the field of view the reference's `> 10` mask finds).
+    Returns numpy (us, t1, flair, seg_us, seg_mri) and the centroids'
+    initial TRE."""
+    import torch.nn.functional as F
+
+    from convexadam_torch.core.rigid import thin_plate_dense
+    from convexadam_torch.core.warp import warp_with_displacement
+
+    shape = segs[0].shape
+    half = (np.array(shape, np.float32) - 1.0) / 2.0
+    with torch.no_grad():
+        ctrl = torch.from_numpy(cen_u / half - 1.0).to(dev)
+        vals = torch.from_numpy((cen_m - cen_u) / half).to(dev)
+        disp_gt = thin_plate_dense(ctrl, vals, shape, 4) * torch.from_numpy(half).to(dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+
+        def smooth(k):
+            v = torch.randn((1, 1) + shape, generator=g, device=dev)
+            return F.avg_pool3d(v, k, stride=1, padding=k // 2)[0, 0]
+
+        a = smooth(5) + 0.5 * smooth(11)
+        a = (a - a.min()) / (a.max() - a.min())
+        t1 = 30.0 + 200.0 * a
+        flair = 30.0 + 200.0 * (1.0 - a) ** 1.5
+        us_raw = warp_with_displacement(t1[None], disp_gt.permute(3, 0, 1, 2).contiguous())[0]
+        us = 15.0 + 12.0 * torch.sqrt(torch.clamp(us_raw - 25.0, min=0.0))
+        lo = np.maximum(np.floor(cen_u.min(0) - 16).astype(int), 0)
+        hi = np.minimum(np.ceil(cen_u.max(0) + 17).astype(int), shape)
+        fov = torch.zeros(shape, dtype=torch.bool, device=dev)
+        fov[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = True
+        us = torch.where(fov, us, torch.zeros_like(us))
+        arrays = [x.cpu().numpy().astype(np.float32) for x in (us, t1, flair)]
+    tre0_true = np.sqrt(((cen_u - cen_m) ** 2).sum(1))
+    return (*arrays, *segs), tre0_true
+
+
+def curious_phase(torch, dev, results, recipes):
+    """7d: ``curious_case`` with its defaults (MIND r 3, d 3 of three
+    volumes, masked cost volumes at q = 6 both ways, 5 IC steps,
+    ``rigid_from_field`` of 4096 samples and 15 iterations) at 256 x 256 x
+    288; the identity TRE that of the real centroids; the deformable and
+    the rigid TRE below the identity TRE (the JAX test's bar)."""
+    from convexadam_torch.pipeline import challenges as ch
+
+    (us, t1, flair, seg_us, seg_mri), tre0_true = curious_inputs(torch, dev)
+    recipes["7d_curious"] = lambda: ch.curious_case(us, t1, flair, seg_us, seg_mri, device=dev)
+    res, launches, secs, peak, _ = _run7(torch, recipes["7d_curious"])
+    _launch_checks("7d CuRIOUS", launches, sweep_expected(
+        mind_ssd_stats=3, cost_volume=2, sample_trilinear_ic=5))
+    tre0, tre_def, tre_rigid = (float(np.nanmean(res[k])) for k in ("tre0", "tre_def",
+                                                                    "tre_rigid"))
+    check(abs(tre0 - float(tre0_true.mean())) < 0.2,
+          f"7d: identity TRE {tre0} against the real centroids' {tre0_true.mean()}")
+    check(tre_def < tre0 and tre_rigid < tre0,
+          f"7d: TRE identity {tre0:.4f}, deformable {tre_def:.4f}, rigid {tre_rigid:.4f}")
+    check(bool(np.isfinite(res["disp"]).all()) and res["rigid"].shape == (4, 4), "7d: bad output")
+    print(f"7d CuRIOUS case {CURIOUS_CASE} {us.shape}: TRE identity {tre0:.4f}, deformable "
+          f"{tre_def:.4f}, rigid {tre_rigid:.4f} voxels", flush=True)
+    return _report7(results, "7d_curious", launches, secs, peak, tre0=tre0, tre_def=tre_def,
+                    tre_rigid=tre_rigid, rigid=res["rigid"].tolist())
+
+
+def streamed_phase(torch, dev, results, recipes):
+    """7e: the (grid_sp 2, disp_hw 7) class at the Abdomen shape on phase
+    5's subjects 0 and 1 (14 one-hot channels), both directions: dense (the
+    default threshold) and streamed (``stream_threshold=0``), equal to the
+    bit, with both peaks; then one direction at 256 x 256 x 320, whose dense
+    estimate exceeds the threshold: the natural dispatch streams."""
+    from convexadam_torch.core import convex
+    from convexadam_torch.core.features import semantic_features
+    from convexadam_torch.core.smoothing import avg_pool3d
+
+    g, q = STREAM_CLASS
+    K = 2 * q + 1
+
+    def coarse(seg_a, seg_b):
+        a, b = (torch.from_numpy(x).to(dev) for x in (seg_a, seg_b))
+        with torch.no_grad():
+            ff, fm = semantic_features(a, b, SEMANTIC_LABELS)
+            return (avg_pool3d(ff, g, stride=g).contiguous(),
+                    avg_pool3d(fm, g, stride=g).contiguous())
+
+    segs = sweep_subjects()
+    fix_s, mov_s = coarse(segs[0], segs[1])
+    est = convex.dense_estimate(q, fix_s.shape[1:])
+    check(est <= convex.COST_VOLUME_STREAM_THRESHOLD,
+          f"7e: the (2, 7) class estimate {est} streams")
+    out = {}
+    launches = {}
+    for direction, (a, b) in (("forward", (fix_s, mov_s)), ("reverse", (mov_s, fix_s))):
+        with torch.no_grad():
+            dense, l_d, s_d, p_d, start_d = _run7(
+                torch, lambda: convex.convex_displacement(a, b, q))
+            streamed, l_s, s_s, p_s, start_s = _run7(
+                torch, lambda: convex.convex_displacement(a, b, q, stream_threshold=0))
+        _launch_checks(f"7e dense {direction}", l_d, sweep_expected(cost_volume=1))
+        _launch_checks(f"7e streamed {direction}", l_s, sweep_expected(cost_volume_block=7 * K))
+        equal = torch.equal(dense, streamed)
+        check(equal, f"7e {direction}: streamed differs from dense by {max_err(dense, streamed)}")
+        ratio = (p_d - start_d) / (est / 1e9)
+        print(f"7e {STREAM_CLASS} {ABDOMEN_SHAPE} {direction}: dense {s_d:.4f} s, "
+              f"peak {p_d:.2f} GB "
+              f"({p_d - start_d:.2f} GB above the {start_d:.2f} GB held before, {ratio:.4f} of the "
+              f"{est / 1e9:.2f} GB estimate); streamed {s_s:.4f} s, peak {p_s:.2f} GB "
+              f"({p_s - start_s:.2f} GB above); equal to the bit", flush=True)
+        out[direction] = {"dense_s": s_d, "dense_peak_gb": p_d, "dense_start_gb": start_d,
+                          "dense_peak_over_estimate": ratio, "streamed_s": s_s,
+                          "streamed_peak_gb": p_s, "streamed_start_gb": start_s,
+                          "equal": equal}
+        if direction == "forward":
+            launches["7e_dense"], launches["7e_streamed"] = l_d, l_s
+        del dense, streamed
+    del fix_s, mov_s
+    seg_a, seg_b = l2r_label_pair(shape=STREAM_NATURAL_SHAPE, margin=ABDOMEN_MARGIN)
+    fix_s, mov_s = coarse(seg_a, seg_b)
+    est_n = convex.dense_estimate(q, fix_s.shape[1:])
+    check(est_n > convex.COST_VOLUME_STREAM_THRESHOLD,
+          f"7e: {STREAM_NATURAL_SHAPE} estimate {est_n} does not exceed the threshold")
+    def natural():
+        with torch.no_grad():
+            return convex.convex_displacement(fix_s, mov_s, q)
+
+    recipes["7e_natural"] = natural
+    field, l_n, s_n, p_n, start_n = _run7(torch, natural)
+    _launch_checks("7e natural dispatch", l_n, sweep_expected(cost_volume_block=7 * K))
+    check(tuple(field.shape) == (3,) + tuple(fix_s.shape[1:]) and bool(torch.isfinite(field).all()),
+          "7e natural dispatch: bad field")
+    print(f"7e natural dispatch {STREAM_CLASS} {STREAM_NATURAL_SHAPE} ({est_n / 1e9:.2f} GB "
+          f"estimate, threshold {convex.COST_VOLUME_STREAM_THRESHOLD / 1e9:.0f} GB): streamed "
+          f"{s_n:.4f} s, peak {p_n:.2f} GB", flush=True)
+    out["natural"] = {"shape": list(STREAM_NATURAL_SHAPE), "estimate_gb": est_n / 1e9,
+                      "seconds": s_n, "peak_gb": p_n, "start_gb": start_n}
+    launches["7e_natural"] = l_n
+    results.setdefault("challenges", {})["7e_streamed"] = {
+        "class": list(STREAM_CLASS), "shape": list(ABDOMEN_SHAPE), "estimate_gb": est / 1e9,
+        "threshold_gb": convex.COST_VOLUME_STREAM_THRESHOLD / 1e9, **out,
+        "launches": {k: {n: v for n, v in l.items() if v} for k, l in launches.items()}}
+    return launches
+
+
+def strided_phase(torch, dev, vol_np, mov_np, single, results, recipes):
+    """7f: the default registration of the 192^3 headline pair with
+    ``adam_sample_stride=2``: 80 strided data terms and no dense one, a
+    finite field, the central p95 |diff| to phase 4's stride-1 field
+    ``single`` under 0.5 voxels (the JAX package's envelope) and the shift
+    recovered (> 90% within 1 voxel)."""
+    from convexadam_torch.pipeline.convex_adam import ConvexAdamConfig, convex_adam
+
+    cfg = ConvexAdamConfig(adam_sample_stride=DATA_TERM_STRIDE)
+    recipes["7f_strided"] = lambda: convex_adam(vol_np, mov_np, cfg, device=dev)
+    out, launches, secs, peak, _ = _run7(torch, recipes["7f_strided"])
+    _launch_checks("7f strided", launches, sweep_expected(
+        mind_ssd_stats=2, cost_volume=2, sample_trilinear_ic=IC_ITERS,
+        warp_ssd_loss_grad_strided=cfg.selected_niter))
+    check(bool(np.isfinite(out).all()), "7f: non-finite field")
+    box = _central(HEADLINE_SHAPE)
+    p95 = float(np.percentile(np.abs(out[box] - single[box]), 95))
+    frac = _frac_within(out[box], HEADLINE_SHIFT)
+    check(p95 < 0.5, f"7f: central p95 |diff| to the stride-1 field {p95:.4f} voxels")
+    check(frac > 0.9, f"7f: shift recovered within 1 voxel in only {frac:.2%} of the central box")
+    print(f"7f stride {DATA_TERM_STRIDE}: central p95 |diff| to stride 1 {p95:.4f} voxels, "
+          f"{frac:.2%} within 1 voxel", flush=True)
+    return _report7(results, "7f_strided", launches, secs, peak, p95_vs_stride1=p95,
+                    frac_within_1vox=frac)
+
+
+def _cloned(torch, x):
+    """``x`` with every tensor in it (in tuples, lists, dicts) detached and
+    copied."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cloned(torch, v) for v in x)
+    if isinstance(x, dict):
+        return {k: _cloned(torch, v) for k, v in x.items()}
+    return x
+
+
+@contextlib.contextmanager
+def _recording(torch, calls):
+    """Within the block, the first :data:`CAPTURE_CALLS` calls of each
+    wrapper of :data:`CAPTURE_SITES` are appended to ``calls`` as (wrapper,
+    arguments by name), the tensors copied (a recipe may update its field in
+    place); each call then goes on to the wrapper."""
+    import importlib
+    import inspect
+
+    saved = []
+
+    def recorder(name, fn):
+        sig = inspect.signature(fn)
+
+        def wrapped(*args, **kwargs):
+            if sum(c[0] == name for c in calls) < CAPTURE_CALLS:
+                bound = sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                calls.append((name, _cloned(torch, dict(bound.arguments))))
+            return fn(*args, **kwargs)
+
+        return wrapped
+
+    for mod_name, name in CAPTURE_SITES:
+        mod = importlib.import_module(mod_name)
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, recorder(name, getattr(mod, name)))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _captured_kernel(name, a) -> str:
+    """The kernel record (and launch count) a recorded call of wrapper
+    ``name`` with arguments ``a`` belongs to."""
+    from convexadam_torch.kernels.cost_volume import kernel_for
+
+    if name == "cost_volume":
+        if a["metric"] == "sad":
+            return "cost_volume_sad"
+        general = kernel_for(a["disp_hw"]) == "cost_volume_general_kernel"
+        return "cost_volume_general" if general else "cost_volume"
+    if name == "inverse_consistency_steps":
+        return "sample_trilinear_ic"
+    if name == "warp_ssd_loss_grad":
+        return "warp_ssd_loss_grad_strided" if a["stride"] > 1 else "warp_ssd_loss_grad"
+    return name
+
+
+def _shape_of(a) -> dict:
+    """The arguments ``a`` of a recorded call, each tensor as its shape and
+    type."""
+    return {k: ([*v.shape, str(v.dtype)[6:]] if hasattr(v, "shape") else v) for k, v in a.items()}
+
+
+def challenge_kernel_phase(torch, recipes, records, results):
+    """7g: each recipe of 7a-7f run again (the same inputs) with the
+    arguments of the first :data:`CAPTURE_CALLS` calls of every wrapper it
+    reaches recorded (:func:`_recording`); every kernel the rerun launched
+    must have a recorded call.  Each recorded call then goes through the
+    kernel and its plain version: outputs to the bit, the data term's
+    ``sum(res^2)`` to 1e-5 relative (its partial sums add in another
+    order); the first call of each kernel in each recipe timed.  The
+    readings join each kernel's record as ``at_challenge_shape``."""
+    from convexadam_torch.kernels.cost_volume import cost_volume_block_plain, cost_volume_plain
+    from convexadam_torch.kernels.cost_volume import cost_volume, cost_volume_block
+    from convexadam_torch.kernels.mind import mind_ssd_stats, mind_ssd_stats_plain
+    from convexadam_torch.kernels.warp import (
+        inverse_consistency_steps,
+        inverse_consistency_steps_plain,
+        warp_ssd_loss_grad,
+        warp_ssd_loss_grad_plain,
+    )
+
+    pairs = {"mind_ssd_stats": (mind_ssd_stats, mind_ssd_stats_plain),
+             "cost_volume": (cost_volume, cost_volume_plain),
+             "cost_volume_block": (cost_volume_block, cost_volume_block_plain),
+             "inverse_consistency_steps": (inverse_consistency_steps,
+                                           inverse_consistency_steps_plain),
+             "warp_ssd_loss_grad": (warp_ssd_loss_grad, warp_ssd_loss_grad_plain)}
+    by_name = {r["name"]: r for r in records}
+    readings: dict = {}
+    t0 = time.perf_counter()
+    for key, recipe in recipes.items():
+        calls: list = []
+        with _recording(torch, calls):
+            _, launches, _ = _counted(torch, recipe)
+        kinds = {_captured_kernel(name, a) for name, a in calls}
+        missed = [k for k, v in launches.items() if v and k not in kinds]
+        check(not missed, f"7g {key}: launched {missed} with no recorded call")
+        timed = set()
+        for name, a in calls:
+            kname = _captured_kernel(name, a)
+            kern, plain = pairs[name]
+            ko, po = kern(**a), plain(**a)
+            torch.cuda.synchronize()
+            ko, po = (ko, po) if isinstance(ko, tuple) else ((ko,), (po,))
+            row = {"recipe": key, "wrapper": name, "args": _shape_of(a)}
+            if name == "warp_ssd_loss_grad":
+                row["ssq_rel_err"] = abs(float(ko[0]) - float(po[0])) / float(po[0])
+                ko, po = ko[1:], po[1:]
+            row["max_abs_err"] = max(max_err(k, p) for k, p in zip(ko, po))
+            del ko, po
+            check(row["max_abs_err"] == 0.0 and row.get("ssq_rel_err", 0.0) <= 1e-5,
+                  f"7g {key} {kname} {row['args']}: max err {row['max_abs_err']}, "
+                  f"sum(res^2) rel {row.get('ssq_rel_err')}")
+            if kname not in timed:
+                timed.add(kname)
+                t = timed_turns(torch, lambda: kern(**a), GLOBALS[kname])
+                row.update(call_ms=t["call_ms"], device_ms=t["device_ms"],
+                           plain_ms=cuda_ms(torch, lambda: plain(**a), 1, 3))
+            print(f"7g {key} {kname} {row['args']}: max_abs_err {row['max_abs_err']} (tol 0)"
+                  + (f", sum(res^2) rel {row['ssq_rel_err']:.2e}" if "ssq_rel_err" in row else "")
+                  + (f", {row['device_ms']:.4f} ms device, {row['plain_ms']:.4f} ms plain"
+                     if "device_ms" in row else ""), flush=True)
+            readings.setdefault(kname, []).append(row)
+        del calls
+    for kname, rows in readings.items():
+        by_name[kname]["at_challenge_shape"] = rows
+    secs = time.perf_counter() - t0
+    print(f"7g: {sum(map(len, readings.values()))} recorded calls equal to their plain versions "
+          f"in {secs:.2f} s", flush=True)
+    results["challenges"]["7g_kernels"] = {"seconds": secs, "calls": {
+        k: len(v) for k, v in readings.items()}}
+
+
+def challenge_phase(torch, dev, vol_np, mov_np, single, records, results):
+    """Phase 7: 7a-7g; returns the launches of each run of 7a-7f by its
+    key."""
+    t0 = time.perf_counter()
+    recipes: dict = {}
+    launches = {"7a_task1": task1_phase(torch, dev, results, recipes),
+                "7b_task2": task2_phase(torch, dev, results, recipes)}
+    launches.update(task3_phase(torch, dev, results, recipes))
+    launches["7d_curious"] = curious_phase(torch, dev, results, recipes)
+    launches.update(streamed_phase(torch, dev, results, recipes))
+    launches["7f_strided"] = strided_phase(torch, dev, vol_np, mov_np, single, results, recipes)
+    del recipes["7c_task3_template"]  # task 3's shapes again, other weights
+    challenge_kernel_phase(torch, recipes, records, results)
+    results["challenges"]["phase7_s"] = time.perf_counter() - t0
+    print(f"phase 7: {results['challenges']['phase7_s']:.2f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2409,8 +3301,17 @@ def main() -> int:
     mov_s = avg_pool3d(feat_m, cfg.grid_sp).float().contiguous()
     rec, results["cost_volume"] = cost_volume_phase(torch, fix_s, mov_s, cfg.disp_hw)
     rec.update(ptxas_entry(results["ptxas"]["cost_volume"], "cost_volume_kernel",
-                           f"ILi{cfg.disp_hw}E"))
+                           f"ILi{cfg.disp_hw}ELb0E"))
     records.append(rec)
+    # the variants: SAD, the general kernel at q = 8, candidate blocks
+    variant_records, results["cost_volume_variants"] = cost_volume_variant_phase(torch, dev)
+    ptx = results["ptxas"]["cost_volume"]
+    variant_records["cost_volume_sad"].update(ptxas_entry(ptx, "cost_volume_kernel", "ILi3ELb1E"))
+    variant_records["cost_volume_general"].update(ptxas_entry(ptx, "cost_volume_general_kernel",
+                                                              "Lb0E"))
+    variant_records["cost_volume_block"].update(ptxas_entry(ptx, "cost_volume_kernel",
+                                                            f"ILi{STREAM_CLASS[1]}ELb0E"))
+    records += list(variant_records.values())
 
     # 3c. trilinear sampler on inverse consistency's 2 x 3 x 32^3 fields (as
     # float32 and as bfloat16 volumes), and ragged; then the fused steps
@@ -2422,6 +3323,10 @@ def main() -> int:
 
     # 3d. Adam data term
     rec, results["data_term"] = data_term_phase(torch, gen, feat_f, feat_m, cfg.grid_sp_adam)
+    rec.update(ptxas_entry(results["ptxas"]["warp"], "warp_ssd_kernel", "bfloat16"))
+    records.append(rec)
+    rec, results["data_term_strided"] = strided_data_term_phase(torch, gen, feat_f, feat_m,
+                                                                cfg.grid_sp_adam)
     rec.update(ptxas_entry(results["ptxas"]["warp"], "warp_ssd_kernel", "bfloat16"))
     records.append(rec)
     del feat_f, feat_m
@@ -2515,14 +3420,29 @@ def main() -> int:
     # test-set inference, from files on disk
     file_launches = file_phase(torch, dev, results)
 
-    # 7. output: each kernel's launches on the path that runs it
+    # 7. the challenge recipes at their published shapes, the streamed convex
+    # path and the strided data term
+    challenge_launches = challenge_phase(torch, dev, vol_np, mov_np, out, records, results)
+
+    # 8. output: each kernel's launches on the path that runs it
+    variant_runs = {"cost_volume_sad": ("7c_task3", "task 3 (SAD) registration of phase 7c"),
+                    "cost_volume_general": ("7a_task1", "task 1 (q = 8) registration of phase 7a"),
+                    "cost_volume_block": ("7e_streamed",
+                                          "streamed (2, 7) direction of phase 7e"),
+                    "warp_ssd_loss_grad_strided": ("7f_strided",
+                                                   "stride-2 192^3 registration of phase 7f")}
     for rec in records:
         name = rec["name"]
+        rec["launches_challenges"] = {k: v[name] for k, v in challenge_launches.items()}
         rec["launches_file"] = {k: v[name] for k, v in file_launches.items()}
         rec["launches_sweep"] = {"stage1": sweep_l1[name], "stage2": sweep_l2[name],
                                  "paired_stage1": paired_l1[name], "paired_stage2": paired_l2[name],
                                  "stage1_resume": resume_l[name]}
-        if name in ("sample_trilinear", "sample_trilinear_bwd"):
+        if name in variant_runs:
+            key, run = variant_runs[name]
+            rec["launches"] = challenge_launches[key][name]
+            rec["launches_run"] = run
+        elif name in ("sample_trilinear", "sample_trilinear_bwd"):
             rec["launches"] = rec["launches_per_autodiff_adam"] = autodiff_launches[name]
             rec["launches_run"] = "80-iteration autodiff Adam of phase 4f"
             rec["launches_per_registration"] = launches[name]
@@ -2553,6 +3473,7 @@ def main() -> int:
                                 if k not in ("composed", "launches", "launches_stage1",
                                              "launches_stage2")}}))
     print(json.dumps({"phase6": {k: v for k, v in results.items() if k.startswith("file_")}}))
+    print(json.dumps({"phase7": results["challenges"]}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "timing_readings"}
                                   for r in records]}))

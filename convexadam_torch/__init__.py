@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of ConvexAdam for one NVIDIA H100.
 
-The main path is the default MIND registration
-(:func:`convexadam_torch.pipeline.convex_adam.convex_adam`); the nnU-Net
+The main path is the default MIND registration (:func:`convex_adam`, and
+:func:`convex_adam_torch` on tensors); the nnU-Net
 semantic registration of two label volumes is
 :func:`convex_adam_semantic_torch`, the self-configuring grid's nine-variant
 run :func:`convex_adam_multi_output`, the Learn2Reg evaluation of a
@@ -9,7 +9,9 @@ registered case :func:`evaluate_field`, the self-configuring sweep over
 convex and Adam settings and the Learn2Reg task driver
 :mod:`convexadam_torch.selfconfig`.  Files are read and written by
 :mod:`convexadam_torch.geometry` (NIfTI-1, MetaImage); the reference's
-signatures are :mod:`convexadam_torch.compat`, and the command lines
+signatures are :mod:`convexadam_torch.compat`, the Learn2Reg challenge
+recipes (tasks 1-3 and CuRIOUS) :mod:`convexadam_torch.pipeline.challenges`,
+and the command lines
 :mod:`convexadam_torch.cli` (``register``, ``apply``, ``translation``,
 ``sweep``, ``l2r``).  Their hot kernels are hand-written CUDA for
 ``sm_90a`` under ``csrc/``, wrapped in ``kernels/``; each wrapper runs its
@@ -42,10 +44,20 @@ def _resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     return dev
 
 
+from convexadam_torch.pipeline.apply import apply_convex, apply_convex_torch  # noqa: E402
 from convexadam_torch.pipeline.convex_adam import (  # noqa: E402
+    ConvexAdamConfig,
+    convex_adam,
     convex_adam_multi_output,
     convex_adam_semantic_torch,
+    convex_adam_torch,
 )
 from convexadam_torch.selfconfig.l2r import evaluate_field  # noqa: E402
 
-__all__ = ["convex_adam_multi_output", "convex_adam_semantic_torch", "evaluate_field"]
+__version__ = "0.1.0"
+
+__all__ = [
+    "ConvexAdamConfig", "apply_convex", "apply_convex_torch", "convex_adam",
+    "convex_adam_multi_output", "convex_adam_semantic_torch", "convex_adam_torch",
+    "evaluate_field", "__version__",
+]

@@ -17,16 +17,6 @@ from pathlib import Path
 import numpy as np
 
 
-def check_cost_metric(cost_metric: str) -> None:
-    """Raise for a metric the port's cost volume does not compute yet."""
-    if cost_metric != "ssd":
-        raise NotImplementedError(
-            f"--cost_metric {cost_metric}: the port computes the SSD cost volume only; "
-            "'sad' is ROADMAP queue A item 4 (the streamed convex path and the other "
-            "cost metrics)"
-        )
-
-
 def convex_adam_from_files(
     path_img_fixed,
     path_img_moving,
@@ -74,7 +64,6 @@ def convex_adam_from_files(
     )
     from convexadam_torch.pipeline.preprocess import mask_infill
 
-    check_cost_metric(cost_metric)
     dev = _resolve_device(device)
     img_fixed, affine = load_volume_nib_order(path_img_fixed)
     img_moving, _ = load_volume_nib_order(path_img_moving)
@@ -180,7 +169,7 @@ def main(argv=None):
     parser.add_argument(
         "--cost_metric", type=str, default="ssd", choices=("ssd", "sad"),
         help="cost-volume metric ('sad' = the OASIS task-3 recipe, "
-        "l2r_2021_convexAdam_task3_docker.py:54; not ported yet, raises)",
+        "l2r_2021_convexAdam_task3_docker.py:54)",
     )
     parser.add_argument(
         "--cost_smooth_passes", type=int, default=2,
@@ -195,8 +184,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device ('cuda' or 'cpu')")
     args = parser.parse_args(argv)
-    check_cost_metric(args.cost_metric)  # before any file is read
-
     os.makedirs(args.result_path, exist_ok=True)
     out = convex_adam_from_files(
         path_img_fixed=args.path_img_fixed,

@@ -1,10 +1,13 @@
 """Coupled convex optimisation, the global discrete regulariser.
 
-Counterpart of ``coupled_convex`` (exact form) and ``convex_displacement``
-in ``convexadam_tpu/core/convex.py``.  Starting from the box-smoothed
-argmin field, six rounds with growing coupling ``c`` pick, per coarse
-voxel, the displacement minimising ``ssd[k] + c * ||d_k - disp_soft||^2``
-and box-smooth the picked field.
+Counterpart of ``coupled_convex`` (exact form), ``correlate_coupled_streamed``
+and ``convex_displacement`` in ``convexadam_tpu/core/convex.py``.  Starting
+from the box-smoothed argmin field, six rounds with growing coupling ``c``
+pick, per coarse voxel, the displacement minimising ``ssd[k] + c *
+||d_k - disp_soft||^2`` and box-smooth the picked field.  The dense form
+holds the whole (K^3, h, w, d) cost volume; the streamed form makes it again
+in blocks of K^2 candidates for the initial argmin and for each coupling,
+keeping only a running (best, argmin).
 """
 
 from __future__ import annotations
@@ -12,15 +15,22 @@ from __future__ import annotations
 import torch
 
 from convexadam_torch.core.cost_volume import correlate, displacement_mesh
-from convexadam_torch.core.smoothing import avg_pool3d
+from convexadam_torch.core.smoothing import avg_pool3d, window_mean3d
+from convexadam_torch.kernels.cost_volume import cost_volume_block
 
 COUPLING_COEFFS = (0.003, 0.01, 0.03, 0.1, 0.3, 1.0)
 
 # Dense cost volumes whose estimated footprint (the float32 volume plus one
-# smoothing temporary, i.e. twice the raw volume) exceeds this many bytes
-# take the streamed path in the JAX package.  The port has the dense path
-# only so far and refuses such settings instead.
-COST_VOLUME_STREAM_THRESHOLD = 12_000_000_000
+# smoothing temporary, i.e. twice the raw volume, K^3 n 4 2 bytes) exceeds
+# this many bytes take the streamed path.  Derived for one 80 GB H100
+# (NVIDIA H100 80GB HBM3, 700 W): at the (grid_sp 2, disp_hw 7) class at 192
+# x 160 x 256 (983,040 coarse voxels) the dense path's peak
+# (torch.cuda.max_memory_allocated) rose 26.54 GB above what was held before
+# it, 1.0000 times the 26.54 GB estimate (chip_smoke.py phase 7e; the 1 GB
+# coupled-argmin chunks fit in the freed first volume).  A dense run at 64 GB
+# then peaks at 64 GB plus what the caller holds (features, fields: under 6
+# GB at these sizes), under 70 GB of the 80 (PERF.md section 5).
+COST_VOLUME_STREAM_THRESHOLD = 64_000_000_000
 
 # bytes of one (3, K^3, chunk) float32 temporary of the coupled argmin: at
 # the sweep's largest dense setting (K^3 = 1331, 983,040 coarse voxels) the
@@ -33,21 +43,27 @@ def _gather_disp(disp_mesh: torch.Tensor, argmin: torch.Tensor) -> torch.Tensor:
     return disp_mesh[:, argmin.reshape(-1)].reshape((3,) + tuple(argmin.shape))
 
 
+def _coupled_cost(costs, mesh, s, c):
+    """``costs + c * ((sq0 + sq1) + sq2)`` of candidates ``costs`` (k,
+    chunk) at displacements ``mesh`` (3, k) against the smoothed field
+    ``s`` (3, chunk): the one form both the dense and the streamed path
+    compare, so their fields agree to the bit."""
+    diff = mesh[:, :, None] - s[:, None, :]  # (3, k, chunk)
+    sq = diff * diff
+    del diff
+    return costs + c * (sq[0] + sq[1] + sq[2])
+
+
 def _coupled_argmin(ssd_flat, disp_mesh, s, c, chunk):
     """Per coarse voxel the first displacement minimising
-    ``ssd + c * ((sq0 + sq1) + sq2)``, ``chunk`` voxels at a time: the
-    (3, K^3, chunk) temporaries stay bounded, and no voxel's arithmetic
-    depends on the chunking."""
+    :func:`_coupled_cost`, ``chunk`` voxels at a time: the (3, K^3, chunk)
+    temporaries stay bounded, and no voxel's arithmetic depends on the
+    chunking."""
     n = ssd_flat.shape[1]
     out = torch.empty(n, dtype=torch.int64, device=ssd_flat.device)
     for a in range(0, n, chunk):
         b = min(a + chunk, n)
-        diff = disp_mesh[:, :, None] - s[:, None, a:b]  # (3, K^3, chunk)
-        sq = diff * diff
-        del diff
-        coupled = ssd_flat[:, a:b] + c * (sq[0] + sq[1] + sq[2])
-        del sq
-        out[a:b] = torch.argmin(coupled, dim=0)
+        out[a:b] = torch.argmin(_coupled_cost(ssd_flat[:, a:b], disp_mesh, s[:, a:b], c), dim=0)
     return out
 
 
@@ -72,6 +88,87 @@ def coupled_convex(
     return disp_soft
 
 
+def _first_min(best, bidx, val, idx):
+    """Fold candidates ``val`` with global indices ``idx`` into the running
+    ``(best, bidx)``: a smaller value wins, an equal one only with a smaller
+    index, so the result is ``argmin``'s first minimum over every candidate
+    whatever order the blocks come in."""
+    better = (val < best) | ((val == best) & (idx < bidx))
+    return torch.where(better, val, best), torch.where(better, idx, bidx)
+
+
+def correlate_coupled_streamed(
+    feat_fix: torch.Tensor,
+    feat_mov: torch.Tensor,
+    disp_hw: int,
+    metric: str = "ssd",
+    smooth_passes: int = 2,
+) -> torch.Tensor:
+    """Cost volume + coupled convex without the (K^3, h, w, d) volume.
+
+    The smoothed costs come in blocks of K^2 candidates, one ``kh`` each
+    (:func:`~convexadam_torch.kernels.cost_volume.cost_volume_block`, the
+    same box passes as :func:`correlate`, which round each candidate's slice
+    as they do inside the whole volume), made again for the initial argmin
+    and for each of the six couplings: a running (best, argmin) is all that
+    is kept, so peak memory is one block's costs and its temporaries, and
+    the cost volume is computed 7 times.  Each coupled cost is the dense
+    form's (:func:`_coupled_cost`), and :func:`_first_min` keeps
+    the first minimum, so the field equals :func:`coupled_convex` on the
+    dense volume to the bit.
+
+    Returns ``disp_soft`` (3, h, w, d) in coarse voxels.
+    """
+    q = disp_hw
+    K = 2 * q + 1
+    fix = feat_fix.float().contiguous()
+    mov = feat_mov.float().contiguous()
+    shape = tuple(fix.shape[1:])
+    n = fix[0].numel()
+    dev = fix.device
+    mesh = displacement_mesh(q, device=dev)
+    # the global index kd*K^2 + kw*K + kh of a block's candidate kd*K + kw
+    local = torch.arange(K * K, device=dev) * K
+    chunk = max(1, COUPLED_CHUNK_BYTES // (3 * K * K * 4))
+
+    def block(kh):
+        costs = cost_volume_block(fix, mov, q, kh, 1, metric)
+        for _ in range(smooth_passes):
+            costs = window_mean3d(costs, 3, stride=1, padding=1)
+        return costs.reshape(K * K, n), local + kh
+
+    def argmin_pass(s=None, c=None):
+        best = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+        bidx = torch.full((n,), K**3, dtype=torch.int64, device=dev)
+        for kh in range(K):
+            costs, idx = block(kh)
+            mesh_b = mesh[:, idx]
+            for a in range(0, n, chunk):
+                b = min(a + chunk, n)
+                if s is None:
+                    val, arg = torch.min(costs[:, a:b], dim=0)
+                else:
+                    val, arg = torch.min(_coupled_cost(costs[:, a:b], mesh_b, s[:, a:b], c), dim=0)
+                best[a:b], bidx[a:b] = _first_min(best[a:b], bidx[a:b], val, idx[arg])
+            del costs
+        return bidx.reshape(shape)
+
+    disp_soft = avg_pool3d(_gather_disp(mesh, argmin_pass()), 3, stride=1, padding=1)
+    for c in COUPLING_COEFFS:
+        am = argmin_pass(disp_soft.reshape(3, -1), c)
+        disp_soft = avg_pool3d(_gather_disp(mesh, am), 3, stride=1, padding=1)
+    return disp_soft
+
+
+def dense_estimate(disp_hw: int, coarse_shape) -> int:
+    """Bytes the dense path is reckoned to hold: the float32 (K^3, h, w, d)
+    volume and one smoothing temporary of its size."""
+    n = 1
+    for s in coarse_shape:
+        n *= int(s)
+    return (2 * disp_hw + 1) ** 3 * n * 4 * 2
+
+
 def convex_displacement(
     feat_fix: torch.Tensor,
     feat_mov: torch.Tensor,
@@ -80,19 +177,12 @@ def convex_displacement(
     smooth_passes: int = 2,
     stream_threshold: int = COST_VOLUME_STREAM_THRESHOLD,
 ) -> torch.Tensor:
-    """One convex-stage direction: cost volume + coupled convex.
-
-    Raises ``NotImplementedError`` where the JAX package would switch to its
-    streamed path (the dense estimate exceeds ``stream_threshold`` bytes).
-    """
-    K3 = (2 * disp_hw + 1) ** 3
-    n = feat_fix[0].numel()
-    if K3 * n * 4 * 2 > stream_threshold:
-        raise NotImplementedError(
-            f"a dense cost volume of {K3} x {n} float32 exceeds the "
-            f"{stream_threshold}-byte threshold; the streamed convex path is not "
-            "ported yet (ROADMAP queue A, 'The streamed convex path and the other "
-            "cost metrics')"
-        )
+    """One convex-stage direction: cost volume + coupled convex, taking
+    :func:`correlate_coupled_streamed` where the dense estimate
+    (:func:`dense_estimate`) exceeds ``stream_threshold`` bytes.  Both give
+    the same field, to the bit."""
+    if dense_estimate(disp_hw, feat_fix.shape[1:]) > stream_threshold:
+        return correlate_coupled_streamed(feat_fix, feat_mov, disp_hw, metric=metric,
+                                          smooth_passes=smooth_passes)
     ssd, am = correlate(feat_fix, feat_mov, disp_hw, metric=metric, smooth_passes=smooth_passes)
     return coupled_convex(ssd, am, displacement_mesh(disp_hw, device=ssd.device))

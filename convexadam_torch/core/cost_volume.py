@@ -1,13 +1,14 @@
-"""Dense discretised SSD cost volume ("correlation layer").
+"""Dense discretised cost volume ("correlation layer").
 
-Counterpart of ``correlate`` and ``displacement_mesh`` in
-``convexadam_tpu/core/cost_volume.py``.  For a displacement half-width
-``q`` the volume holds, at every coarse voxel, the channel-summed SSD
-between the fixed features and the moving features shifted by each of the
-``(2q+1)**3`` integer displacements (zeros outside), flat index
-``k = kd*K**2 + kw*K + kh``.  It is made by the ``cost_volume`` kernel in
-float32 whatever the features' dtype, then smoothed by zero-padded 3^3 box
-passes with the reference's rounding (:func:`window_mean3d`: one-hot
+Counterpart of ``correlate``, ``correlate_masked`` and ``displacement_mesh``
+in ``convexadam_tpu/core/cost_volume.py``.  For a displacement half-width
+``q`` the volume holds, at every coarse voxel, the channel-summed SSD (or,
+with ``metric="sad"``, the summed absolute difference, the OASIS task-3
+script's cost) between the fixed features and the moving features shifted
+by each of the ``(2q+1)**3`` integer displacements (zeros outside), flat
+index ``k = kd*K**2 + kw*K + kh``.  It is made by the ``cost_volume`` kernel
+in float32 whatever the features' dtype, then smoothed by zero-padded 3^3
+box passes with the reference's rounding (:func:`window_mean3d`: one-hot
 semantic features give exactly tied costs, and the argmin takes the first
 minimum).
 """
@@ -40,14 +41,25 @@ def correlate(
 ) -> "tuple[torch.Tensor, torch.Tensor]":
     """Dense cost volume of coarse features (C, h, w, d).
 
-    Returns the box-smoothed volume (K**3, h, w, d) float32 and its argmin
-    over the displacement axis (h, w, d) int64.
+    ``metric`` is ``"ssd"`` or ``"sad"``; ``smooth_passes`` the number of
+    3^3 box passes (2 in the packaged pipeline, 1 in the lung and OASIS
+    recipes).  Returns the box-smoothed volume (K**3, h, w, d) float32 and
+    its argmin over the displacement axis (h, w, d) int64.
     """
-    if metric != "ssd":
-        raise NotImplementedError(
-            f"cost metric {metric!r}: the port's cost-volume kernel computes SSD only"
-        )
-    ssd = cost_volume(feat_fix.float().contiguous(), feat_mov.float().contiguous(), disp_hw)
+    ssd = cost_volume(feat_fix.float().contiguous(), feat_mov.float().contiguous(), disp_hw,
+                      metric)
     for _ in range(smooth_passes):
         ssd = window_mean3d(ssd, 3, stride=1, padding=1)
+    return ssd, torch.argmin(ssd, dim=0)
+
+
+def correlate_masked(
+    feat_fix: torch.Tensor, feat_mov: torch.Tensor, mask: torch.Tensor, disp_hw: int
+) -> "tuple[torch.Tensor, torch.Tensor]":
+    """The SSD cost volume gated by a coarse-grid mask (h, w, d) (``ssd *=
+    mask``, then the argmin), as the CuRIOUS MRI-US pipeline uses it: a
+    voxel outside the mask costs 0 for every displacement, so its argmin is
+    the first candidate and the coupling sets its field."""
+    ssd, _ = correlate(feat_fix, feat_mov, disp_hw)
+    ssd = ssd * mask.to(ssd.dtype)[None]
     return ssd, torch.argmin(ssd, dim=0)

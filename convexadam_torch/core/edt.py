@@ -1,8 +1,8 @@
-"""Surface point-set HD95 on the device.
+"""Surface point-set HD95 on the device, and a jump-flooding distance map.
 
-Counterpart of ``convexadam_tpu/core/edt.py`` (all of it but
-``jump_flood_sqdist``).  The reference computes HD95 with full-volume EDTs
-in a host loop over labels (self_configuring/convexAdam_hyper_util.py:32-51).
+Counterpart of ``convexadam_tpu/core/edt.py``.  The reference computes
+HD95 with full-volume EDTs in a host loop over labels
+(self_configuring/convexAdam_hyper_util.py:32-51).
 The percentile only samples the distance map at surface voxels, and the
 nearest opposite-class voxel of a mask f, seen from outside (inside), lies
 on f's inner (outer) surface.  So the metric reduces to nearest-neighbour
@@ -53,6 +53,67 @@ from convexadam_torch.kernels.edt import (
 #: it.  The evaluator raises beyond it on the card and uses the host
 #: :func:`convexadam_torch.core.metrics.hd95` only when asked for the CPU.
 MAX_PACKED_EXTENT = 1024
+
+_SENTINEL = 2**30  # "no seed known" squared distance
+_REL_SENT = 8192  # sentinel relative offset: 3 * (8192 + 512)^2 < 2^31
+
+
+def _jump_schedule(max_dim: int) -> "list[int]":
+    """1+JFA+1: an extra 1-jump pass before and after the halving sequence
+    starting at the next power of two >= max_dim / 2."""
+    jumps = [1]
+    j = 1
+    while j * 2 < max_dim:
+        j *= 2
+    while j >= 1:
+        jumps.append(j)
+        j //= 2
+    jumps.append(1)
+    return jumps
+
+
+def jump_flood_sqdist(seeds: torch.Tensor) -> torch.Tensor:
+    """Squared Euclidean distance to the nearest True voxel of ``seeds``
+    (..., H, W, D) bool, by jump flooding: (..., H, W, D) int32, ``2**30``
+    where a batch slice has no seed at all; batch dims are flooded
+    independently.  Library API (nothing in the package calls it), on the
+    input's device.
+
+    Each voxel carries the relative int16 offset of its best seed; shifting
+    the state by a jump turns a neighbour's offset into a candidate by
+    adding the jump vector, with shifts that wrap masked off.  The passes,
+    the 26 directions and every comparison come in the JAX package's order,
+    so the integers are its integers (jump flooding may miss the exact
+    nearest seed; both packages miss the same ones)."""
+    shape = seeds.shape
+    H, W, D = shape[-3:]
+    dev = seeds.device
+    s = seeds.reshape((-1, H, W, D)).bool()
+    rel = torch.where(s[:, None], 0, _REL_SENT).to(torch.int16).expand(-1, 3, -1, -1, -1).clone()
+    d2 = torch.where(s, 0, _SENTINEL).to(torch.int32)
+    iz = torch.arange(H, device=dev).reshape(H, 1, 1)
+    iy = torch.arange(W, device=dev).reshape(1, W, 1)
+    ix = torch.arange(D, device=dev).reshape(1, 1, D)
+    dirs = [(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1)
+            if (a, b, c) != (0, 0, 0)]
+    for k in _jump_schedule(max(H, W, D)):
+        for a, b, c in dirs:
+            dz, dy, dx = a * k, b * k, c * k
+            cand = torch.roll(rel, (-dz, -dy, -dx), dims=(2, 3, 4))
+            cand = cand + torch.tensor([dz, dy, dx], dtype=torch.int16,
+                                       device=dev).reshape(1, 3, 1, 1, 1)
+            valid = (((iz + dz >= 0) & (iz + dz < H)) & ((iy + dy >= 0) & (iy + dy < W))
+                     & ((ix + dx >= 0) & (ix + dx < D)))
+            c32 = cand.to(torch.int32)
+            cd2 = c32[:, 0] * c32[:, 0] + c32[:, 1] * c32[:, 1] + c32[:, 2] * c32[:, 2]
+            # a neighbour that knows no seed carries the sentinel offset:
+            # without this guard a seedless slice would return its square
+            from_seed = c32.abs().amax(dim=1) < (_REL_SENT // 2)
+            cd2 = torch.where(valid & from_seed, cd2, _SENTINEL)
+            better = cd2 < d2
+            d2 = torch.where(better, cd2, d2)
+            rel = torch.where(better[:, None], cand, rel)
+    return d2.reshape(shape)
 
 
 def _compact(mask_flat: torch.Tensor, K: int):

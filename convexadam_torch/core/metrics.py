@@ -1,11 +1,11 @@
 """Evaluation metrics: Dice, HD95 on the host, Jacobian determinant,
-keypoint TRE and rank aggregation.
+keypoint TRE, 3-D SSIM and rank aggregation.
 
 Counterpart of ``convexadam_tpu/core/metrics.py`` (the reference keeps them
 in self_configuring/convexAdam_hyper_util.py and its sweep scripts).  The
 device HD95 engine is :mod:`convexadam_torch.core.edt`; :func:`hd95` here is
 the host loop over scipy EDTs that the evaluator uses beyond the engine's
-extent limit.  ``ssim3d`` is not ported yet.
+extent limit.
 """
 
 from __future__ import annotations
@@ -139,6 +139,59 @@ def keypoint_tre(
     if spacing is not None:
         err = err * spacing
     return torch.sqrt(torch.sum(err * err, dim=1))
+
+
+# ---------------------------------------------------------------------------
+# 3-D SSIM (the reference's test helper, tests/helper_functions.py:100-145)
+# ---------------------------------------------------------------------------
+
+def _ssim_gauss_filter(v: torch.Tensor, window_size: int, sigma: float) -> torch.Tensor:
+    """Separable normalized-Gaussian filter of ``v`` (H, W, D) with zero
+    padding: per axis the ``window_size`` shifted slices of the padded
+    volume weighted and added in window order (no convolution library, so
+    no TF32 on the card)."""
+    r = np.arange(window_size, dtype=np.float32) - window_size // 2
+    g = np.exp(-(r**2) / (2.0 * sigma**2))
+    g = (g / g.sum()).astype(np.float32)
+    half = window_size // 2
+    out = v
+    for ax in range(3):
+        n = out.shape[ax]
+        spec = [0, 0] * (2 - ax) + [half, half]
+        padded = torch.nn.functional.pad(out, spec)
+        acc = None
+        for j in range(window_size):
+            term = padded.narrow(ax, j, n) * float(g[j])
+            acc = term if acc is None else acc + term
+        out = acc
+    return out
+
+
+def ssim3d(x: torch.Tensor, y: torch.Tensor, window_size: int = 11,
+           sigma: float = 1.5) -> torch.Tensor:
+    """Mean 3-D SSIM of volumes (H, W, D) with the reference's Gaussian
+    window (sigma 1.5, zero padding), both scaled to [0, 1] by their joint
+    minimum and maximum (the reference helper assumes [0, 1] inputs).  A
+    0-dim float32 tensor on the inputs' device."""
+    x = x.float()
+    y = y.float()
+    lo = torch.minimum(x.min(), y.min())
+    hi = torch.maximum(x.max(), y.max())
+    x = (x - lo) / (hi - lo + 1e-12)
+    y = (y - lo) / (hi - lo + 1e-12)
+    c1, c2 = 0.01**2, 0.03**2
+
+    def f(v):
+        return _ssim_gauss_filter(v, window_size, sigma)
+
+    mx, my = f(x), f(y)
+    sxx = f(x * x) - mx * mx
+    syy = f(y * y) - my * my
+    sxy = f(x * y) - mx * my
+    ssim_map = ((2 * mx * my + c1) * (2 * sxy + c2)) / (
+        (mx * mx + my * my + c1) * (sxx + syy + c2)
+    )
+    return ssim_map.mean()
 
 
 def sort_rank(values: np.ndarray) -> np.ndarray:

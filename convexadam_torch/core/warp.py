@@ -302,15 +302,15 @@ class _WarpSSDLoss(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, disp, mov, fix_flat, cost_scale):
+    def forward(ctx, disp, mov, fix_flat, cost_scale, stride):
         C, H, W, D = mov.shape
-        n = H * W * D
+        n = disp[0].numel()  # the sampled points: H*W*D when stride == 1
         fac = (H / (H - 1.0), W / (W - 1.0), D / (D - 1.0))
         chain = 2.0 * cost_scale / (C * n)
-        ssq, rows = warp_ssd_loss_grad(mov, disp.contiguous(), fix_flat, fac, chain)
+        ssq, rows = warp_ssd_loss_grad(mov, disp.contiguous(), fix_flat, fac, chain, stride)
         ctx.save_for_backward(rows)
         ctx.fac = fac
-        ctx.shape = (H, W, D)
+        ctx.shape = tuple(disp.shape[1:])
         return ssq * (cost_scale / (C * n))
 
     @staticmethod
@@ -318,11 +318,12 @@ class _WarpSSDLoss(torch.autograd.Function):
         (rows,) = ctx.saved_tensors
         fac = torch.tensor(ctx.fac, dtype=rows.dtype, device=rows.device).reshape(3, 1)
         ddisp = (rows * fac) * grad_out
-        return ddisp.reshape(3, *ctx.shape), None, None, None
+        return ddisp.reshape(3, *ctx.shape), None, None, None, None
 
 
 def warp_ssd_mean_loss(
-    mov: torch.Tensor, disp: torch.Tensor, fix_flat: torch.Tensor, cost_scale: float
+    mov: torch.Tensor, disp: torch.Tensor, fix_flat: torch.Tensor, cost_scale: float,
+    stride: int = 1,
 ) -> torch.Tensor:
     """The Adam data term ``mean(mean_c((warp(mov, disp) - fix)^2) * cost_scale)``.
 
@@ -332,8 +333,14 @@ def warp_ssd_mean_loss(
     spacing plus the displacement normalized by ``(size - 1) / 2``, sampled
     with align_corners=False, i.e. the position ``index + disp * size /
     (size - 1)`` with zeros outside.  Differentiable in ``disp``.
+
+    With ``stride`` > 1 the mean runs over the ``(::stride,)*3`` sub-lattice
+    only: ``disp`` and ``fix_flat`` then carry the sub-lattice's values
+    ((3, hs, ws, ds), hs = ceil(H / stride), and (C, hs*ws*ds)), the point
+    (i, j, l) samples at ``stride * (i, j, l) + disp * size / (size - 1)``
+    of the whole moving volume.
     """
-    return _WarpSSDLoss.apply(disp, mov, fix_flat, float(cost_scale))
+    return _WarpSSDLoss.apply(disp, mov, fix_flat, float(cost_scale), int(stride))
 
 
 def warp_ssd_mean_loss_unfused(

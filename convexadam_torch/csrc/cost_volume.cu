@@ -1,12 +1,23 @@
-// Dense SSD cost volume: out[k, i, j, l] = sum_c (fix[c, i, j, l] -
-// mov[c, i + kh - q, j + kw - q, l + kd - q])^2 with zeros outside the moving
+// Dense cost volume: out[k, i, j, l] = sum_c m(fix[c, i, j, l] -
+// mov[c, i + kh - q, j + kw - q, l + kd - q]) with zeros outside the moving
 // volume, k = kd * K^2 + kw * K + kh, K = 2q + 1, all in float32, the
 // channels added in order c = 0..C-1 with each operation rounded on its own
 // (__fsub_rn, __fmul_rn, __fadd_rn: no fused multiply-add), as the plain
-// version in kernels/cost_volume.py does.
+// version in kernels/cost_volume.py does.  The metric m is a template
+// argument: SSD, m(x) = x * x, or SAD, m(x) = |x| (fabsf, exact), so the SSD
+// instantiations are the code they were before SAD existed.
+//
+// A candidate-block launch computes the kh in [kh0, kh0 + nkh) only and
+// writes them as a (K, K, nkh, h, w, d) slab, index (kd * K + kw) * nkh +
+// kh - kh0; the dense volume is the block kh0 = 0, nkh = K.  The streamed
+// convex path (core/convex.py) takes one kh a block, so it never holds more
+// than K^2 candidates of the volume.
 //
 // Replaces the TPU kernel convexadam_tpu/ops/cost_volume_pallas.py:
-// cost_volume_pallas -> _cost_kernel.
+// cost_volume_pallas -> _cost_kernel (SSD); SAD and the candidate blocks
+// replace the XLA scans of convexadam_tpu/core/cost_volume.py:correlate and
+// core/convex.py:correlate_coupled_streamed, which the port does not leave
+// to a plain version on the card.
 //
 // Bound on the H100: the output's bytes and the unfused operations, about
 // equally.  At the default setting (12 x 32^3 coarse features, q = 4) the
@@ -117,10 +128,17 @@ __device__ __forceinline__ void copy_channels(unsigned dst, const float* base, c
   }
 }
 
-template <int Q>
+// One channel's term of the metric: SSD squares the difference, SAD takes
+// its magnitude; either is added to the running sum by the caller.
+template <bool SAD>
+__device__ __forceinline__ float metric_term(float diff) {
+  return SAD ? fabsf(diff) : __fmul_rn(diff, diff);
+}
+
+template <int Q, bool SAD>
 __global__ void __launch_bounds__(Cv<Q>::NT, Cv<Q>::MIN_CTAS)
 cost_volume_kernel(const float* __restrict__ fix, const float* __restrict__ mov,
-                   float* __restrict__ out, int C, int h, int w, int d) {
+                   float* __restrict__ out, int C, int h, int w, int d, int kh0, int nkh) {
   using S = Cv<Q>;
   constexpr int K = S::K, SW = S::SW, SD = S::SD, SP = S::SP, FP = S::FP;
   constexpr int ES = (SP + S::NT - 1) / S::NT, EF = (FP + S::NT - 1) / S::NT;
@@ -131,7 +149,7 @@ cost_volume_kernel(const float* __restrict__ fix, const float* __restrict__ mov,
   const int n_td = (d + TD - 1) / TD;
   const int j0 = (blockIdx.x / n_td) * TW;
   const int l0 = (blockIdx.x % n_td) * TD;
-  const int kh = blockIdx.y;
+  const int kh = kh0 + blockIdx.y;
   const int i = blockIdx.z;
   const int im = i + kh - Q;
   const int t = threadIdx.x;
@@ -187,8 +205,7 @@ cost_volume_kernel(const float* __restrict__ fix, const float* __restrict__ mov,
         for (int r = 0; r < R; ++r)
 #pragma unroll
           for (int kd = 0; kd < K; ++kd) {
-            const float diff = __fsub_rn(fv[r], sv[r + kd]);
-            acc[r][kd] = __fadd_rn(acc[r][kd], __fmul_rn(diff, diff));
+            acc[r][kd] = __fadd_rn(acc[r][kd], metric_term<SAD>(__fsub_rn(fv[r], sv[r + kd])));
           }
       }
     }
@@ -196,8 +213,8 @@ cost_volume_kernel(const float* __restrict__ fix, const float* __restrict__ mov,
   __syncthreads();  // shared memory is read: the output tiles may reuse it
 
   // written once: streaming stores, which leave L2 to the features
-  const size_t plane = (size_t)K * K * hwd;  // from kd to kd + 1
-  float* o = out + ((size_t)kw * K + kh) * hwd + (size_t)i * w * d;
+  const size_t plane = (size_t)K * nkh * hwd;  // from kd to kd + 1
+  float* o = out + ((size_t)kw * nkh + (kh - kh0)) * hwd + (size_t)i * w * d;
   if ((d & 3) == 0) {
     // every row and voxel group 16-byte aligned: one store a plane (the
     // tile path below took a third longer at d = 32)
@@ -228,20 +245,20 @@ cost_volume_kernel(const float* __restrict__ fix, const float* __restrict__ mov,
   }
 }
 
-template <int Q>
-int launch(const float* fix, const float* mov, float* out, int C, int h, int w, int d,
-           cudaStream_t stream) {
+template <int Q, bool SAD>
+int launch(const float* fix, const float* mov, float* out, int C, int h, int w, int d, int kh0,
+           int nkh, cudaStream_t stream) {
   using S = Cv<Q>;
   static int granted[MAX_DEVICES] = {};
   // the staged channels; at least the warps' output tiles
   const size_t staged = (size_t)(C < CC ? C : CC) * (S::SP + S::FP);
   const size_t smem = (staged > S::K * TW * TD ? staged : S::K * TW * TD) * sizeof(float);
-  const int err = ensure_smem(cost_volume_kernel<Q>, smem, granted);
+  const int err = ensure_smem(cost_volume_kernel<Q, SAD>, smem, granted);
   if (err != 0) return err;
   // i outermost: the CTAs in flight share the few moving rows around i,
   // which stay in L2
-  const dim3 grid(((w + TW - 1) / TW) * ((d + TD - 1) / TD), S::K, h);
-  cost_volume_kernel<Q><<<grid, S::NT, smem, stream>>>(fix, mov, out, C, h, w, d);
+  const dim3 grid(((w + TW - 1) / TW) * ((d + TD - 1) / TD), nkh, h);
+  cost_volume_kernel<Q, SAD><<<grid, S::NT, smem, stream>>>(fix, mov, out, C, h, w, d, kh0, nkh);
   return (int)cudaGetLastError();
 }
 
@@ -253,9 +270,11 @@ constexpr int GW = 8;
 constexpr int GD = 32;
 constexpr int GNT = GW * GD;
 
+template <bool SAD>
 __global__ void __launch_bounds__(GNT)
 cost_volume_general_kernel(const float* __restrict__ fix, const float* __restrict__ mov,
-                           float* __restrict__ out, int C, int h, int w, int d, int q) {
+                           float* __restrict__ out, int C, int h, int w, int d, int q, int kh0,
+                           int nkh) {
   extern __shared__ float gsmem[];
   const int K = 2 * q + 1;
   const int SW = GW + 2 * q, SD = GD + 2 * q;
@@ -265,7 +284,7 @@ cost_volume_general_kernel(const float* __restrict__ fix, const float* __restric
   const int j0 = (blockIdx.x / n_td) * GW;
   const int l0 = (blockIdx.x % n_td) * GD;
   const int i = blockIdx.y;
-  const int kh = blockIdx.z;
+  const int kh = kh0 + blockIdx.z;
   const int im = i + kh - q;
   const bool row_in = im >= 0 && im < h;
   const int t = threadIdx.x;
@@ -287,54 +306,67 @@ cost_volume_general_kernel(const float* __restrict__ fix, const float* __restric
   __syncthreads();
   if (!valid) return;
 
-  const size_t plane = (size_t)K * K;
+  const size_t plane = (size_t)K * nkh;
   const size_t vox = ((size_t)i * w + gj) * d + gl;
   for (int kw = 0; kw < K; ++kw) {
     for (int kd = 0; kd < K; ++kd) {
       float acc = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float diff = __fsub_rn(fx[c * GNT + t], slab[(c * SW + lj + kw) * SD + ll + kd]);
-        acc = __fadd_rn(acc, __fmul_rn(diff, diff));
-      }
-      const size_t k = (size_t)kd * plane + (size_t)kw * K + kh;
+      for (int c = 0; c < C; ++c)
+        acc = __fadd_rn(acc, metric_term<SAD>(
+                                 __fsub_rn(fx[c * GNT + t], slab[(c * SW + lj + kw) * SD + ll + kd])));
+      const size_t k = (size_t)kd * plane + (size_t)kw * nkh + (kh - kh0);
       out[k * hwd + vox] = acc;
     }
   }
 }
 
+template <bool SAD>
 int launch_general(const float* fix, const float* mov, float* out, int C, int h, int w, int d,
-                   int q, cudaStream_t stream) {
+                   int q, int kh0, int nkh, cudaStream_t stream) {
   static int granted[MAX_DEVICES] = {};
   const size_t smem =
       ((size_t)C * (GW + 2 * q) * (GD + 2 * q) + (size_t)C * GW * GD) * sizeof(float);
-  const int err = ensure_smem(cost_volume_general_kernel, smem, granted);
+  const int err = ensure_smem(cost_volume_general_kernel<SAD>, smem, granted);
   if (err != 0) return err;
   const int n_tiles = ((w + GW - 1) / GW) * ((d + GD - 1) / GD);
-  const dim3 grid(n_tiles, h, 2 * q + 1);
-  cost_volume_general_kernel<<<grid, GNT, smem, stream>>>(fix, mov, out, C, h, w, d, q);
+  const dim3 grid(n_tiles, h, nkh);
+  cost_volume_general_kernel<SAD><<<grid, GNT, smem, stream>>>(fix, mov, out, C, h, w, d, q, kh0,
+                                                               nkh);
   return (int)cudaGetLastError();
+}
+
+template <bool SAD>
+int dispatch(const float* f, const float* m, float* o, int C, int h, int w, int d, int q,
+             int general, int kh0, int nkh, cudaStream_t s) {
+  if (general) return launch_general<SAD>(f, m, o, C, h, w, d, q, kh0, nkh, s);
+  switch (q) {
+    case 1: return launch<1, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
+    case 2: return launch<2, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
+    case 3: return launch<3, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
+    case 4: return launch<4, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
+    case 5: return launch<5, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
+    case 6: return launch<6, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
+    case 7: return launch<7, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// fix, mov (C, h, w, d) and out (K^3, h, w, d) are float32.  general == 0
-// runs cost_volume_kernel<q>, which exists for q = 1..7 (any other q is
-// refused); general == 1 runs cost_volume_general_kernel.
+// fix, mov (C, h, w, d) float32; out (K, K, nkh, h, w, d) float32 receives
+// the candidates kh in [kh0, kh0 + nkh) (the dense (K^3, h, w, d) volume for
+// kh0 = 0, nkh = K).  sad == 0 sums squared differences, sad == 1 absolute
+// ones.  general == 0 runs cost_volume_kernel<q, sad>, which exists for q =
+// 1..7 (any other q is refused); general == 1 runs
+// cost_volume_general_kernel<sad>.
 extern "C" int cost_volume(const void* fix, const void* mov, void* out, int C, int h, int w,
-                           int d, int q, int general, void* stream) {
+                           int d, int q, int general, int sad, int kh0, int nkh, void* stream) {
+  const int K = 2 * q + 1;
+  if (q < 0 || kh0 < 0 || nkh < 1 || kh0 + nkh > K) return (int)cudaErrorInvalidValue;
   const float* f = static_cast<const float*>(fix);
   const float* m = static_cast<const float*>(mov);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (general) return launch_general(f, m, o, C, h, w, d, q, s);
-  switch (q) {
-    case 1: return launch<1>(f, m, o, C, h, w, d, s);
-    case 2: return launch<2>(f, m, o, C, h, w, d, s);
-    case 3: return launch<3>(f, m, o, C, h, w, d, s);
-    case 4: return launch<4>(f, m, o, C, h, w, d, s);
-    case 5: return launch<5>(f, m, o, C, h, w, d, s);
-    case 6: return launch<6>(f, m, o, C, h, w, d, s);
-    case 7: return launch<7>(f, m, o, C, h, w, d, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return sad ? dispatch<true>(f, m, o, C, h, w, d, q, general, kh0, nkh, s)
+             : dispatch<false>(f, m, o, C, h, w, d, q, general, kh0, nkh, s);
 }

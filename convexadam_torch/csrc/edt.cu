@@ -240,19 +240,15 @@ nearest_sq_dual_kernel(const float* __restrict__ q, const float* __restrict__ t,
                        const int* __restrict__ hq_p, const int* __restrict__ ht_p) {
   __shared__ float4 tgt[DCH];
   __shared__ float colp[2][16][DSTRIDE];
-  const int i0 = blockIdx.x * DT, c0 = blockIdx.y * DCH;
+  const int i0 = blockIdx.x * DT;
   const int nq = min(*nq_p, Kq);
   const int nt = min(*nt_p, Kt);
-  if (i0 >= nq || c0 >= nt) return;  // both outputs hold the caller's init there
+  const int chunks = nt / DCH + (nt % DCH != 0);
+  if (i0 >= nq || (int)blockIdx.y >= chunks) return;  // both outputs hold the caller's init there
   const int ht = *ht_p;
   // a block wholly in the head query segment skips the tiles wholly in the
   // head target segment: the dead (head_q x head_t) corner, as the TPU kernel
   const bool head_rows = i0 + DT <= *hq_p;
-  const int cend = min(c0 + DCH, nt);
-  int j_first = c0;
-  while (head_rows && j_first < cend && j_first + DT <= ht) j_first += DT;
-  if (j_first >= cend) return;
-  stage_chunk(tgt, t, Kt, c0, nt);
   const int ty = threadIdx.x >> 4;
   // queries at or past n_query give +inf cells: they take no part in the
   // per-target minima
@@ -263,8 +259,22 @@ nearest_sq_dual_kernel(const float* __restrict__ q, const float* __restrict__ t,
     qq[r] = load_query(q, Kq, i0 + ty + 16 * r, nq);
     rmin[r] = INFINITY;
   }
-  __syncthreads();
-  sweep_tiles<true>(tgt, qq, rmin, c0, j_first, cend, nt, colp, outt);
+  // chunks past the grid's y extent are taken in strides of it, as the
+  // tiled kernel takes them; the row minima go on across them, and every
+  // minimum is merged by atomicMin, so the order does not matter
+  bool staged = false;
+  for (int k = blockIdx.y; k < chunks; k += gridDim.y) {
+    const int c0 = k * DCH;
+    const int cend = min(c0 + DCH, nt);
+    int j_first = c0;
+    while (head_rows && j_first < cend && j_first + DT <= ht) j_first += DT;
+    if (j_first >= cend) continue;  // the same for every thread of the CTA
+    if (staged) __syncthreads();    // every read of the last chunk and its partials is done
+    stage_chunk(tgt, t, Kt, c0, nt);
+    __syncthreads();
+    sweep_tiles<true>(tgt, qq, rmin, c0, j_first, cend, nt, colp, outt);
+    staged = true;
+  }
   merge_rows(rmin, qq, false, outq, i0, nq);
 }
 
@@ -411,13 +421,15 @@ extern "C" int nearest_sq(const void* q, const void* t, void* out, int Kq, int K
 // As nearest_sq, plus outt (Kt,) int32 bits of float32; the caller fills
 // outq and outt with the init value 4 * 8192^2 before the launch.
 // head_query and head_target are int32 scalars on the card.  block and
-// chunk must be the kernel's DT and DCH.
+// chunk must be the kernel's DT and DCH.  Where Kt has more chunks than the
+// grid's y extent allows, each CTA strides over its further chunks.
 extern "C" int nearest_sq_dual(const void* q, const void* t, void* outq, void* outt, int Kq,
                                int Kt, const void* nq, const void* nt, const void* hq,
                                const void* ht, int block, int chunk, void* stream) {
   if (block != DT || chunk != DCH) return (int)cudaErrorInvalidValue;
   if (Kq <= 0 || Kt <= 0) return 0;
-  const dim3 grid((Kq + DT - 1) / DT, (Kt + DCH - 1) / DCH);
+  const int chunks = Kt / DCH + (Kt % DCH != 0);
+  const dim3 grid((Kq + DT - 1) / DT, chunks < MAX_GRID_Y ? chunks : MAX_GRID_Y);
   nearest_sq_dual_kernel<<<grid, DNT, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(t), static_cast<int*>(outq),
       static_cast<int*>(outt), Kq, Kt, static_cast<const int*>(nq),

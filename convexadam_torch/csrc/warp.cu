@@ -89,6 +89,14 @@
 // CTA reduces its threads' sum(res^2) in a fixed tree into one partial; a
 // second one-CTA kernel reduces the partials in a fixed order:
 // deterministic, no atomics.
+//
+// The strided form (convexadam_tpu/core/warp.py:_stacked_mse_pos with
+// stride s) takes its points on the (::s, ::s, ::s) sub-lattice of the Adam
+// grid: disp and fix hold the hs x ws x ds sub-lattice's values (hs =
+// ceil(H / s), ...), point (i, j, l) samples the whole moving volume at s i
+// + disp * fac (fac from the full H, W, D), and the rows come out for the
+// sub-lattice's points only.  It is the same kernel with the point's index
+// scaled: s^3 fewer points, so s^3 fewer gathers, the Adam loop's floor.
 #include "common.cuh"
 
 namespace {
@@ -313,22 +321,23 @@ __device__ __forceinline__ void ssd_channel(const T* v, const int* off, const fl
     cv[k] = FIRST ? __fmul_rn(ct, val[k]) : __fadd_rn(cv[k], __fmul_rn(ct, val[k]));
 }
 
-// The sample position's floor and fraction per axis, index + disp * fac.
-__device__ __forceinline__ void ssd_axes(const float* __restrict__ disp, int n, int N, int W,
-                                         int D, float fac0, float fac1, float fac2, Axis& ax,
-                                         Axis& ay, Axis& az) {
-  const int i = n / (W * D), j = (n / D) % W, l = n % D;
-  ax = split(__fadd_rn((float)i, __fmul_rn(disp[n], fac0)));
-  ay = split(__fadd_rn((float)j, __fmul_rn(disp[N + n], fac1)));
-  az = split(__fadd_rn((float)l, __fmul_rn(disp[2 * N + n], fac2)));
+// The sample position's floor and fraction per axis, stride * index + disp
+// * fac, of point n of an (hs, ws, ds) lattice of N points.
+__device__ __forceinline__ void ssd_axes(const float* __restrict__ disp, int n, int N, int ws,
+                                         int ds, int stride, float fac0, float fac1, float fac2,
+                                         Axis& ax, Axis& ay, Axis& az) {
+  const int i = n / (ws * ds), j = (n / ds) % ws, l = n % ds;
+  ax = split(__fadd_rn((float)(stride * i), __fmul_rn(disp[n], fac0)));
+  ay = split(__fadd_rn((float)(stride * j), __fmul_rn(disp[N + n], fac1)));
+  az = split(__fadd_rn((float)(stride * l), __fmul_rn(disp[2 * N + n], fac2)));
 }
 
 template <typename T>
 __global__ void __launch_bounds__(NT, 4)
 warp_ssd_kernel(const T* __restrict__ mov, const float* __restrict__ disp,
                 const float* __restrict__ fix, float* __restrict__ rows,
-                float* __restrict__ partials, int C, int H, int W, int D, float fac0,
-                float fac1, float fac2, float chain) {
+                float* __restrict__ partials, int C, int H, int W, int D, int stride, int ws,
+                int ds, int N, float fac0, float fac1, float fac2, float chain) {
   __shared__ float warp_sums[NT / 32];
   // the point's 8 corner offsets and weights, read once a channel from
   // shared memory rather than held in registers: 64 registers, so four CTAs
@@ -337,13 +346,13 @@ warp_ssd_kernel(const T* __restrict__ mov, const float* __restrict__ disp,
   __shared__ float wsm[8 * NT];
   int* off = osm + threadIdx.x;  // corner k at [k * NT]
   float* w = wsm + threadIdx.x;
-  const int N = H * W * D;
+  const int NV = H * W * D;  // a channel of the moving volume; N points
   const int n = blockIdx.x * NT + threadIdx.x;
   float ssq = 0.f;
   if (n < N) {
     {
       Axis ax, ay, az;
-      ssd_axes(disp, n, N, W, D, fac0, fac1, fac2, ax, ay, az);
+      ssd_axes(disp, n, N, ws, ds, stride, fac0, fac1, fac2, ax, ay, az);
       corner_offsets<NT>(ax, ay, az, H, W, D, off);
       corner_weights<NT>(ax, ay, az, H, W, D, w);
     }
@@ -354,12 +363,12 @@ warp_ssd_kernel(const T* __restrict__ mov, const float* __restrict__ disp,
     ssd_channel<T, true>(mov, off, w, __ldcs(f), chain, cv, ssq);
 #pragma unroll 1
     for (int c = 1; c < C; ++c)
-      ssd_channel<T, false>(mov + (size_t)c * N, off, w, __ldcs(f + (size_t)c * N), chain, cv,
+      ssd_channel<T, false>(mov + (size_t)c * NV, off, w, __ldcs(f + (size_t)c * N), chain, cv,
                             ssq);
     // the position again rather than kept across the channels: fewer
     // registers, more CTAs an SM
     Axis ax, ay, az;
-    ssd_axes(disp, n, N, W, D, fac0, fac1, fac2, ax, ay, az);
+    ssd_axes(disp, n, N, ws, ds, stride, fac0, fac1, fac2, ax, ay, az);
     rows_from_cv(ax, ay, az, H, W, D, cv, rows + n, N);
   }
   const float s = block_sum(ssq, warp_sums);
@@ -379,14 +388,17 @@ sum_partials_kernel(const float* __restrict__ partials, int n, float* __restrict
 
 template <typename T>
 int launch_ssd(const void* mov, const void* disp, const void* fix, void* rows, void* partials,
-               void* total, int C, int H, int W, int D, float fac0, float fac1, float fac2,
-               float chain, cudaStream_t stream) {
-  const int N = H * W * D;
+               void* total, int C, int H, int W, int D, int stride, float fac0, float fac1,
+               float fac2, float chain, cudaStream_t stream) {
+  // the (::stride)^3 sub-lattice: ceil(size / stride) points an axis
+  const int hs = (H + stride - 1) / stride, ws = (W + stride - 1) / stride,
+            ds = (D + stride - 1) / stride;
+  const int N = hs * ws * ds;
   const int blocks = (N + NT - 1) / NT;
   warp_ssd_kernel<T><<<blocks, NT, 0, stream>>>(
       static_cast<const T*>(mov), static_cast<const float*>(disp),
       static_cast<const float*>(fix), static_cast<float*>(rows), static_cast<float*>(partials),
-      C, H, W, D, fac0, fac1, fac2, chain);
+      C, H, W, D, stride, ws, ds, N, fac0, fac1, fac2, chain);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<1, NR, 0, stream>>>(static_cast<const float*>(partials), blocks,
@@ -461,17 +473,20 @@ extern "C" int sample_trilinear_bwd(const void* vol, const void* grid, const voi
   return (int)cudaGetLastError();
 }
 
-// mov (C, H, W, D) float32 (bf16 == 0) or bfloat16 (bf16 == 1); disp (3, H, W, D),
-// fix (C, H*W*D) and rows (3, H*W*D) float32; partials holds
-// ceil(H*W*D / warp_ssd_threads()) floats and total one float.
+// mov (C, H, W, D) float32 (bf16 == 0) or bfloat16 (bf16 == 1); the N = hs
+// ws ds points of the (::stride)^3 sub-lattice (hs = ceil(H / stride), ...;
+// the whole grid for stride 1): disp (3, N), fix (C, N) and rows (3, N)
+// float32; partials holds ceil(N / warp_ssd_threads()) floats and total one
+// float.
 extern "C" int warp_ssd_loss_grad(const void* mov, const void* disp, const void* fix, void* rows,
                                   void* partials, void* total, int C, int H, int W, int D,
-                                  float fac0, float fac1, float fac2, float chain, int bf16,
-                                  void* stream) {
+                                  float fac0, float fac1, float fac2, float chain, int stride,
+                                  int bf16, void* stream) {
+  if (stride < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_ssd<__nv_bfloat16>(mov, disp, fix, rows, partials, total, C, H, W, D, fac0,
-                                     fac1, fac2, chain, s);
-  return launch_ssd<float>(mov, disp, fix, rows, partials, total, C, H, W, D, fac0, fac1, fac2,
-                           chain, s);
+    return launch_ssd<__nv_bfloat16>(mov, disp, fix, rows, partials, total, C, H, W, D, stride,
+                                     fac0, fac1, fac2, chain, s);
+  return launch_ssd<float>(mov, disp, fix, rows, partials, total, C, H, W, D, stride, fac0, fac1,
+                           fac2, chain, s);
 }

@@ -15,7 +15,8 @@ versions.
 * :func:`warp_ssd_loss_grad` replaces
   ``convexadam_tpu/ops/warp_pallas.py:corner_reduce_loss_grad``: the Adam
   data term's ``sum(res^2)`` and its coordinate-gradient rows in one pass,
-  sampling the volume itself (no corner stack).
+  sampling the volume itself (no corner stack), on the whole Adam grid or
+  on its ``(::stride,)*3`` sub-lattice.
 
 The plain versions repeat the kernels' arithmetic operation by operation
 (corner order dx, dy, dz nested; weights ``((wx*wy)*wz)*mask``; channels in
@@ -41,7 +42,7 @@ P, I, F = _build.P, _build.I, _build.F  # noqa: E741
 _SAMPLE_ARGS = (P, P, P, I, I, I, I, I, I, I, P)
 _IC_ARGS = (P, P, P, P, P, I, I, I, I, P)
 _BWD_ARGS = (P, P, P, P, I, I, I, I, I, I, F, I, P)
-_SSD_ARGS = (P, P, P, P, P, P, I, I, I, I, F, F, F, F, I, P)
+_SSD_ARGS = (P, P, P, P, P, P, I, I, I, I, F, F, F, F, I, I, P)
 
 
 def _split(p: torch.Tensor):
@@ -260,25 +261,32 @@ def sample_trilinear_bwd(
 # warp_ssd_loss_grad
 # ---------------------------------------------------------------------------
 
-def _positions(disp: torch.Tensor, fac) -> "list[torch.Tensor]":
-    """Sample positions ``index + disp * fac`` per axis, flattened (N,)."""
-    _, H, W, D = disp.shape
+def sub_extent(size: int, stride: int) -> int:
+    """Points of ``range(0, size, stride)``: an axis of the strided lattice."""
+    return -(-size // stride)
+
+
+def _positions(disp: torch.Tensor, fac, stride: int = 1) -> "list[torch.Tensor]":
+    """Sample positions ``stride * index + disp * fac`` per axis of the
+    lattice ``disp`` (3, hs, ws, ds) covers, flattened (N,)."""
+    _, hs, ws, ds = disp.shape
     out = []
-    for a, n in enumerate((H, W, D)):
+    for a, n in enumerate((hs, ws, ds)):
         shape = [1, 1, 1]
         shape[a] = n
-        idx = torch.arange(n, dtype=torch.float32, device=disp.device).reshape(shape)
+        idx = float(stride) * torch.arange(n, dtype=torch.float32, device=disp.device)
+        idx = idx.reshape(shape)
         out.append((idx + disp[a] * fac[a]).reshape(-1))
     return out
 
 
-def warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain):
+def warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain, stride: int = 1):
     """Plain PyTorch version of :func:`warp_ssd_loss_grad`, in its order: per
     channel the sample ``s = sum_k w_k v_k`` and the residual, then per
     corner the channel sum ``cv_k = sum_c (res_c * chain) * v_{k,c}``, then
     the rows ``sum_k g_k * cv_k``."""
     C, H, W, D = mov.shape
-    axes = [_split(p) for p in _positions(disp, fac)]
+    axes = [_split(p) for p in _positions(disp, fac, stride)]
     flat = mov.float().reshape(C, H * W * D)
     corners = _corners(axes, H, W, D, grads=True)
     vals = [flat[:, lin] for lin, *_ in corners]
@@ -307,22 +315,29 @@ def _ssd_entry():
             _build.bind("warp", "warp_ssd_threads", ())())
 
 
-def warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain: float):
+def warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain: float, stride: int = 1):
     """Adam data term of the moving features ``mov`` (C, H, W, D) float32 or
-    bfloat16, sampled at ``index + disp * fac`` (disp (3, H, W, D) float32,
-    ``fac`` three floats), against ``fix_flat`` (C, H*W*D) float32.
+    bfloat16, sampled at ``stride * index + disp * fac`` (``fac`` three
+    floats) for the points of the ``(::stride,)*3`` sub-lattice of the grid
+    (the whole grid for ``stride`` 1): disp (3, hs, ws, ds) float32 with
+    ``hs = ceil(H / stride)`` and so on, against ``fix_flat`` (C, N)
+    float32, N = hs * ws * ds.
 
     Returns ``(ssq, rows)``: the 0-dim float32 ``sum(res^2)`` and the (3, N)
     float32 gradient rows of ``sum(res^2) * chain / 2`` with respect to the
-    sample positions.
+    sample positions.  A strided launch counts as
+    ``warp_ssd_loss_grad_strided``.
     """
     if mov.device.type == "cpu":
-        return warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain)
+        return warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain, stride)
     _build.require_cuda(mov, "warp_ssd_loss_grad")
     _build.require(mov, "warp_ssd_loss_grad mov", (torch.float32, torch.bfloat16), (None,) * 4)
     C, H, W, D = mov.shape
-    N = H * W * D
-    _build.require(disp, "warp_ssd_loss_grad disp", (torch.float32,), (3, H, W, D))
+    if stride < 1:
+        raise ValueError(f"warp_ssd_loss_grad: stride {stride} < 1")
+    sub = tuple(sub_extent(s, stride) for s in (H, W, D))
+    N = sub[0] * sub[1] * sub[2]
+    _build.require(disp, "warp_ssd_loss_grad disp", (torch.float32,), (3, *sub))
     _build.require(fix_flat, "warp_ssd_loss_grad fix", (torch.float32,), (C, N))
     if disp.device != mov.device or fix_flat.device != mov.device:
         raise ValueError("warp_ssd_loss_grad: all tensors must lie on one device")
@@ -334,8 +349,8 @@ def warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain: float):
     err = _build.call_on(
         mov.device, fn, mov.data_ptr(), disp.data_ptr(), fix_flat.data_ptr(), ptr,
         ptr + 4 * 3 * N, ptr + 4 * (3 * N + parts), C, H, W, D, fac[0], fac[1], fac[2], chain,
-        int(mov.dtype == torch.bfloat16),
+        stride, int(mov.dtype == torch.bfloat16),
     )
     _build.check(err, "warp_ssd_loss_grad")
-    LAUNCHES["warp_ssd_loss_grad"] += 1
+    LAUNCHES["warp_ssd_loss_grad_strided" if stride > 1 else "warp_ssd_loss_grad"] += 1
     return buf[3 * N + parts], buf[: 3 * N].view(3, N)

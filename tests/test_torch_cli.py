@@ -157,16 +157,27 @@ def test_register_cli_semantic_matches_jax(tmp_path):
     assert _absdiff(dt, dj).max() <= 1e-3
 
 
-def test_register_cli_sad_raises_naming_a4(tmp_path):
-    """``--cost_metric sad`` raises before any file is read, naming the
-    ROADMAP item that ports it."""
-    args = ["-f", str(tmp_path / "missing.nii.gz"), "-m", str(tmp_path / "missing.nii.gz"),
-            "--cost_metric", "sad", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        t_register.main(args)
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        t_register.convex_adam_from_files(tmp_path / "x", tmp_path / "y", cost_metric="sad",
-                                          device="cpu")
+def test_register_cli_sad_raises_naming_a4(pair_files, tmp_path):
+    """``--cost_metric sad`` no longer raises: the MIND pair with the SAD
+    cost (one box pass, as the OASIS recipe) against the JAX CLI.  The
+    convex stages agree (argmins equal, tests/test_torch_streamed.py); the
+    two packages' Adam loops then part from this init more than from the
+    SSD one (ROADMAP, behaviours to know): measured mean |diff| 1.5e-3, p99
+    0.025 and max 0.096 voxels, bounds 5e-3, 0.1 and 0.25; the shift
+    recovered; the file-level function writes the same field."""
+    _both_register(pair_files, tmp_path, ["--cost_metric", "sad", "--cost_smooth_passes", "1"])
+    dt, dj = _read_pair(tmp_path, "disp.nii.gz")
+    diff = _absdiff(dt, dj)
+    assert diff.mean() <= 5e-3 and np.quantile(diff, 0.99) <= 0.1 and diff.max() <= 0.25, (
+        diff.mean(), diff.max())
+    med = np.median(dt[8:-8, 8:-8, 8:-8].reshape(-1, 3), axis=0)
+    np.testing.assert_allclose(med, _SHIFT, atol=0.5)
+    (tmp_path / "api").mkdir()
+    out = t_register.convex_adam_from_files(
+        pair_files / "f.nii.gz", pair_files / "m.nii.gz", grid_sp=4, disp_hw=2,
+        selected_niter=20, dtype="float32", cost_metric="sad", cost_smooth_passes=1,
+        result_path=tmp_path / "api", device="cpu")
+    np.testing.assert_array_equal(load_volume_nib_order(out)[0], dt)
 
 
 def test_clis_default_to_cuda(pair_files, tmp_path, monkeypatch):

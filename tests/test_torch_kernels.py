@@ -134,9 +134,11 @@ def test_cost_volume_kernel_choice_covers_the_sweep():
     assert {kernel_for(q) for q in (0, 8, 9, 15)} == {"cost_volume_general_kernel"}
     src = (pathlib.Path(__file__).resolve().parent.parent / "convexadam_torch" / "csrc"
            / "cost_volume.cu").read_text()
-    entry = src[src.index('extern "C" int cost_volume('):]
-    cases = re.findall(r"case (\d+): return launch<(\d+)>", entry)
+    # the C entry chooses the metric, then dispatch<SAD> the instantiation
+    entry = src[src.index("int dispatch("):]
+    cases = re.findall(r"case (\d+): return launch<(\d+), SAD>", entry)
     assert [(int(a), int(b)) for a, b in cases] == [(q, q) for q in COMPILED_Q]
+    assert "dispatch<true>" in entry and "dispatch<false>" in entry
 
 
 def _pallas_block(vol, pos):

@@ -42,6 +42,31 @@ def test_import_pulls_in_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_top_level_exports_the_main_entries():
+    """The package's top level exports the counterparts of the JAX
+    package's (``convexadam_tpu/__init__.py``), and importing them pulls in
+    no ``jax``."""
+    code = (
+        "import sys\n"
+        "from convexadam_torch import (ConvexAdamConfig, __version__, apply_convex,\n"
+        "    apply_convex_torch, convex_adam, convex_adam_torch)\n"
+        "import convexadam_torch as c\n"
+        "from convexadam_torch.pipeline import convex_adam as pipe, apply as ap\n"
+        "assert convex_adam is pipe.convex_adam and ConvexAdamConfig is pipe.ConvexAdamConfig\n"
+        "assert convex_adam_torch is pipe.convex_adam_torch and apply_convex is ap.apply_convex\n"
+        "assert apply_convex_torch is ap.apply_convex_torch and __version__ == '0.1.0'\n"
+        "assert set(c.__all__) >= {'ConvexAdamConfig', 'convex_adam', 'apply_convex',\n"
+        "    'convex_adam_torch', 'apply_convex_torch', 'evaluate_field', '__version__'}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'convexadam_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=_ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 @pytest.mark.parametrize("path", _PORT_FILES, ids=lambda p: str(p.relative_to(_ROOT)))
 def test_sources_import_no_jax(path):
     """No file of the port, nor chip_smoke.py, imports JAX or the JAX package."""
