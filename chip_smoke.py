@@ -189,13 +189,49 @@ Phases, each fatal on failure:
      recorded call); each recorded call through the kernel and its plain
      version, to the bit (the data term's ``sum(res^2)`` to 1e-5
      relative), the first of each kernel and recipe timed;
-  8. output: one JSON line per result, ``{"phase6": {...}}``,
-     ``{"phase7": {...}}``, ``{"kernels": [...]}`` (thirteen records: the
+  8. the segmentation front end (``convexadam_torch.models``), with the
+     packaged ``unet3d_anatomies`` checkpoint:
+  8a. the held-out bent tube of ``tests/regen_unet_anatomies.py`` (96 x 96
+     x 56, 12 windows of 64 x 64 x 28): Dice > 0.7, the card's blended
+     logits within 1e-4 of the port's CPU run, labels apart only where the
+     CPU's two-class margin is below 2e-4; ms a window (TF32 off; on, for
+     information) and windows a second;
+  8b. ``convex_adam_semantic_from_images`` at 192 x 160 x 256 (360 windows
+     a volume) on the checkpoint's four anatomies at their 96 x 96 x 56
+     scale, the moving image the fixed one rolled by (5, -4, 3) with a
+     fresh texture: launches 0 / 2 / 15 / 80, the kernels' calls of the
+     warm-up run recorded and held to their plain versions as in 7g, the
+     field equal to the normalisation, window labels and ``convex_adam_semantic_torch``
+     composed outside to the bit (each stage timed), label Dice > 0.7 in
+     both volumes, the warped moving truth's Dice above the identity's by
+     0.1; peak memory;
+  9. the multi-device layer (``convexadam_torch.parallel``):
+  9a. ``register_pairs_batched`` on two 192^3 headline pairs, each field
+     equal to its lone call; ``device_usage``, ``stage_timer``,
+     ``profile_trace`` and ``probe_device_count() == 1``; the sweep CLI with
+     ``--mesh`` over an NCCL group of one rank equal to the CLI without it
+     (two of 5a's classes);
+  9b. two gloo ranks sharing the card (subprocesses of this script with
+     ``--rank``, a free localhost port and a deadline):
+     ``convex_displacement_tp`` at the (2, 7) class on 7e's features, both
+     directions, every rank's field equal to 7e's dense field and to the
+     fields gathered from the ranks to the bit, one candidate-block launch
+     a rank and direction, held to its plain version to the bit; each
+     rank's seconds and peak;
+  9c. the same ranks: 5a's ``run_stage1_sweep`` on a (setting 2, pair 1)
+     grid, ``dice``, ``jstd``, ``hd95``, ``rank`` and ``best`` equal to
+     5a's to the bit on both;
+  10. output: one JSON line per result, ``{"phase6": {...}}``,
+     ``{"phase7": {...}}``, ``{"phase8": {...}}``, ``{"phase9": {...}}``,
+     ``{"kernels": [...]}`` (thirteen records: the
      eight Pallas functions' kernels, the inverse-consistency steps and the
      four variants, SAD, candidate block, general cost volume and strided
      data term, each with its launches on every path, phase 6's under
-     ``launches_file``, phase 7's under ``launches_challenges``, and 7g's
-     readings under ``at_challenge_shape``) second to last, then ``{"ok":
+     ``launches_file``, phase 7's under ``launches_challenges``, 8b's under
+     ``launches_segmentation``, 9a-9c's (per rank) under
+     ``launches_parallel``, and 7g's and 8b's readings under
+     ``at_challenge_shape`` and ``at_segmentation_shape``,
+     the MIND calls with their bound) second to last, then ``{"ok":
      true, "device": {...}}`` last.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero without
@@ -207,7 +243,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -402,6 +440,42 @@ CAPTURE_SITES = (("convexadam_torch.core.features", "mind_ssd_stats"),
                  ("convexadam_torch.core.warp", "inverse_consistency_steps"),
                  ("convexadam_torch.core.warp", "warp_ssd_loss_grad"))
 CAPTURE_CALLS = 3
+# phase 8, the segmentation front end: the packaged anatomy checkpoint on its
+# held-out case (a bent tube, tests/regen_unet_anatomies.py, whose numpy
+# generators are copied below), then the entry from raw images at the
+# Abdomen shape, tiled with 96 x 96 x 56 cases of the checkpoint's four
+# anatomies in turn, each synthesised and z-scored as the checkpoint's
+# training cases are (the network has seen no other scale and no other
+# intensity statistics; a volume z-scored as a whole has far fewer
+# foreground voxels, and the network then finds foreground in the
+# background); later tiles overwrite the overlaps.  Raw intensities are
+# offset + scale x z, all positive, so the entry's nnU-Net normalisation (a
+# z-score over the positive voxels) gives back the tiles' z-scores.  The
+# moving image is the same tiling with fresh textures, rolled by the
+# headline shift (no anatomy lies within the shift of a face)
+SEG_CHECKPOINT = "unet3d_anatomies"
+SEG_SHAPE = (96, 96, 56)
+SEG_ANATOMIES = ("ellipsoid_notch", "twin_blobs", "shell", "bent_tube")
+SEG_HOLDOUT = "bent_tube"
+SEG_HOLDOUT_SEED = 999
+SEG_TILES = ((0, 96), (0, 64), (0, 56, 112, 168, 200))  # tile origins along H, W, D
+SEG_TEXTURE_SEEDS = (1001, 2001)  # + the tile's index: the fixed and the moving image
+SEG_RAW = (100.0, 20.0)
+SEG_WINDOWS = 5 * 4 * 18  # 64 x 64 x 28 windows at step 0.5 over 192 x 160 x 256
+SEG_LOGIT_TOL = 1e-4  # the card's blended logits against the port's CPU run
+SEG_MARGIN = 2e-4  # labels may differ only where the CPU's two-class margin is below
+SEG_DICE = 0.7  # tests/test_segmentation.py:229's held-out gate
+SEG_GAIN = 0.1  # warped Dice over the identity's, tests/test_segmentation.py:127
+# phase 9, the multi-device layer: two headline pairs batched; the sweep CLI
+# with --mesh over an NCCL group of one; two gloo ranks sharing the card as
+# subprocesses (a free localhost port, a deadline), running the (2, 7) class
+# tensor-parallel on 7e's features and 5a's stage-1 sweep on a (setting 2,
+# pair 1) grid
+PARALLEL_RANKS = 2
+PARALLEL_DEADLINE_S = 420
+PARALLEL_GROUP_TIMEOUT_S = 180
+PARALLEL_DIR = OUT_DIR / "phase9"
+CLI_MESH_CLASSES = ((4, 4), (5, 2))  # 9a's CLI settings: phase 5a's two quickest classes
 
 
 def cuda_ms(torch, fn, warmup: int = 3, reps: int = 20) -> float:
@@ -1341,6 +1415,17 @@ def mind_cases(torch, vol):
         yield shape, dt, r, d, vol[: shape[0], : shape[1], : shape[2]].to(dt).contiguous()
 
 
+def mind_work(shape, itemsize: int, r: int) -> "tuple[float, float]":
+    """(bytes, operations) that ``mind_ssd_stats`` at radius ``r`` needs on
+    a volume of ``shape`` whose elements take ``itemsize`` bytes: the volume
+    read once, the 12 channels written in its type and the float32
+    variance; per voxel 24 operations for the 12 squared differences, 12 x
+    (6r + 1) for the separable (2r + 1)^3 box means, 23 for the channel
+    minimum, 14 for the variance (145 at r = 1)."""
+    n = float(np.prod(shape))
+    return n * itemsize + 12 * n * itemsize + n * 4, (145.0 + 72.0 * (r - 1)) * n
+
+
 def mind_phase(torch, vol):
     """Phase 3a: ``mind_ssd_stats`` against its plain version to the bit on
     :func:`mind_cases`, the main case timed (the profiler shows which kernel
@@ -1373,7 +1458,7 @@ def mind_phase(torch, vol):
             t = timed_turns(torch, lambda: mind_ssd_stats(x, 1, 2), GLOBALS["mind_ssd_stats"])
             p_ms = cuda_ms(torch, lambda: mind_ssd_stats_plain(x, 1, 2))
             record = kernel_record("mind_ssd_stats", list(shape), "bfloat16", err, tol, t, p_ms,
-                                   n * 2 + 12 * n * 2 + n * 4, 145.0 * n)
+                                   *mind_work(shape, 2, 1))
             print_times("mind_ssd_stats", t, p_ms, record["bound_ms"])
             row.update({k: record[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")})
         detail.append(row)
@@ -1841,6 +1926,20 @@ def sweep_subjects():
     return np.stack([np.roll(base, s, axis=(0, 1, 2)) for s in SWEEP_SHIFTS])
 
 
+def sweep_settings(classes=SWEEP_CLASSES):
+    """The first seeded stage-1 setting of each (grid_sp, disp_hw) class of
+    ``classes`` (phase 5a's settings)."""
+    from convexadam_torch.selfconfig import stage1_settings
+
+    seeded = stage1_settings()
+    settings = []
+    for cls in classes:
+        idx = [i for i, s in enumerate(seeded) if (s.grid_sp, s.disp_hw) == cls]
+        check(bool(idx), f"no seeded stage-1 setting of class {cls}")
+        settings.append(seeded[idx[0]])
+    return settings
+
+
 def _launch_checks(what, launches, expected, at_least=()):
     """Every kernel's launches against ``expected``; the names in
     ``at_least`` may launch more (exact re-scoring of an overflow case)."""
@@ -1868,16 +1967,11 @@ def sweep_stage1_phase(torch, dev, segs, smi, results):
     from convexadam_torch import evaluate_field
     from convexadam_torch.core.metrics import dice_coeff
     from convexadam_torch.kernels import LAUNCHES, reset_launches
-    from convexadam_torch.selfconfig import run_stage1_sweep, stage1_settings
+    from convexadam_torch.selfconfig import run_stage1_sweep
     from convexadam_torch.selfconfig.checkpoint import SweepCheckpointer
     from convexadam_torch.selfconfig.engine import _suggest_label_groups, convex_field_semantic
 
-    seeded = stage1_settings()
-    settings = []
-    for cls in SWEEP_CLASSES:
-        idx = [i for i, s in enumerate(seeded) if (s.grid_sp, s.disp_hw) == cls]
-        check(bool(idx), f"no seeded stage-1 setting of class {cls}")
-        settings.append(seeded[idx[0]])
+    settings = sweep_settings()
     groups, global_cap = _suggest_label_groups(segs, L2R_LABELS)
     SweepCheckpointer(SWEEP_CHECKPOINT).clear()
     P, S = len(SWEEP_PAIRS), len(settings)
@@ -2982,25 +3076,35 @@ def curious_phase(torch, dev, results, recipes):
                     tre_rigid=tre_rigid, rigid=res["rigid"].tolist())
 
 
-def streamed_phase(torch, dev, results, recipes):
+def class_features(torch, dev, seg_a, seg_b, grid_sp):
+    """One-hot features of two label volumes (:data:`SEMANTIC_LABELS`
+    channels) pooled to ``grid_sp``: the convex stage's inputs of 7e and
+    9b."""
+    from convexadam_torch.core.features import semantic_features
+    from convexadam_torch.core.smoothing import avg_pool3d
+
+    a, b = (torch.from_numpy(x).to(dev) for x in (seg_a, seg_b))
+    with torch.no_grad():
+        ff, fm = semantic_features(a, b, SEMANTIC_LABELS)
+        return (avg_pool3d(ff, grid_sp, stride=grid_sp).contiguous(),
+                avg_pool3d(fm, grid_sp, stride=grid_sp).contiguous())
+
+
+def streamed_phase(torch, dev, results, recipes, keep=None):
     """7e: the (grid_sp 2, disp_hw 7) class at the Abdomen shape on phase
     5's subjects 0 and 1 (14 one-hot channels), both directions: dense (the
     default threshold) and streamed (``stream_threshold=0``), equal to the
     bit, with both peaks; then one direction at 256 x 256 x 320, whose dense
-    estimate exceeds the threshold: the natural dispatch streams."""
+    estimate exceeds the threshold: the natural dispatch streams.  The dense
+    fields go to ``keep["7e_dense"]`` (host copies, by direction) when
+    ``keep`` is given."""
     from convexadam_torch.core import convex
-    from convexadam_torch.core.features import semantic_features
-    from convexadam_torch.core.smoothing import avg_pool3d
 
     g, q = STREAM_CLASS
     K = 2 * q + 1
 
     def coarse(seg_a, seg_b):
-        a, b = (torch.from_numpy(x).to(dev) for x in (seg_a, seg_b))
-        with torch.no_grad():
-            ff, fm = semantic_features(a, b, SEMANTIC_LABELS)
-            return (avg_pool3d(ff, g, stride=g).contiguous(),
-                    avg_pool3d(fm, g, stride=g).contiguous())
+        return class_features(torch, dev, seg_a, seg_b, g)
 
     segs = sweep_subjects()
     fix_s, mov_s = coarse(segs[0], segs[1])
@@ -3031,6 +3135,8 @@ def streamed_phase(torch, dev, results, recipes):
                           "equal": equal}
         if direction == "forward":
             launches["7e_dense"], launches["7e_streamed"] = l_d, l_s
+        if keep is not None:
+            keep.setdefault("7e_dense", {})[direction] = dense.cpu()
         del dense, streamed
     del fix_s, mov_s
     seg_a, seg_b = l2r_label_pair(shape=STREAM_NATURAL_SHAPE, margin=ABDOMEN_MARGIN)
@@ -3155,15 +3261,9 @@ def _shape_of(a) -> dict:
     return {k: ([*v.shape, str(v.dtype)[6:]] if hasattr(v, "shape") else v) for k, v in a.items()}
 
 
-def challenge_kernel_phase(torch, recipes, records, results):
-    """7g: each recipe of 7a-7f run again (the same inputs) with the
-    arguments of the first :data:`CAPTURE_CALLS` calls of every wrapper it
-    reaches recorded (:func:`_recording`); every kernel the rerun launched
-    must have a recorded call.  Each recorded call then goes through the
-    kernel and its plain version: outputs to the bit, the data term's
-    ``sum(res^2)`` to 1e-5 relative (its partial sums add in another
-    order); the first call of each kernel in each recipe timed.  The
-    readings join each kernel's record as ``at_challenge_shape``."""
+def _kernel_pairs() -> dict:
+    """Each wrapper of :data:`CAPTURE_SITES` by name, with its plain
+    version."""
     from convexadam_torch.kernels.cost_volume import cost_volume_block_plain, cost_volume_plain
     from convexadam_torch.kernels.cost_volume import cost_volume, cost_volume_block
     from convexadam_torch.kernels.mind import mind_ssd_stats, mind_ssd_stats_plain
@@ -3174,12 +3274,75 @@ def challenge_kernel_phase(torch, recipes, records, results):
         warp_ssd_loss_grad_plain,
     )
 
-    pairs = {"mind_ssd_stats": (mind_ssd_stats, mind_ssd_stats_plain),
-             "cost_volume": (cost_volume, cost_volume_plain),
-             "cost_volume_block": (cost_volume_block, cost_volume_block_plain),
-             "inverse_consistency_steps": (inverse_consistency_steps,
-                                           inverse_consistency_steps_plain),
-             "warp_ssd_loss_grad": (warp_ssd_loss_grad, warp_ssd_loss_grad_plain)}
+    return {"mind_ssd_stats": (mind_ssd_stats, mind_ssd_stats_plain),
+            "cost_volume": (cost_volume, cost_volume_plain),
+            "cost_volume_block": (cost_volume_block, cost_volume_block_plain),
+            "inverse_consistency_steps": (inverse_consistency_steps,
+                                          inverse_consistency_steps_plain),
+            "warp_ssd_loss_grad": (warp_ssd_loss_grad, warp_ssd_loss_grad_plain)}
+
+
+def hold_call(torch, name, a) -> dict:
+    """A recorded call of wrapper ``name`` with arguments ``a`` through the
+    kernel and its plain version: the row of its ``max_abs_err`` (the data
+    term's ``sum(res^2)`` apart, as ``ssq_rel_err``) and argument shapes."""
+    kern, plain = _kernel_pairs()[name]
+    ko, po = kern(**a), plain(**a)
+    torch.cuda.synchronize()
+    ko, po = (ko, po) if isinstance(ko, tuple) else ((ko,), (po,))
+    row = {"wrapper": name, "args": _shape_of(a)}
+    if name == "warp_ssd_loss_grad":
+        row["ssq_rel_err"] = abs(float(ko[0]) - float(po[0])) / float(po[0])
+        ko, po = ko[1:], po[1:]
+    row["max_abs_err"] = max(max_err(k, p) for k, p in zip(ko, po))
+    return row
+
+
+def _held(row) -> bool:
+    """Outputs to the bit, the data term's ``sum(res^2)`` to 1e-5 relative
+    (its partial sums add in another order)."""
+    return row["max_abs_err"] == 0.0 and row.get("ssq_rel_err", 0.0) <= 1e-5
+
+
+def hold_recorded_calls(torch, key, calls, launches) -> dict:
+    """The calls a run ``key`` recorded (:func:`_recording`), each held to
+    its plain version (:func:`hold_call`, :func:`_held`); every kernel the
+    run launched (``launches``) must have a recorded call.  The first call
+    of each kernel is timed.  Returns the rows by kernel record name."""
+    kinds = {_captured_kernel(name, a) for name, a in calls}
+    missed = [k for k, v in launches.items() if v and k not in kinds]
+    check(not missed, f"{key}: launched {missed} with no recorded call")
+    readings: dict = {}
+    for name, a in calls:
+        kname = _captured_kernel(name, a)
+        kern, plain = _kernel_pairs()[name]
+        row = {"run": key, **hold_call(torch, name, a)}
+        check(_held(row), f"{key} {kname} {row['args']}: max err {row['max_abs_err']}, "
+              f"sum(res^2) rel {row.get('ssq_rel_err')}")
+        if kname not in readings:
+            t = timed_turns(torch, lambda: kern(**a), GLOBALS[kname])
+            row.update(call_ms=t["call_ms"], device_ms=t["device_ms"],
+                       plain_ms=cuda_ms(torch, lambda: plain(**a), 1, 3))
+            if name == "mind_ssd_stats":
+                x = a["x"]
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    *mind_work(tuple(x.shape), x.element_size(), a["radius"]))
+        print(f"{key} {kname} {row['args']}: max_abs_err {row['max_abs_err']} (tol 0)"
+              + (f", sum(res^2) rel {row['ssq_rel_err']:.2e}" if "ssq_rel_err" in row else "")
+              + (f", {row['device_ms']:.4f} ms device, {row['plain_ms']:.4f} ms plain"
+                 if "device_ms" in row else "")
+              + (f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+                 if "bound_ms" in row else ""), flush=True)
+        readings.setdefault(kname, []).append(row)
+    return readings
+
+
+def challenge_kernel_phase(torch, recipes, records, results):
+    """7g: each recipe of 7a-7f run again (the same inputs) with the
+    arguments of the first :data:`CAPTURE_CALLS` calls of every wrapper it
+    reaches recorded (:func:`_recording`), each held to its plain version
+    (:func:`hold_recorded_calls`).  The readings join each kernel's record
+    as ``at_challenge_shape``."""
     by_name = {r["name"]: r for r in records}
     readings: dict = {}
     t0 = time.perf_counter()
@@ -3187,35 +3350,8 @@ def challenge_kernel_phase(torch, recipes, records, results):
         calls: list = []
         with _recording(torch, calls):
             _, launches, _ = _counted(torch, recipe)
-        kinds = {_captured_kernel(name, a) for name, a in calls}
-        missed = [k for k, v in launches.items() if v and k not in kinds]
-        check(not missed, f"7g {key}: launched {missed} with no recorded call")
-        timed = set()
-        for name, a in calls:
-            kname = _captured_kernel(name, a)
-            kern, plain = pairs[name]
-            ko, po = kern(**a), plain(**a)
-            torch.cuda.synchronize()
-            ko, po = (ko, po) if isinstance(ko, tuple) else ((ko,), (po,))
-            row = {"recipe": key, "wrapper": name, "args": _shape_of(a)}
-            if name == "warp_ssd_loss_grad":
-                row["ssq_rel_err"] = abs(float(ko[0]) - float(po[0])) / float(po[0])
-                ko, po = ko[1:], po[1:]
-            row["max_abs_err"] = max(max_err(k, p) for k, p in zip(ko, po))
-            del ko, po
-            check(row["max_abs_err"] == 0.0 and row.get("ssq_rel_err", 0.0) <= 1e-5,
-                  f"7g {key} {kname} {row['args']}: max err {row['max_abs_err']}, "
-                  f"sum(res^2) rel {row.get('ssq_rel_err')}")
-            if kname not in timed:
-                timed.add(kname)
-                t = timed_turns(torch, lambda: kern(**a), GLOBALS[kname])
-                row.update(call_ms=t["call_ms"], device_ms=t["device_ms"],
-                           plain_ms=cuda_ms(torch, lambda: plain(**a), 1, 3))
-            print(f"7g {key} {kname} {row['args']}: max_abs_err {row['max_abs_err']} (tol 0)"
-                  + (f", sum(res^2) rel {row['ssq_rel_err']:.2e}" if "ssq_rel_err" in row else "")
-                  + (f", {row['device_ms']:.4f} ms device, {row['plain_ms']:.4f} ms plain"
-                     if "device_ms" in row else ""), flush=True)
-            readings.setdefault(kname, []).append(row)
+        for kname, rows in hold_recorded_calls(torch, f"7g {key}", calls, launches).items():
+            readings.setdefault(kname, []).extend(rows)
         del calls
     for kname, rows in readings.items():
         by_name[kname]["at_challenge_shape"] = rows
@@ -3226,21 +3362,561 @@ def challenge_kernel_phase(torch, recipes, records, results):
         k: len(v) for k, v in readings.items()}}
 
 
-def challenge_phase(torch, dev, vol_np, mov_np, single, records, results):
+def challenge_phase(torch, dev, vol_np, mov_np, single, records, results, keep=None):
     """Phase 7: 7a-7g; returns the launches of each run of 7a-7f by its
-    key."""
+    key (7e's dense fields go to ``keep``, :func:`streamed_phase`)."""
     t0 = time.perf_counter()
     recipes: dict = {}
     launches = {"7a_task1": task1_phase(torch, dev, results, recipes),
                 "7b_task2": task2_phase(torch, dev, results, recipes)}
     launches.update(task3_phase(torch, dev, results, recipes))
     launches["7d_curious"] = curious_phase(torch, dev, results, recipes)
-    launches.update(streamed_phase(torch, dev, results, recipes))
+    launches.update(streamed_phase(torch, dev, results, recipes, keep))
     launches["7f_strided"] = strided_phase(torch, dev, vol_np, mov_np, single, results, recipes)
     del recipes["7c_task3_template"]  # task 3's shapes again, other weights
     challenge_kernel_phase(torch, recipes, records, results)
     results["challenges"]["phase7_s"] = time.perf_counter() - t0
     print(f"phase 7: {results['challenges']['phase7_s']:.2f} s", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the segmentation front end
+# ---------------------------------------------------------------------------
+
+def _seg_grid(shape):
+    return np.meshgrid(*(np.linspace(-1, 1, s, dtype=np.float32) for s in shape), indexing="ij")
+
+
+def make_anatomy(kind: str, shape=SEG_SHAPE) -> np.ndarray:
+    """One of the four binary anatomies of ``tests/regen_unet_anatomies.py``
+    (copied): a notched ellipsoid, twin blobs, a shell, a bent tube."""
+    z, y, x = _seg_grid(shape)
+    if kind == "ellipsoid_notch":
+        body = (z / 0.55) ** 2 + (y / 0.45) ** 2 + (x / 0.6) ** 2 < 1.0
+        notch = ((z - 0.35) / 0.3) ** 2 + (y / 0.25) ** 2 + ((x - 0.3) / 0.35) ** 2 < 1.0
+        return (body & ~notch).astype(np.int32)
+    if kind == "twin_blobs":
+        b1 = ((z + 0.3) / 0.35) ** 2 + ((y + 0.25) / 0.3) ** 2 + ((x + 0.2) / 0.4) ** 2 < 1.0
+        b2 = ((z - 0.35) / 0.25) ** 2 + ((y - 0.3) / 0.22) ** 2 + ((x - 0.25) / 0.28) ** 2 < 1.0
+        return (b1 | b2).astype(np.int32)
+    if kind == "shell":
+        r2 = (z / 0.55) ** 2 + (y / 0.5) ** 2 + (x / 0.6) ** 2
+        return ((r2 < 1.0) & (r2 > 0.45)).astype(np.int32)
+    if kind == "bent_tube":
+        cz = 0.45 * x * x - 0.2
+        cy = 0.35 * x
+        rad2 = (z - cz) ** 2 + (y - cy) ** 2
+        return ((rad2 < 0.06) & (np.abs(x) < 0.75)).astype(np.int32)
+    raise ValueError(kind)
+
+
+def synthesize_image(lab: np.ndarray, seed: int) -> np.ndarray:
+    """MRI-like z-scored intensity of a label volume, as
+    ``tests/regen_unet_anatomies.py`` makes it (copied): bright foreground,
+    texture, a smooth bias field, boundary blur and noise."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(seed)
+    shape = lab.shape
+    fg = gaussian_filter(lab.astype(np.float32), 1.5)
+    texture = gaussian_filter(rng.standard_normal(shape).astype(np.float32), 2.0)
+    bias = gaussian_filter(rng.standard_normal(shape).astype(np.float32), 16.0)
+    bias = bias / (np.abs(bias).max() + 1e-6)
+    img = 1.6 * fg + 0.7 * texture + 0.8 * bias
+    img = img + 0.15 * rng.standard_normal(shape).astype(np.float32)
+    return ((img - img.mean()) / img.std()).astype(np.float32)
+
+
+def binary_dice(pred, truth) -> float:
+    pred, truth = np.asarray(pred) == 1, np.asarray(truth) == 1
+    return float(2 * np.sum(pred & truth) / (pred.sum() + truth.sum() + 1e-8))
+
+
+def unet_phase(torch, dev, results):
+    """8a: the packaged anatomy checkpoint on its held-out case (96 x 96 x
+    56, 12 windows of 64 x 64 x 28) on the card: Dice above
+    :data:`SEG_DICE`, the blended logits within :data:`SEG_LOGIT_TOL` of the
+    port's CPU run, labels apart only where the CPU's margin is below
+    :data:`SEG_MARGIN`; ms a window (TF32 off, and on for information) and
+    windows a second."""
+    from convexadam_torch.models.segmentation import (
+        CHECKPOINTS,
+        WINDOW_BATCH,
+        UNet3D,
+        blended_logits,
+        load_pretrained_unet3d,
+        load_unet3d,
+    )
+    from convexadam_torch.utils.sliding_window import compute_steps_for_sliding_window
+
+    predictor, meta = load_pretrained_unet3d(SEG_CHECKPOINT, device=dev)
+    check(meta["holdout_anatomy"] == SEG_HOLDOUT, f"8a: {meta['holdout_anatomy']} held out")
+    patch = tuple(meta["patch_size"])
+    truth = make_anatomy(SEG_HOLDOUT)
+    img = synthesize_image(truth, SEG_HOLDOUT_SEED)
+    steps = compute_steps_for_sliding_window(patch, img.shape, 0.5)
+    n_windows = int(np.prod([len(s) for s in steps]))
+    blended_logits(predictor, img, patch, device=dev)  # warm-up: cuDNN picks its algorithms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = blended_logits(predictor, img, patch, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cpu_pred, _ = load_pretrained_unet3d(SEG_CHECKPOINT, device="cpu")
+    cpu = blended_logits(cpu_pred, img, patch, device="cpu")
+    card = card.cpu()
+    err = max_err(card, cpu)
+    check(err <= SEG_LOGIT_TOL, f"8a: blended logits {err} from the CPU's (tol {SEG_LOGIT_TOL})")
+    lab_card, lab_cpu = card.argmax(0).numpy(), cpu.argmax(0).numpy()
+    margin = (cpu[1] - cpu[0]).abs().numpy()
+    differ = lab_card != lab_cpu
+    worst = float(margin[differ].max()) if differ.any() else 0.0
+    check(worst < SEG_MARGIN, f"8a: labels differ from the CPU's at margins up to {worst}")
+    dice = binary_dice(lab_card, truth)
+    check(dice > SEG_DICE, f"8a: held-out Dice {dice:.4f} not above {SEG_DICE}")
+    # ms a window: one predictor call on a batch of the case's windows
+    vol = torch.from_numpy(img).to(dev)
+    batch = torch.stack([vol[sx:sx + patch[0], sy:sy + patch[1], sz:sz + patch[2]]
+                         for sx in steps[0] for sy in steps[1] for sz in steps[2]][:WINDOW_BATCH])
+    ms = cuda_ms(torch, lambda: predictor(batch)) / len(batch)
+    model = UNet3D(meta["num_classes"], meta["channels"])
+    model.load_state_dict(load_unet3d(CHECKPOINTS / SEG_CHECKPOINT / "params.npz"))
+    model = model.to(dev).eval()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            ms_tf32 = cuda_ms(torch, lambda: model(batch[:, None])) / len(batch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"checkpoint": SEG_CHECKPOINT, "shape": list(img.shape), "patch": list(patch),
+           "windows": n_windows, "dice": dice, "max_abs_err_vs_cpu": err,
+           "tol": SEG_LOGIT_TOL, "labels_differing": int(differ.sum()),
+           "max_margin_where_differing": worst,
+           "inference_s": secs, "windows_per_s": n_windows / secs,
+           "ms_per_window": ms, "ms_per_window_tf32": ms_tf32, "window_batch": len(batch)}
+    print(f"8a U-Net {SEG_CHECKPOINT} on the held-out {SEG_HOLDOUT} {img.shape}: Dice "
+          f"{dice:.4f}; blended logits {err:.3e} from the CPU's (tol {SEG_LOGIT_TOL}), "
+          f"{int(differ.sum())} labels differ; {ms:.4f} ms a window in batches of {len(batch)} "
+          f"(TF32 on, for information: {ms_tf32:.4f}); {n_windows} windows in {secs:.4f} s, "
+          f"{n_windows / secs:.1f} windows/s", flush=True)
+    results["segmentation"] = {"8a_unet": out}
+
+
+def seg_volumes():
+    """8b's truth (fixed, moving) and raw images: the Abdomen volume tiled
+    at :data:`SEG_TILES` with the four anatomies in turn, each tile's image
+    synthesised with its own texture seed; the moving truth and image are a
+    second tiling rolled by the headline shift."""
+    anatomies = [make_anatomy(kind, SEG_SHAPE) for kind in SEG_ANATOMIES]
+    truths, imgs = [], []
+    for seed in SEG_TEXTURE_SEEDS:
+        truth = np.zeros(ABDOMEN_SHAPE, np.int32)
+        img = np.zeros(ABDOMEN_SHAPE, np.float32)
+        origins = [(a, b, c) for a in SEG_TILES[0] for b in SEG_TILES[1] for c in SEG_TILES[2]]
+        for k, origin in enumerate(origins):
+            box = tuple(slice(o, o + n) for o, n in zip(origin, SEG_SHAPE))
+            lab = anatomies[k % len(anatomies)]
+            truth[box] = lab
+            img[box] = SEG_RAW[0] + SEG_RAW[1] * synthesize_image(lab, seed + k)
+        truths.append(truth)
+        imgs.append(img)
+    check(bool((imgs[0] > 0).all()), "8b: a raw intensity is not positive")
+    for a, sh in enumerate(HEADLINE_SHIFT):  # the roll wraps no anatomy voxel
+        edge = np.take(truths[1], range(-sh, 0) if sh > 0 else range(0, -sh), axis=a)
+        check(not edge.any(), f"8b: an anatomy lies within {abs(sh)} voxels of a face")
+    truths[1] = np.roll(truths[1], HEADLINE_SHIFT, axis=(0, 1, 2))
+    imgs[1] = np.roll(imgs[1], HEADLINE_SHIFT, axis=(0, 1, 2))
+    return truths[0], truths[1], imgs
+
+
+def segmentation_entry_phase(torch, dev, records, results):
+    """8b: ``convex_adam_semantic_from_images`` at the Abdomen shape with
+    the anatomy checkpoint (360 windows a volume): launches 0 / 2 / 15 / 80
+    (MIND, cost volume, inverse-consistency steps, data term); the kernels'
+    calls of the warm-up run recorded and held to their plain versions
+    (:func:`hold_recorded_calls`; the readings join each kernel's record as
+    ``at_segmentation_shape``); the field equal to nnU-Net normalisation +
+    window labels + ``convex_adam_semantic_torch`` composed outside, to the
+    bit (the composition timed by stage); each volume's labels' Dice above
+    :data:`SEG_DICE`; the warped moving truth's Dice above the identity's by
+    :data:`SEG_GAIN`.  Returns the launches."""
+    from convexadam_torch import convex_adam_semantic_from_images, convex_adam_semantic_torch
+    from convexadam_torch.core.features import nnunet_norm
+    from convexadam_torch.core.metrics import dice_coeff
+    from convexadam_torch.core.warp import warp_with_displacement
+    from convexadam_torch.models.segmentation import load_pretrained_unet3d, predict_labels
+    from convexadam_torch.pipeline.convex_adam import ConvexAdamConfig
+    from convexadam_torch.utils.sliding_window import compute_steps_for_sliding_window
+
+    t0 = time.perf_counter()
+    truth_f, truth_m, (img_f, img_m) = seg_volumes()
+    make_s = time.perf_counter() - t0
+    predictor, meta = load_pretrained_unet3d(SEG_CHECKPOINT, device=dev)
+    patch = tuple(meta["patch_size"])
+
+    def entry():
+        return convex_adam_semantic_from_images(img_f, img_m, predictor, patch, device=dev)
+
+    calls: list = []
+    with _recording(torch, calls):  # the warm-up
+        _, rec_launches, _ = _counted(torch, entry)
+    readings = hold_recorded_calls(torch, "8b", calls, rec_launches)
+    by_name = {r["name"]: r for r in records}
+    for kname, rows in readings.items():
+        by_name[kname]["at_segmentation_shape"] = rows
+    del calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    field, launches, secs = _counted(torch, entry)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _launch_checks("8b semantic from images", launches, sweep_expected(
+        cost_volume=2, sample_trilinear_ic=IC_ITERS, warp_ssd_loss_grad=80))
+    check(field.shape == ABDOMEN_SHAPE + (3,) and bool(np.isfinite(field).all()),
+          "8b: bad field")
+    # the same stages composed outside the entry, each timed
+    stages = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f = nnunet_norm(torch.from_numpy(img_f).to(dev))
+    m = nnunet_norm(torch.from_numpy(img_m).to(dev))
+    torch.cuda.synchronize()
+    stages["normalisation_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pf = predict_labels(predictor, f, patch, device=dev)
+    pm = predict_labels(predictor, m, patch, device=dev)
+    torch.cuda.synchronize()
+    stages["windows_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    num_labels = int(torch.maximum(pf.max(), pm.max())) + 1
+    composed = convex_adam_semantic_torch(pf, pm, ConvexAdamConfig(), num_labels=num_labels,
+                                          device=dev)
+    torch.cuda.synchronize()
+    stages["registration_s"] = time.perf_counter() - t0
+    composed = composed.cpu().numpy()
+    check(_bits_equal(field, composed), f"8b: the entry's field differs from the composition by "
+          f"{float(np.abs(field - composed).max())}")
+    dice_f, dice_m = binary_dice(pf.cpu().numpy(), truth_f), binary_dice(pm.cpu().numpy(), truth_m)
+    check(min(dice_f, dice_m) > SEG_DICE, f"8b: label Dice {dice_f:.4f} / {dice_m:.4f}")
+    sf = torch.from_numpy(truth_f).to(dev)
+    sm = torch.from_numpy(truth_m).to(dev).float()[None]
+
+    def warped_dice(disp):
+        w = warp_with_displacement(sm, torch.from_numpy(disp).to(dev).permute(3, 0, 1, 2),
+                                   mode="nearest")[0].round().to(torch.int32)
+        return float(dice_coeff(sf, w, 2)[0])  # label 1
+
+    d_reg, d_id = warped_dice(field), warped_dice(np.zeros_like(field))
+    check(d_reg >= d_id + SEG_GAIN, f"8b: warped Dice {d_reg:.4f} against the identity's {d_id:.4f}")
+    per_volume = int(np.prod([len(st) for st in compute_steps_for_sliding_window(
+        patch, ABDOMEN_SHAPE, 0.5)]))
+    check(per_volume == SEG_WINDOWS, f"8b: {per_volume} windows a volume, not {SEG_WINDOWS}")
+    n_windows = 2 * per_volume
+    out = {"shape": list(ABDOMEN_SHAPE), "anatomies": list(SEG_ANATOMIES),
+           "shift": list(HEADLINE_SHIFT), "num_labels": num_labels,
+           "windows_per_volume": per_volume, "entry_s": secs, "peak_gb": peak,
+           "volumes_s": make_s, **stages,
+           "windows_per_s": n_windows / stages["windows_s"], "label_dice": [dice_f, dice_m],
+           "warped_dice": d_reg, "identity_dice": d_id, "equal_to_composed": True,
+           "kernel_calls_held": {k: len(v) for k, v in readings.items()},
+           "launches": {k: v for k, v in launches.items() if v}}
+    print(f"8b semantic from images {ABDOMEN_SHAPE}: {secs:.4f} s, peak {peak:.2f} GB; composed: "
+          f"normalisation {stages['normalisation_s']:.4f} s, windows {stages['windows_s']:.4f} s "
+          f"({n_windows} windows, {out['windows_per_s']:.1f}/s), registration "
+          f"{stages['registration_s']:.4f} s; equal to the bit; label Dice {dice_f:.4f} / "
+          f"{dice_m:.4f}; warped Dice {d_reg:.4f} (identity {d_id:.4f}); launches "
+          f"{out['launches']} (volumes made on the host in {make_s:.2f} s)", flush=True)
+    results["segmentation"]["8b_from_images"] = out
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the multi-device layer
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def parallel_one_process_phase(torch, dev, vol_np, mov_np, results):
+    """9a: ``register_pairs_batched`` on two 192^3 headline pairs, each
+    field equal to its lone ``convex_adam_torch`` call to the bit;
+    ``device_usage``, ``stage_timer``, ``profile_trace`` (a non-empty trace
+    that shows the cost-volume kernel) and ``probe_device_count() == 1``;
+    the sweep CLI with ``--mesh`` over an NCCL process group of one rank,
+    its arrays equal to the CLI's without it.  Returns the batch's
+    launches."""
+    import torch.distributed as dist
+
+    import convexadam_torch.selfconfig as selfconfig
+    from convexadam_torch.cli import sweep as cli_sweep
+    from convexadam_torch.geometry.io import save_volume_nib_order
+    from convexadam_torch.kernels.cost_volume import cost_volume
+    from convexadam_torch.parallel.batch import register_pairs_batched
+    from convexadam_torch.parallel.distributed import init_distributed
+    from convexadam_torch.pipeline.convex_adam import ConvexAdamConfig, convex_adam_torch
+    from convexadam_torch.utils.devices import probe_device_count
+    from convexadam_torch.utils.memory import device_usage, profile_trace, stage_timer
+
+    t_phase = time.perf_counter()
+    fixed = np.stack([vol_np, vol_np])
+    moving = np.stack([mov_np, np.roll(vol_np, PAIRED_SHIFTS[1], axis=(0, 1, 2))])
+    batched, launches, secs = _counted(torch, lambda: register_pairs_batched(fixed, moving,
+                                                                             device=dev))
+    _launch_checks("9a batched pairs", launches,
+                   sweep_expected(**{k: 2 * v for k, v in EXPECTED_LAUNCHES.items()}))
+    timings: dict = {}
+    for i in range(2):
+        with stage_timer("lone", timings):
+            lone = convex_adam_torch(torch.from_numpy(fixed[i]).to(dev),
+                                     torch.from_numpy(moving[i]).to(dev), ConvexAdamConfig())
+            torch.cuda.synchronize()
+        check(torch.equal(lone, batched[i]), f"9a: batched field {i} differs from its lone call "
+              f"by {max_err(lone, batched[i])}")
+    check(timings["lone"] > 0, "9a: stage_timer read nothing")
+    usage = device_usage(dev)
+    check(usage.startswith("device usage (current/peak): ") and usage.endswith(" GB"),
+          f"9a: device_usage gave {usage!r}")
+    del batched, lone
+    trace_dir = PARALLEL_DIR / "trace"
+    x = torch.randn((12, 32, 32, 32), device=dev)
+    # as device_times: the profiler can miss short kernels in a session, so
+    # up to three sessions of 20 calls
+    for session in range(3):
+        with profile_trace(trace_dir):
+            for _ in range(20):
+                cost_volume(x, x, 4)
+            torch.cuda.synchronize()
+        trace = (trace_dir / "trace.json").read_text()
+        if "cost_volume_kernel" in trace:
+            break
+        print(f"  9a: no cost_volume_kernel in the trace of session {session}", flush=True)
+    check(len(trace) > 0 and "cost_volume_kernel" in trace,
+          "9a: profile_trace wrote no trace of the cost-volume kernel")
+    trace_bytes = len(trace)
+    shutil.rmtree(trace_dir)
+    n_cards = probe_device_count()
+    check(n_cards == 1, f"9a: probe_device_count() = {n_cards}")
+
+    # the sweep CLI, without and with --mesh over an NCCL group of one
+    segs = sweep_subjects()
+    for k, seg in enumerate(segs):
+        save_volume_nib_order(seg.astype(np.float32), np.eye(4), PARALLEL_DIR / f"seg_{k}.nii.gz")
+    settings = sweep_settings(CLI_MESH_CLASSES)
+    full = selfconfig.stage1_settings
+    selfconfig.stage1_settings = lambda: settings
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    arrays = {}
+    try:
+        check(init_distributed() is False, "9a: init_distributed() on a group of one")
+        for tag, extra in (("plain", []), ("mesh", ["--mesh", "--setting_batch", "2"])):
+            cfg = {"topk": [0, 1, 2], "topk_pair": [list(p) for p in SWEEP_PAIRS],
+                   "HWD": list(ABDOMEN_SHAPE), "f_predict": str(PARALLEL_DIR / "seg_%d.nii.gz"),
+                   "f_gt": str(PARALLEL_DIR / "seg_%d.nii.gz"), "num_labels": L2R_LABELS + 1,
+                   "output": str(PARALLEL_DIR / f"cli_{tag}.npz")}
+            path = PARALLEL_DIR / f"cli_{tag}.json"
+            path.write_text(json.dumps(cfg))
+            t0 = time.perf_counter()
+            check(cli_sweep.main(["convex", str(path), "--device", dev.type, *extra]) == 0,
+                  f"9a: sweep CLI {tag}")
+            arrays[tag] = (dict(np.load(cfg["output"])), time.perf_counter() - t0)
+    finally:
+        selfconfig.stage1_settings = full
+        dist.destroy_process_group()
+    for key in ("dice", "jstd", "hd95", "rank"):
+        check(np.array_equal(arrays["mesh"][0][key], arrays["plain"][0][key]),
+              f"9a: sweep CLI --mesh {key} differs")
+    out = {"batched_s": secs, "pairs": 2, "equal_to_lone": True, "lone_s": timings["lone"],
+           "device_usage": usage, "trace_bytes": trace_bytes, "probe_device_count": n_cards,
+           "cli_settings": [list(dataclasses.astuple(st)) for st in settings],
+           "cli_plain_s": arrays["plain"][1], "cli_mesh_s": arrays["mesh"][1],
+           "cli_mesh_equal": True, "launches": {k: v for k, v in launches.items() if v}}
+    print(f"9a: two 192^3 pairs batched in {secs:.4f} s, each equal to its lone call; "
+          f"{usage}; trace {trace_bytes} bytes; probe_device_count {n_cards}; sweep CLI --mesh over "
+          f"NCCL (one rank) equal to the CLI without it ({arrays['mesh'][1]:.2f} / "
+          f"{arrays['plain'][1]:.2f} s); {time.perf_counter() - t_phase:.2f} s", flush=True)
+    results["parallel"] = {"9a_one_process": out}
+    return launches
+
+
+def rank_main(out_dir: str) -> int:
+    """One gloo rank of phases 9b and 9c (``chip_smoke.py --rank OUT``,
+    started by :func:`parallel_ranks_phase` with the process-group
+    environment): the (2, 7) class tensor-parallel in both directions on
+    7e's features, its candidate-block call recorded and held to the plain
+    version (:func:`hold_call`) and the field gathered from every rank;
+    then 5a's stage-1 sweep on a (setting 2, pair 1) grid; the fields,
+    checks, metrics, seconds, peaks and launches to ``OUT/rank<r>.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from convexadam_torch.core.convex import convex_displacement_tp
+    from convexadam_torch.kernels import LAUNCHES, reset_launches
+    from convexadam_torch.parallel.batch import make_sweep_mesh
+    from convexadam_torch.parallel.distributed import all_gather_tensor, init_distributed
+    from convexadam_torch.selfconfig import run_stage1_sweep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rank = int(os.environ["RANK"])
+    check(init_distributed(backend="gloo", timeout_s=PARALLEL_GROUP_TIMEOUT_S), "not joined")
+    segs = sweep_subjects()
+    g, q = STREAM_CLASS
+    fix_s, mov_s = class_features(torch, dev, segs[0], segs[1], g)
+    res: dict = {"rank": rank, "tp": {}}
+    for direction, (a, b) in (("forward", (fix_s, mov_s)), ("reverse", (mov_s, fix_s))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated() / 1e9
+        calls: list = []
+        dist.barrier()
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad(), _recording(torch, calls):
+            field = convex_displacement_tp(a, b, q, dist.group.WORLD)
+        torch.cuda.synchronize()
+        out = {"field": field.cpu().numpy(), "seconds": time.perf_counter() - t0,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "start_gb": start,
+               "launches": dict(LAUNCHES)}
+        with torch.no_grad():
+            # the ranks hold their blocks in turn: a block's plain version
+            # takes about 20 GB at this shape
+            for turn in range(PARALLEL_RANKS):
+                if turn == rank:
+                    out["held"] = [hold_call(torch, name, args) for name, args in calls]
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            fields = all_gather_tensor(field)
+        out["gathered_equal"] = all(torch.equal(f, field) for f in fields)
+        res["tp"][direction] = out
+        del field, fields, calls
+    del fix_s, mov_s
+    torch.cuda.empty_cache()
+    mesh = make_sweep_mesh(PARALLEL_RANKS, 1, device=dev)
+    dist.barrier()
+    reset_launches()
+    t0 = time.perf_counter()
+    s1 = run_stage1_sweep(segs, segs, SWEEP_PAIRS, sweep_settings(), L2R_LABELS, device=dev,
+                          mesh=mesh)
+    res["sweep"] = {"result": s1, "seconds": time.perf_counter() - t0,
+                    "launches": dict(LAUNCHES), "coords": [mesh.coord("setting"),
+                                                          mesh.coord("pair")]}
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(res, fh)
+    return 0
+
+
+def parallel_ranks_phase(torch, s1, dense, results):
+    """9b and 9c: :data:`PARALLEL_RANKS` gloo ranks sharing the card
+    (NCCL takes one rank a device), each a subprocess of this script with a
+    deadline; a rank that fails or outlives the deadline fails the phase.
+    9b: each rank's (2, 7) field, both directions, equal to 7e's dense field
+    ``dense`` to the bit and to the field gathered from the other rank
+    (gloo on CUDA tensors), its candidate-block call equal to the plain
+    version's to the bit, with each rank's seconds, peak and candidate-block
+    launches; 9c: both ranks' ``dice``, ``jstd``, ``hd95``, ``rank`` and
+    ``best`` equal to 5a's result ``s1`` to the bit.  Returns each rank's
+    launches by run."""
+    import pickle
+
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()
+    port = _free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(PARALLEL_RANKS):
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                   WORLD_SIZE=str(PARALLEL_RANKS))
+        log = open(PARALLEL_DIR / f"rank{rank}.log", "w")
+        logs.append(log)
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", str(PARALLEL_DIR)]
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                      stderr=subprocess.STDOUT))
+    try:
+        for rank, p in enumerate(procs):
+            left = max(1.0, PARALLEL_DEADLINE_S - (time.perf_counter() - t0))
+            try:
+                p.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                check(False, f"9b/9c: rank {rank} outlived the {PARALLEL_DEADLINE_S} s deadline")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t0
+    for rank, p in enumerate(procs):
+        tail = (PARALLEL_DIR / f"rank{rank}.log").read_text()[-3000:]
+        check(p.returncode == 0, f"9b/9c: rank {rank} exited {p.returncode}:\n{tail}")
+    ranks = []
+    for rank in range(PARALLEL_RANKS):
+        with open(PARALLEL_DIR / f"rank{rank}.pkl", "rb") as fh:
+            ranks.append(pickle.load(fh))
+    launches, tp_out, sweep_out = {}, [], []
+    for r in ranks:
+        rank = r["rank"]
+        row = {}
+        for direction, d in r["tp"].items():
+            ref = dense[direction].numpy()
+            check(_bits_equal(d["field"], ref), f"9b rank {rank} {direction}: the tensor-parallel "
+                  f"field differs from 7e's dense one by {float(np.abs(d['field'] - ref).max())}")
+            check(d["gathered_equal"], f"9b rank {rank} {direction}: the fields gathered from "
+                  f"the ranks differ")
+            check(d["launches"]["cost_volume_block"] == 1,
+                  f"9b rank {rank} {direction}: {d['launches']['cost_volume_block']} block launches")
+            held = d["held"]
+            check(len(held) == 1 and held[0]["wrapper"] == "cost_volume_block" and _held(held[0]),
+                  f"9b rank {rank} {direction}: candidate-block calls held {held}")
+            row[direction] = {k: d[k] for k in ("seconds", "peak_gb", "start_gb")}
+            row[direction]["cost_volume_block_launches"] = d["launches"]["cost_volume_block"]
+            row[direction]["cost_volume_block_held"] = held[0]
+        launches[f"9b_tp_rank{rank}"] = {k: sum(d["launches"][k] for d in r["tp"].values())
+                                         for k in r["tp"]["forward"]["launches"]}
+        tp_out.append(row)
+        got = r["sweep"]["result"]
+        for key in ("dice", "jstd", "hd95", "rank"):
+            check(np.array_equal(getattr(got, key), getattr(s1, key)),
+                  f"9c rank {rank}: {key} differs from phase 5a's")
+        check(got.best == s1.best, f"9c rank {rank}: winner {got.best}, phase 5a's {s1.best}")
+        l9c = r["sweep"]["launches"]
+        check(l9c["cost_volume"] > 0 and l9c["sample_trilinear_ic"] > 0,
+              f"9c rank {rank}: launches {l9c}")
+        launches[f"9c_sweep_rank{rank}"] = l9c
+        sweep_out.append({"coords": r["sweep"]["coords"], "seconds": r["sweep"]["seconds"],
+                          "times_s": got.times.tolist(),
+                          "launches": {k: v for k, v in l9c.items() if v}})
+        for direction, d in row.items():
+            blk = d["cost_volume_block_held"]
+            print(f"9b rank {rank} (2, 7) {direction}: {d['seconds']:.4f} s, peak "
+                  f"{d['peak_gb']:.2f} GB ({d['start_gb']:.2f} held before), "
+                  f"{d['cost_volume_block_launches']} candidate-block launch; equal to 7e's "
+                  f"dense field and to the gathered fields; the block call {blk['args']} "
+                  f"max_abs_err {blk['max_abs_err']} (tol 0) against its plain version",
+                  flush=True)
+        print(f"9c rank {rank} at (setting, pair) {r['sweep']['coords']}: stage-1 sweep "
+              f"{r['sweep']['seconds']:.4f} s, times {np.round(got.times, 4).tolist()}; "
+              f"dice/jstd/hd95/rank/best equal to 5a's; launches {sweep_out[-1]['launches']}",
+              flush=True)
+    for rank in range(PARALLEL_RANKS):
+        (PARALLEL_DIR / f"rank{rank}.pkl").unlink()
+    print(f"9b/9c: {PARALLEL_RANKS} gloo ranks on one card, {wall:.2f} s wall", flush=True)
+    results["parallel"]["9b_tensor_parallel"] = tp_out
+    results["parallel"]["9c_sweep"] = sweep_out
+    results["parallel"]["ranks_wall_s"] = wall
     return launches
 
 
@@ -3422,7 +4098,22 @@ def main() -> int:
 
     # 7. the challenge recipes at their published shapes, the streamed convex
     # path and the strided data term
-    challenge_launches = challenge_phase(torch, dev, vol_np, mov_np, out, records, results)
+    keep: dict = {}
+    challenge_launches = challenge_phase(torch, dev, vol_np, mov_np, out, records, results, keep)
+
+    # 8. the segmentation front end: the U-Net on its held-out case, then
+    # semantic registration from raw images at the Abdomen shape
+    unet_phase(torch, dev, results)
+    seg_launches = segmentation_entry_phase(torch, dev, records, results)
+
+    # 9. the multi-device layer: one process (batched pairs, the utilities,
+    # the sweep CLI over an NCCL group of one), then two gloo ranks sharing
+    # the card (the tensor-parallel convex stage, the sweep on a grid)
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    parallel_launches = {"9a_batched": parallel_one_process_phase(torch, dev, vol_np, mov_np,
+                                                                  results)}
+    parallel_launches.update(parallel_ranks_phase(torch, s1, keep["7e_dense"], results))
+    shutil.rmtree(PARALLEL_DIR)
 
     # 8. output: each kernel's launches on the path that runs it
     variant_runs = {"cost_volume_sad": ("7c_task3", "task 3 (SAD) registration of phase 7c"),
@@ -3435,6 +4126,8 @@ def main() -> int:
         name = rec["name"]
         rec["launches_challenges"] = {k: v[name] for k, v in challenge_launches.items()}
         rec["launches_file"] = {k: v[name] for k, v in file_launches.items()}
+        rec["launches_segmentation"] = {"8b_semantic_from_images": seg_launches[name]}
+        rec["launches_parallel"] = {k: v[name] for k, v in parallel_launches.items()}
         rec["launches_sweep"] = {"stage1": sweep_l1[name], "stage2": sweep_l2[name],
                                  "paired_stage1": paired_l1[name], "paired_stage2": paired_l2[name],
                                  "stage1_resume": resume_l[name]}
@@ -3474,6 +4167,8 @@ def main() -> int:
                                              "launches_stage2")}}))
     print(json.dumps({"phase6": {k: v for k, v in results.items() if k.startswith("file_")}}))
     print(json.dumps({"phase7": results["challenges"]}))
+    print(json.dumps({"phase8": results["segmentation"]}))
+    print(json.dumps({"phase9": results["parallel"]}))
     print(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "timing_readings"}
                                   for r in records]}))
@@ -3483,4 +4178,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2]))
     sys.exit(main())

@@ -3,7 +3,9 @@
 The main path is the default MIND registration (:func:`convex_adam`, and
 :func:`convex_adam_torch` on tensors); the nnU-Net
 semantic registration of two label volumes is
-:func:`convex_adam_semantic_torch`, the self-configuring grid's nine-variant
+:func:`convex_adam_semantic_torch` (and of two raw images, through the
+U-Net front end of :mod:`convexadam_torch.models`,
+:func:`convex_adam_semantic_from_images`), the self-configuring grid's nine-variant
 run :func:`convex_adam_multi_output`, the Learn2Reg evaluation of a
 registered case :func:`evaluate_field`, the self-configuring sweep over
 convex and Adam settings and the Learn2Reg task driver
@@ -49,6 +51,7 @@ from convexadam_torch.pipeline.convex_adam import (  # noqa: E402
     ConvexAdamConfig,
     convex_adam,
     convex_adam_multi_output,
+    convex_adam_semantic_from_images,
     convex_adam_semantic_torch,
     convex_adam_torch,
 )
@@ -58,6 +61,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "ConvexAdamConfig", "apply_convex", "apply_convex_torch", "convex_adam",
-    "convex_adam_multi_output", "convex_adam_semantic_torch", "convex_adam_torch",
+    "convex_adam_multi_output", "convex_adam_semantic_from_images",
+    "convex_adam_semantic_torch", "convex_adam_torch",
     "evaluate_field", "__version__",
 ]

@@ -9,10 +9,16 @@ pairs), ``HWD`` (volume shape), ``f_predict`` / ``f_gt`` (printf-style
 paths of predicted / ground-truth label volumes), ``num_labels``,
 ``output`` (metrics file).
 
-The port runs one (setting, pair) at a time on one card: ``--mesh`` raises
-(the multi-device fan-out is ROADMAP queue A item 9), and
-``--setting_batch`` is parsed and has no effect.  Metrics checkpoints are
-``.npz`` files, as in the JAX package.
+``--mesh`` joins the process group that ``torch.distributed``'s environment
+describes (``parallel.distributed.init_distributed``: a no-op for one
+process; ``torchrun`` with NCCL, one rank a card, for several) and spreads
+the sweep's (setting, pair) cells over a (setting, pair) grid of its ranks
+(``parallel.batch.make_sweep_mesh``); every rank computes the same result
+and rank 0 writes the files and prints.  ``--setting_batch`` is the number of
+settings a batch holds (spread along the grid's setting axis; by default one
+per rank along it); the metrics checkpoint is written after every batch.
+``infer`` runs on one device either way.  Metrics checkpoints are ``.npz``
+files, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -47,12 +53,13 @@ def main(argv=None):
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument(
         "--mesh", action="store_true",
-        help="fan the sweep out over all devices (not ported: raises)",
+        help="fan the sweep out over the ranks of the torch.distributed process group "
+        "on a (setting, pair) grid",
     )
     parser.add_argument(
         "--setting_batch", type=int, default=None,
-        help="accepted for the JAX CLI's command lines; the port runs one "
-        "setting at a time, so it has no effect",
+        help="settings per batch, spread over the grid's setting axis and checkpointed "
+        "together (default: the setting axis's ranks)",
     )
     parser.add_argument(
         "--resume", action="store_true",
@@ -61,11 +68,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device ('cuda' or 'cpu')")
     args = parser.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: the port has no multi-device sweep yet (ROADMAP queue A item 9, "
-            "parallel/); run without --mesh on one card"
-        )
 
     with open(args.configfile) as f:
         config = json.load(f)
@@ -92,21 +94,33 @@ def main(argv=None):
     pairs = [tuple(p) for p in config["topk_pair"]]
     preds, segs = _load_data(config)
 
+    mesh = None
+    if args.mesh:
+        from convexadam_torch.parallel.batch import make_sweep_mesh
+        from convexadam_torch.parallel.distributed import init_distributed
+
+        init_distributed()
+        mesh = make_sweep_mesh(device=args.device)
+    fan = dict(mesh=mesh, setting_batch=args.setting_batch)
+    # every rank computes the result; rank 0 writes it and prints
+    lead = mesh is None or mesh.rank == 0
+
     if args.stage == "convex":
         settings = stage1_settings()
         res = run_stage1_sweep(
             preds, segs, pairs, settings, num_labels, verbose=args.verbose,
-            checkpoint_path=config["output"], resume=args.resume, device=args.device,
+            checkpoint_path=config["output"], resume=args.resume, device=args.device, **fan,
         )
-        np.savez(
-            config["output"],
-            dice=res.dice, jstd=res.jstd, hd95=res.hd95, times=res.times, rank=res.rank,
-        )
-        print(f"best convex setting: s={res.best} {settings[res.best]}")
-        print(
-            f"dice {res.dice[res.best,0]:.4f}/{res.dice[res.best,1]:.4f} "
-            f"jstd {res.jstd[res.best,0]:.4f}"
-        )
+        if lead:
+            np.savez(
+                config["output"],
+                dice=res.dice, jstd=res.jstd, hd95=res.hd95, times=res.times, rank=res.rank,
+            )
+            print(f"best convex setting: s={res.best} {settings[res.best]}")
+            print(
+                f"dice {res.dice[res.best,0]:.4f}/{res.dice[res.best,1]:.4f} "
+                f"jstd {res.jstd[res.best,0]:.4f}"
+            )
         # the console-script wrapper sys.exit()s this return value: the best
         # index is printed and saved, not returned as an exit code
         return 0
@@ -118,16 +132,17 @@ def main(argv=None):
     out = config.get("output_adam", config["output"])
     res = run_stage2_sweep(
         preds, segs, pairs, convex, adam_settings, num_labels, verbose=args.verbose,
-        checkpoint_path=out, resume=args.resume, device=args.device,
+        checkpoint_path=out, resume=args.resume, device=args.device, **fan,
     )
-    np.savez(out, dice=res.dice, jstd=res.jstd, hd95=res.hd95, rank=res.rank)
-    s1, s2 = res.best // 16, res.best % 16
-    iters, kks = decode_adam_variant(s2)
-    print(
-        f"best adam setting: s1={s1} s2={s2} {adam_settings[s1]} "
-        f"iters={iters} extra_smooth={kks}"
-    )
-    print(f"dice {res.dice[res.best,0]:.4f}/{res.dice[res.best,1]:.4f}")
+    if lead:
+        np.savez(out, dice=res.dice, jstd=res.jstd, hd95=res.hd95, rank=res.rank)
+        s1, s2 = res.best // 16, res.best % 16
+        iters, kks = decode_adam_variant(s2)
+        print(
+            f"best adam setting: s1={s1} s2={s2} {adam_settings[s1]} "
+            f"iters={iters} extra_smooth={kks}"
+        )
+        print(f"dice {res.dice[res.best,0]:.4f}/{res.dice[res.best,1]:.4f}")
     return 0
 
 

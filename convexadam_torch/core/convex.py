@@ -1,18 +1,22 @@
 """Coupled convex optimisation, the global discrete regulariser.
 
-Counterpart of ``coupled_convex`` (exact form), ``correlate_coupled_streamed``
-and ``convex_displacement`` in ``convexadam_tpu/core/convex.py``.  Starting
+Counterpart of ``coupled_convex`` (exact form), ``correlate_coupled_streamed``,
+``convex_displacement`` and ``convex_displacement_tp`` in
+``convexadam_tpu/core/convex.py``.  Starting
 from the box-smoothed argmin field, six rounds with growing coupling ``c``
 pick, per coarse voxel, the displacement minimising ``ssd[k] + c *
 ||d_k - disp_soft||^2`` and box-smooth the picked field.  The dense form
 holds the whole (K^3, h, w, d) cost volume; the streamed form makes it again
 in blocks of K^2 candidates for the initial argmin and for each coupling,
-keeping only a running (best, argmin).
+keeping only a running (best, argmin).  The tensor-parallel form spreads the
+candidates over the ranks of a process group and finds each voxel's first
+minimum with two collective minima a round.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from convexadam_torch.core.cost_volume import correlate, displacement_mesh
 from convexadam_torch.core.smoothing import avg_pool3d, window_mean3d
@@ -186,3 +190,92 @@ def convex_displacement(
                                           smooth_passes=smooth_passes)
     ssd, am = correlate(feat_fix, feat_mov, disp_hw, metric=metric, smooth_passes=smooth_passes)
     return coupled_convex(ssd, am, displacement_mesh(disp_hw, device=ssd.device))
+
+
+def _candidate_costs(fix, mov, disp_hw, lo, hi, metric):
+    """The unsmoothed costs of the candidates ``lo <= k < hi`` of the flat
+    order ``k = kd*K^2 + kw*K + kh``, as (hi - lo, h, w, d): one
+    :func:`~convexadam_torch.kernels.cost_volume.cost_volume_block` call on
+    the features with their spatial axes reversed, which makes the block's
+    ``kh`` range a range of ``kd`` planes; each value is the dense volume's,
+    to the bit (the same channel sum, at other addresses)."""
+    K = 2 * disp_hw + 1
+    kd0, kd1 = lo // (K * K), (hi - 1) // (K * K) + 1
+    rev = (0, 3, 2, 1)
+    slab = cost_volume_block(fix.permute(rev).contiguous(), mov.permute(rev).contiguous(),
+                             disp_hw, kd0, kd1 - kd0, metric)
+    # (kh, kw, kd - kd0, d, w, h) → (kd - kd0, kw, kh, h, w, d)
+    n = kd1 - kd0
+    slab = slab.reshape((K, K, n) + tuple(slab.shape[1:])).permute(2, 1, 0, 5, 4, 3)
+    slab = slab.reshape((K * K * n,) + tuple(fix.shape[1:]))
+    return slab[lo - kd0 * K * K:hi - kd0 * K * K].contiguous()
+
+
+def convex_displacement_tp(
+    feat_fix: torch.Tensor,
+    feat_mov: torch.Tensor,
+    disp_hw: int,
+    group=None,
+    metric: str = "ssd",
+    smooth_passes: int = 2,
+) -> torch.Tensor:
+    """Tensor-parallel convex stage: the (2q+1)^3 candidates spread over
+    the ranks of the process group ``group`` (``torch.distributed.group.WORLD``
+    for every rank; ``None``: this rank alone holds them all), each rank
+    holding only its slice of the cost volume.
+
+    Rank r of n takes the contiguous candidates ``[r*m, (r+1)*m)``, ``m =
+    ceil(K^3 / n)``, of the list padded with the last candidate (as the JAX
+    package pads): a padded copy of candidate K^3 - 1 changes neither a
+    minimum nor its first index, so each rank evaluates only its distinct
+    candidates, and a rank whose slice is all padding evaluates K^3 - 1.
+    The costs, their box passes and each round's coupled cost are the dense
+    path's (:func:`correlate`, :func:`_coupled_cost`); per round two
+    collective minima recover every voxel's global first minimum, the value
+    first, then the smallest index among the ranks that hold it.  The field
+    therefore equals :func:`convex_displacement`'s to the bit, on every rank.
+    ``feat_fix``/``feat_mov`` (C, h, w, d) lie on this rank's device.
+
+    Returns ``disp_soft`` (3, h, w, d) in coarse voxels.
+    """
+    n_ranks, r = (1, 0) if group is None else (dist.get_world_size(group), dist.get_rank(group))
+    q = disp_hw
+    K3 = (2 * q + 1) ** 3
+    m = -(-K3 // n_ranks)
+    lo, hi = min(r * m, K3 - 1), min((r + 1) * m, K3)
+    fix = feat_fix.float().contiguous()
+    mov = feat_mov.float().contiguous()
+    shape = tuple(fix.shape[1:])
+    n = fix[0].numel()
+    dev = fix.device
+    costs = _candidate_costs(fix, mov, q, lo, hi, metric)
+    for _ in range(smooth_passes):
+        costs = window_mean3d(costs, 3, stride=1, padding=1)
+    costs = costs.reshape(hi - lo, n)
+    mesh = displacement_mesh(q, device=dev)
+    ks = torch.arange(lo, hi, device=dev)
+    mesh_l = mesh[:, ks]
+    chunk = max(1, COUPLED_CHUNK_BYTES // (3 * (hi - lo) * 4))
+
+    def global_argmin(s=None, c=None):
+        val = torch.empty(n, dtype=torch.float32, device=dev)
+        idx = torch.empty(n, dtype=torch.int64, device=dev)
+        for a in range(0, n, chunk):
+            b = min(a + chunk, n)
+            block = costs[:, a:b] if s is None else _coupled_cost(costs[:, a:b], mesh_l,
+                                                                    s[:, a:b], c)
+            v, i = torch.min(block, dim=0)
+            val[a:b], idx[a:b] = v, ks[i]
+        if n_ranks == 1:
+            return idx.reshape(shape)
+        gmin = val.clone()
+        dist.all_reduce(gmin, op=dist.ReduceOp.MIN, group=group)
+        cand = torch.where(val == gmin, idx, torch.full_like(idx, K3))
+        dist.all_reduce(cand, op=dist.ReduceOp.MIN, group=group)
+        return cand.reshape(shape)
+
+    disp_soft = avg_pool3d(_gather_disp(mesh, global_argmin()), 3, stride=1, padding=1)
+    for c in COUPLING_COEFFS:
+        am = global_argmin(disp_soft.reshape(3, -1), c)
+        disp_soft = avg_pool3d(_gather_disp(mesh, am), 3, stride=1, padding=1)
+    return disp_soft

@@ -12,6 +12,10 @@ Counterpart of ``convexadam_tpu/pipeline/convex_adam.py``:
   6. optional Adam instance optimisation at ``grid_sp_adam`` resolution,
   7. optional cascaded box smoothing of the full-resolution field.
 
+:func:`convex_adam_semantic_from_images` puts the segmentation front end
+(:mod:`convexadam_torch.models`) before the semantic pipeline, so that it
+runs from raw intensity volumes.
+
 Like the JAX package, ``ic=False`` upsamples the coarse field and rescales
 it by ``grid_sp`` instead of returning coarse-voxel units.
 :func:`convex_adam_multi_output` runs stages 2-7 once and returns the fields
@@ -29,7 +33,7 @@ import torch
 from convexadam_torch import _resolve_device
 from convexadam_torch.core.adam import adam_instance_optimisation
 from convexadam_torch.core.convex import convex_displacement
-from convexadam_torch.core.features import mindssc, semantic_features
+from convexadam_torch.core.features import mindssc, nnunet_norm, semantic_features
 from convexadam_torch.core.smoothing import avg_pool3d, box_smooth_repeated
 from convexadam_torch.core.warp import inverse_consistency, resize_trilinear
 
@@ -321,4 +325,46 @@ def convex_adam(
     f = torch.from_numpy(validate_volume(img_fixed)).to(dev)
     m = torch.from_numpy(validate_volume(img_moving)).to(dev)
     out = convex_adam_torch(f, m, cfg)
+    return out.cpu().numpy().astype(np.float32, copy=False)
+
+
+def convex_adam_semantic_from_images(
+    img_fixed,
+    img_moving,
+    predict_logits,
+    patch_size,
+    cfg: "ConvexAdamConfig | None" = None,
+    num_labels: "int | None" = None,
+    mult: float = 10.0,
+    normalize: bool = True,
+    step_size: float = 0.5,
+    device: "str | torch.device | None" = None,
+) -> np.ndarray:
+    """Semantic registration from raw intensity volumes (the JAX package's
+    entry of the same name): :func:`validate_volume`, nnU-Net intensity
+    normalisation (:func:`~convexadam_torch.core.features.nnunet_norm`,
+    unless ``normalize=False``), Gaussian-blended sliding-window labels of
+    both volumes (``predict_logits`` maps patches (B, h, w, d) to logits
+    (B, C, h, w, d), e.g. :func:`~convexadam_torch.models.make_predictor`),
+    then :func:`convex_adam_semantic_torch` with ``num_labels`` one-hot
+    channels (by default the largest predicted label + 1).  The labels stay
+    on the device.  Runs on ``cuda`` unless ``device="cpu"``.
+
+    Returns the displacement field (H, W, D, 3) in voxels, a numpy array.
+    """
+    from convexadam_torch.models.segmentation import predict_labels
+
+    dev = _resolve_device(device)
+    if cfg is None:
+        cfg = ConvexAdamConfig()
+    f = torch.from_numpy(validate_volume(img_fixed)).to(dev)
+    m = torch.from_numpy(validate_volume(img_moving)).to(dev)
+    if normalize:
+        f, m = nnunet_norm(f), nnunet_norm(m)
+    pred_f = predict_labels(predict_logits, f, patch_size, step_size, device=dev)
+    pred_m = predict_labels(predict_logits, m, patch_size, step_size, device=dev)
+    if num_labels is None:
+        num_labels = int(torch.maximum(pred_f.max(), pred_m.max())) + 1
+    out = convex_adam_semantic_torch(pred_f, pred_m, cfg, num_labels=num_labels, mult=mult,
+                                     device=dev)
     return out.cpu().numpy().astype(np.float32, copy=False)

@@ -6,14 +6,21 @@ workloads (SURVEY.md §3.4): stage 1 sweeps 100 convex settings x N case
 pairs (convex_run_withconfig.py), stage 2 sweeps 75 Adam settings x N pairs
 x 16 evaluation variants (adam_run_withconfig_shiftSpline.py), each as a
 sequential Python loop.  Here too settings and pairs are host loops, one
-(setting, pair) at a time on one card.
+(setting, pair) at a time on a card.
 
-What the JAX engine needs only for XLA on TPUs has no counterpart, so the
-sweeps take no ``mesh``, ``setting_batch`` or ``pair_chunk``: the settings
-and pairs ``vmap``s and ``setting_batch`` exist to share one compiled
-program; ``pair_chunk`` splits one long XLA program, and a host loop over
-pairs has no program to split; the compile-ahead workers hide remote
-compiles; the mesh fans out over devices (a later item of the port).  The
+With a ``mesh`` (a (setting, pair) grid of ranks from
+``parallel.batch.make_sweep_mesh``) the sweep fans out over the ranks of a
+process group, the counterpart of the reference's process-per-GPU sweeps
+(convex_run_withconfig.py:42-43) and of the JAX package's mesh: the
+settings still to run go in batches of ``setting_batch`` (by default one per
+rank along ``setting``), each batch spread in contiguous blocks along the
+``setting`` axis and the pairs along the ``pair`` axis.  After each batch
+every rank gathers every (setting, pair)'s metrics on the host, so every rank
+computes the same aggregates and returns the same ``SweepResult``; only rank
+0 writes the checkpoint, once a batch.  Without a mesh, ``setting_batch``
+sets how many settings run between two checkpoints.  The JAX package's
+``pair_chunk`` splits one long XLA program, and a host loop over pairs has
+no program to split; its compile-ahead workers hide remote compiles.  The
 CUDA kernels are built once, before the first timed setting.
 
 HD95 runs on the device engine (``core/edt.py``) on the card and in the
@@ -61,6 +68,8 @@ from convexadam_torch.core.smoothing import box_smooth_repeated
 from convexadam_torch.core.warp import resize_trilinear, warp_with_displacement
 from convexadam_torch.kernels import _build
 from convexadam_torch.kernels.edt import PRUNED_TILE, host_ints
+from convexadam_torch.parallel.batch import Mesh, shard_range
+from convexadam_torch.parallel.distributed import all_gather_object
 from convexadam_torch.pipeline.convex_adam import (
     ConvexAdamConfig,
     _adam_inputs,
@@ -317,9 +326,11 @@ def _load_kernels(dev: torch.device) -> None:
 class _Scoring:
     """What a sweep needs to score a field of pair ``i``: the label volumes
     on the device, the HD95 mode and, for the device engine, the scorer and
-    each pair's prepared fixed side (made once per sweep)."""
+    the prepared fixed side of each pair in ``own`` (every pair by default;
+    made once per sweep)."""
 
-    def __init__(self, preds_np, segs_np, pairs, num_labels, compute_hd95, hd95_mode, dev):
+    def __init__(self, preds_np, segs_np, pairs, num_labels, compute_hd95, hd95_mode, dev,
+                 own=None):
         self.dev, self.num_labels = dev, num_labels
         self.segs_np = segs_np
         self.fi = [p[0] for p in pairs]
@@ -334,8 +345,9 @@ class _Scoring:
         if self.mode == "device":
             groups, kg = _suggest_label_groups(segs_np, num_labels)
             self.scorer = _HD95Scorer(num_labels, groups, kg, dev)
+            own = range(len(self.fi)) if own is None else own
             with torch.no_grad():
-                self.sides = [self.scorer.prep(self.segs[f]) for f in self.fi]
+                self.sides = {i: self.scorer.prep(self.segs[self.fi[i]]) for i in own}
 
     def pair(self, i: int, fields):
         """Score the fields (3, H, W, D) of pair ``i``.  Returns host arrays
@@ -431,6 +443,63 @@ def _save(ck, arrays: dict, completed: set) -> None:
         ck.save(dict(arrays, completed=np.array(sorted(completed), np.int64)))
 
 
+class _Fanout:
+    """Which (setting, pair) cells this rank computes, and the gathers that
+    give every rank all of them.  Without a mesh: every cell, no gather.
+
+    ``batches`` cuts the settings to run into batches of ``setting_batch``
+    (by default one per rank along ``setting``); :meth:`settings` is this
+    rank's contiguous block of a batch along ``setting``, :attr:`pairs` its
+    block of the pairs along ``pair``."""
+
+    def __init__(self, mesh: "Mesh | None", n_pairs: int, setting_batch: "int | None"):
+        self.mesh = mesh
+        self.n_set = 1 if mesh is None else mesh.size("setting")
+        self.set_coord = 0 if mesh is None else mesh.coord("setting")
+        self.pairs = list(range(n_pairs)) if mesh is None else list(
+            shard_range(n_pairs, mesh.size("pair"), mesh.coord("pair")))
+        self.batch = max(1, self.n_set) if setting_batch is None else int(setting_batch)
+        if self.batch < 1:
+            raise ValueError(f"setting_batch must be at least 1, got {setting_batch}")
+        # rank 0 writes the checkpoint and prints
+        self.lead = mesh is None or mesh.rank == 0
+
+    def batches(self, todo):
+        return [todo[a:a + self.batch] for a in range(0, len(todo), self.batch)]
+
+    def settings(self, batch):
+        return [batch[j] for j in shard_range(len(batch), self.n_set, self.set_coord)]
+
+    def gather(self, obj) -> list:
+        """``obj`` of every rank, in rank order (``[obj]`` without a process
+        group)."""
+        if self.mesh is None or not self.mesh.distributed:
+            return [obj]
+        return all_gather_object(obj)
+
+
+def _sweep_device(device, mesh: "Mesh | None") -> torch.device:
+    """The sweep's device: ``device`` if given, else the mesh's, else
+    ``cuda``."""
+    if device is None and mesh is not None:
+        return mesh.device
+    return _resolve_device(device)
+
+
+def _fill(cases: dict, times: np.ndarray, gathered: list, keys) -> None:
+    """Every rank's cells ``(s, i, *values)`` into ``cases`` and, per
+    setting, the longest any rank spent on it into ``times``."""
+    secs: dict = {}
+    for cells, rank_secs in gathered:
+        for s, i, *vals in cells:
+            for key, v in zip(keys, vals):
+                cases[key][s, i] = v
+        for s, t in rank_secs.items():
+            secs[s] = max(secs.get(s, 0.0), t)
+    for s, t in secs.items():
+        times[s] = t
+
+
 def run_stage1_sweep(
     preds: np.ndarray,
     segs: np.ndarray,
@@ -440,6 +509,8 @@ def run_stage1_sweep(
     compute_hd95: bool = True,
     verbose: bool = False,
     checkpoint_path=None,
+    mesh: "Mesh | None" = None,
+    setting_batch: "int | None" = None,
     resume: bool = False,
     hd95_mode: "str | None" = None,
     device: "str | torch.device | None" = None,
@@ -452,60 +523,70 @@ def run_stage1_sweep(
 
     ``preds``/``segs``: (K, H, W, D) integer label volumes (predictions and
     ground truth); ``pairs``: (fixed_idx, moving_idx) tuples.  Runs on
-    ``cuda`` unless ``device="cpu"``.  ``hd95_mode``: "device" (the surface
-    point-set engine), "host" (the reference-style scipy EDT loop), or None:
-    "device" on the card, "host" on the CPU.
+    ``cuda`` unless ``device="cpu"`` (with a ``mesh``, on the mesh's
+    device).  ``hd95_mode``: "device" (the surface point-set engine),
+    "host" (the reference-style scipy EDT loop), or None: "device" on the
+    card, "host" on the CPU.
 
-    With ``checkpoint_path`` the metric arrays are saved after every setting;
-    with ``resume`` completed settings are skipped.  ``times[s]`` is the
-    setting's seconds over all pairs, read after the card has finished, the
-    host HD95 loop and overflow re-scoring left out.
+    With ``checkpoint_path`` the metric arrays are saved after every batch
+    of ``setting_batch`` settings; with ``resume`` completed settings are
+    skipped.  With a ``mesh`` the (setting, pair) cells spread over the
+    ranks (module docstring); ``dice``, ``jstd``, ``hd95``, ``rank`` and
+    ``best`` equal the single-process run's to the bit on every rank.
+    ``times[s]`` is the setting's seconds over its pairs, read after the
+    card has finished, the host HD95 loop and overflow re-scoring left out;
+    with a mesh, the longest any rank spent on it.
     """
-    dev = _resolve_device(device)
+    dev = _sweep_device(device, mesh)
     pairs = list(pairs)
     P, L = len(pairs), num_labels
+    fan = _Fanout(mesh, P, setting_batch)
     robust30 = _robust30_label_sets(segs, pairs, num_labels)
     scoring = _Scoring(np.asarray(preds, np.int32), np.asarray(segs, np.int32), pairs,
-                       num_labels, compute_hd95, hd95_mode, dev)
+                       num_labels, compute_hd95, hd95_mode, dev, own=fan.pairs)
     S = len(settings)
     arrays = dict(dice=np.zeros((S, 2)), jstd=np.zeros((S, 2)), hd95=np.zeros(S),
                   times=np.zeros(S))
     dice, jstd, hd, times = arrays["dice"], arrays["jstd"], arrays["hd95"], arrays["times"]
     ck, completed = _restore(checkpoint_path, resume, arrays)
+    keys = ("dice", "sdlogj", "neg_jac_frac", "hd95")
     cases = dict(dice=np.full((S, P, L), np.nan, np.float32),
                  sdlogj=np.full((S, P), np.nan, np.float32),
                  neg_jac_frac=np.full((S, P), np.nan, np.float32),
                  hd95=np.full((S, P), np.nan))
     _load_kernels(dev)
-    for s, st in enumerate(settings):
-        if s in completed:
-            continue  # resume: already in the checkpoint
-        _sync(dev)
-        t0, excluded = time.perf_counter(), 0.0
-        for i in range(P):
-            with record_function("sweep.convex"):
-                field = convex_field_semantic(
-                    scoring.preds[scoring.fi[i]], scoring.preds[scoring.mi[i]], st.nn_mult,
-                    num_labels + 1, st.grid_sp, st.disp_hw, device=dev,
-                )
-            (d, js, nf, hd_c), t_ex = scoring.pair(i, [field])
-            del field
-            excluded += t_ex
-            for key, v in zip(("dice", "sdlogj", "neg_jac_frac", "hd95"), (d, js, nf, hd_c)):
-                cases[key][s, i] = v[0]
-        times[s] = time.perf_counter() - t0 - excluded
-        d = cases["dice"][s]
-        dice[s, 0] = d.mean()
-        dice[s, 1] = np.mean([d[i, robust30[i]].mean() for i in range(P)])
-        jstd[s, 0] = cases["sdlogj"][s].mean()
-        jstd[s, 1] = cases["neg_jac_frac"][s].mean()
-        if compute_hd95:
-            hd[s] = cases["hd95"][s].mean()
-        if verbose:
-            print(f"s={s} {st} dice={dice[s, 0]:.4f}/{dice[s, 1]:.4f} "
-                  f"jstd={jstd[s, 0]:.4f} hd95={hd[s]:.3f} t={times[s]:.2f}s")
-        completed.add(s)
-        _save(ck, arrays, completed)
+    for batch in fan.batches([s for s in range(S) if s not in completed]):
+        cells, secs = [], {}
+        for s in fan.settings(batch):
+            st = settings[s]
+            _sync(dev)
+            t0, excluded = time.perf_counter(), 0.0
+            for i in fan.pairs:
+                with record_function("sweep.convex"):
+                    field = convex_field_semantic(
+                        scoring.preds[scoring.fi[i]], scoring.preds[scoring.mi[i]], st.nn_mult,
+                        num_labels + 1, st.grid_sp, st.disp_hw, device=dev,
+                    )
+                out, t_ex = scoring.pair(i, [field])
+                del field
+                excluded += t_ex
+                cells.append((s, i, *(v[0] for v in out)))
+            secs[s] = time.perf_counter() - t0 - excluded
+        _fill(cases, times, fan.gather((cells, secs)), keys)
+        for s in batch:
+            d = cases["dice"][s]
+            dice[s, 0] = d.mean()
+            dice[s, 1] = np.mean([d[i, robust30[i]].mean() for i in range(P)])
+            jstd[s, 0] = cases["sdlogj"][s].mean()
+            jstd[s, 1] = cases["neg_jac_frac"][s].mean()
+            if compute_hd95:
+                hd[s] = cases["hd95"][s].mean()
+            if verbose and fan.lead:
+                print(f"s={s} {settings[s]} dice={dice[s, 0]:.4f}/{dice[s, 1]:.4f} "
+                      f"jstd={jstd[s, 0]:.4f} hd95={hd[s]:.3f} t={times[s]:.2f}s")
+            completed.add(s)
+        if fan.lead:
+            _save(ck, arrays, completed)
 
     # sort_rank gives rank 1.0 to the SMALLEST value → negate the
     # higher-is-better metrics (convex_run_withconfig.py:162-169); HD95
@@ -515,8 +596,15 @@ def run_stage1_sweep(
     if compute_hd95:
         ranks.insert(2, sort_rank(hd))
     rank1 = rank_product(ranks)
+    rescored, rescore_sec = _audit(fan, scoring)
     return SweepResult(dice, jstd, hd, times, rank1, int(rank1.argmax()),
-                       scoring.rescored, scoring.rescore_sec, cases)
+                       rescored, rescore_sec, cases)
+
+
+def _audit(fan: _Fanout, scoring: _Scoring) -> "tuple[int, float]":
+    """The cap-overflow audit summed over the ranks."""
+    parts = fan.gather((scoring.rescored, scoring.rescore_sec))
+    return sum(p[0] for p in parts), sum(p[1] for p in parts)
 
 
 # ---------------------------------------------------------------------------
@@ -590,6 +678,8 @@ def run_stage2_sweep(
     compute_hd95: bool = True,
     verbose: bool = False,
     checkpoint_path=None,
+    mesh: "Mesh | None" = None,
+    setting_batch: "int | None" = None,
     resume: bool = False,
     hd95_mode: "str | None" = None,
     feat_dtype: str = "auto",
@@ -600,65 +690,72 @@ def run_stage2_sweep(
     variants (pass B) and rank over the flattened S x 16 grid
     (adam_run_withconfig_shiftSpline.py:43-307); the metric arrays come
     back flattened to (S * 16, ...).  Arguments as
-    :func:`run_stage1_sweep`; ``feat_dtype`` as :func:`_stage2_variants`.
+    :func:`run_stage1_sweep`; with a ``mesh`` each rank caches the fields of
+    its own pairs only.  ``feat_dtype`` as :func:`_stage2_variants`.
     ``compute_hd95`` defaults True like stage 1: the reference's rank always
     includes HD95 (adam_run_withconfig_shiftSpline.py:276)."""
-    dev = _resolve_device(device)
+    dev = _sweep_device(device, mesh)
     pairs = list(pairs)
     P, L = len(pairs), num_labels
+    fan = _Fanout(mesh, P, setting_batch)
     robust30 = _robust30_label_sets(segs, pairs, num_labels)
     scoring = _Scoring(np.asarray(preds, np.int32), np.asarray(segs, np.int32), pairs,
-                       num_labels, compute_hd95, hd95_mode, dev)
+                       num_labels, compute_hd95, hd95_mode, dev, own=fan.pairs)
     _load_kernels(dev)
     pf = [scoring.preds[f] for f in scoring.fi]
     pm = [scoring.preds[m] for m in scoring.mi]
     # pass A: the coarse convex fields, and each pair's data-term scale
     with record_function("sweep.convex"):
-        disps_lr = [
-            convex_field_semantic(pf[i], pm[i], convex_setting.nn_mult, num_labels + 1,
-                                  convex_setting.grid_sp, convex_setting.disp_hw, coarse=True,
-                                  device=dev)
-            for i in range(P)
-        ]
-    scales = [_cost_scale(pf[i], pm[i], num_labels) for i in range(P)]
+        disps_lr = {
+            i: convex_field_semantic(pf[i], pm[i], convex_setting.nn_mult, num_labels + 1,
+                                     convex_setting.grid_sp, convex_setting.disp_hw, coarse=True,
+                                     device=dev)
+            for i in fan.pairs
+        }
+    scales = {i: _cost_scale(pf[i], pm[i], num_labels) for i in fan.pairs}
 
     S = len(adam_settings)
     arrays = dict(dice=np.zeros((S, 4, 4, 2)), jstd=np.zeros((S, 4, 4, 2)),
                   hd95=np.zeros((S, 4, 4)), times=np.zeros(S))
     dice, jstd, hd, times = arrays["dice"], arrays["jstd"], arrays["hd95"], arrays["times"]
     ck, completed = _restore(checkpoint_path, resume, arrays)
+    keys = ("dice", "sdlogj", "neg_jac_frac", "hd95")
     cases = dict(dice=np.full((S, P, 4, 4, L), np.nan, np.float32),
                  sdlogj=np.full((S, P, 4, 4), np.nan, np.float32),
                  neg_jac_frac=np.full((S, P, 4, 4), np.nan, np.float32),
                  hd95=np.full((S, P, 4, 4), np.nan))
-    for s, st in enumerate(adam_settings):
-        if s in completed:
-            continue
-        _sync(dev)
-        t0, excluded = time.perf_counter(), 0.0
-        for i in range(P):
-            fields = _stage2_variants(
-                pf[i], pm[i], disps_lr[i], convex_setting.nn_mult, st.lambda_weight,
-                st.grid_sp_adam, st.effective_avg_n, num_labels, scales[i], feat_dtype,
+    for batch in fan.batches([s for s in range(S) if s not in completed]):
+        cells, secs = [], {}
+        for s in fan.settings(batch):
+            st = adam_settings[s]
+            _sync(dev)
+            t0, excluded = time.perf_counter(), 0.0
+            for i in fan.pairs:
+                fields = _stage2_variants(
+                    pf[i], pm[i], disps_lr[i], convex_setting.nn_mult, st.lambda_weight,
+                    st.grid_sp_adam, st.effective_avg_n, num_labels, scales[i], feat_dtype,
+                )
+                out, t_ex = scoring.pair(i, fields)
+                excluded += t_ex
+                cells.append((s, i, *(v.reshape((4, 4) + v.shape[1:]) for v in out)))
+            secs[s] = time.perf_counter() - t0 - excluded
+        _fill(cases, times, fan.gather((cells, secs)), keys)
+        for s in batch:
+            dg = cases["dice"][s]  # (P, 4, 4, L)
+            dice[s, :, :, 0] = dg.mean(axis=(0, 3))
+            dice[s, :, :, 1] = np.mean(
+                [dg[i][:, :, robust30[i]].mean(-1) for i in range(P)], axis=0
             )
-            out, t_ex = scoring.pair(i, fields)
-            excluded += t_ex
-            for key, v in zip(("dice", "sdlogj", "neg_jac_frac", "hd95"), out):
-                cases[key][s, i] = v.reshape((4, 4) + v.shape[1:])
-        times[s] = time.perf_counter() - t0 - excluded
-        dg = cases["dice"][s]  # (P, 4, 4, L)
-        dice[s, :, :, 0] = dg.mean(axis=(0, 3))
-        dice[s, :, :, 1] = np.mean(
-            [dg[i][:, :, robust30[i]].mean(-1) for i in range(P)], axis=0
-        )
-        jstd[s, :, :, 0] = cases["sdlogj"][s].mean(0)
-        jstd[s, :, :, 1] = cases["neg_jac_frac"][s].mean(0)
-        if compute_hd95:
-            hd[s] = cases["hd95"][s].mean(0)
-        if verbose:
-            print(f"s={s} {st} best dice={dice[s, ..., 0].max():.4f} t={times[s]:.2f}s")
-        completed.add(s)
-        _save(ck, arrays, completed)
+            jstd[s, :, :, 0] = cases["sdlogj"][s].mean(0)
+            jstd[s, :, :, 1] = cases["neg_jac_frac"][s].mean(0)
+            if compute_hd95:
+                hd[s] = cases["hd95"][s].mean(0)
+            if verbose and fan.lead:
+                print(f"s={s} {adam_settings[s]} best dice={dice[s, ..., 0].max():.4f} "
+                      f"t={times[s]:.2f}s")
+            completed.add(s)
+        if fan.lead:
+            _save(ck, arrays, completed)
 
     flat_hd = hd.reshape(-1)
     # as in stage 1, HD95 is ranked only when computed
@@ -670,7 +767,8 @@ def run_stage2_sweep(
     if compute_hd95:
         ranks2.append(sort_rank(flat_hd))
     rank2 = rank_product(ranks2)
+    rescored, rescore_sec = _audit(fan, scoring)
     return SweepResult(
         dice.reshape(S * 16, 2), jstd.reshape(S * 16, 2), flat_hd, times, rank2,
-        int(rank2.argmax()), scoring.rescored, scoring.rescore_sec, cases,
+        int(rank2.argmax()), rescored, rescore_sec, cases,
     )

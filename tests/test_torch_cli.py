@@ -300,11 +300,25 @@ def test_sweep_cli_infer_matches_jax(sweep_config):
     assert dt.shape == (32, 32, 32, 3) and _absdiff(dt, dj).max() <= 1e-3
 
 
-def test_sweep_cli_mesh_raises_naming_a9(sweep_config):
+def test_sweep_cli_mesh_raises_naming_a9(sweep_config, monkeypatch, capsys):
+    """``--mesh`` in one process (no process group: a 1 x 1 grid) with
+    ``--setting_batch 2``: the arrays and messages of the run without it,
+    ``times`` aside (it raised before the multi-device layer was ported;
+    two ranks: ``tests/test_torch_parallel.py``)."""
+    import convexadam_torch.selfconfig as tsc
+
     root, config = sweep_config
-    path = _config_file(root, config, root / "mesh", "mesh.json")
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        t_sweep.main(["convex", str(path), "--mesh", "--device", "cpu"])
+    three = tsc.stage1_settings()[:3]
+    monkeypatch.setattr(tsc, "stage1_settings", lambda: three)
+    got = {}
+    for tag, extra in (("plain", []), ("mesh", ["--mesh", "--setting_batch", "2"])):
+        cfg = dict(config, output=str(root / f"mesh_{tag}.npz"))
+        path = _config_file(root, cfg, root / f"mesh_{tag}", f"mesh_{tag}.json")
+        assert t_sweep.main(["convex", str(path), "--device", "cpu", *extra]) == 0
+        got[tag] = (dict(np.load(cfg["output"])), capsys.readouterr().out)
+    for k in ("dice", "jstd", "hd95", "rank"):
+        np.testing.assert_array_equal(got["mesh"][0][k], got["plain"][0][k])
+    assert got["mesh"][1] == got["plain"][1] and "best convex setting: s=" in got["mesh"][1]
 
 
 def test_sweep_cli_needs_the_chosen_settings(sweep_config):

@@ -26,13 +26,16 @@ _MODULES = sorted(
 )
 
 
+_BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "convexadam_tpu")
+
+
 def test_import_pulls_in_no_jax():
-    """Importing every module of the port leaves ``jax`` and
-    ``convexadam_tpu`` out of ``sys.modules``."""
+    """Importing every module of the port leaves ``jax``, ``flax``,
+    ``optax``, ``orbax`` and ``convexadam_tpu`` out of ``sys.modules``."""
     code = (
         "import importlib, sys\n"
         f"for m in {_MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'convexadam_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_BANNED!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -56,7 +59,8 @@ def test_top_level_exports_the_main_entries():
         "assert convex_adam_torch is pipe.convex_adam_torch and apply_convex is ap.apply_convex\n"
         "assert apply_convex_torch is ap.apply_convex_torch and __version__ == '0.1.0'\n"
         "assert set(c.__all__) >= {'ConvexAdamConfig', 'convex_adam', 'apply_convex',\n"
-        "    'convex_adam_torch', 'apply_convex_torch', 'evaluate_field', '__version__'}\n"
+        "    'convex_adam_torch', 'apply_convex_torch', 'evaluate_field', '__version__',\n"
+        "    'convex_adam_semantic_from_images'}\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'convexadam_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -69,7 +73,8 @@ def test_top_level_exports_the_main_entries():
 
 @pytest.mark.parametrize("path", _PORT_FILES, ids=lambda p: str(p.relative_to(_ROOT)))
 def test_sources_import_no_jax(path):
-    """No file of the port, nor chip_smoke.py, imports JAX or the JAX package."""
+    """No file of the port, nor chip_smoke.py, imports JAX, flax, optax,
+    orbax or the JAX package."""
     for node in ast.walk(ast.parse(path.read_text())):
         names = []
         if isinstance(node, ast.Import):
@@ -77,7 +82,7 @@ def test_sources_import_no_jax(path):
         elif isinstance(node, ast.ImportFrom):
             names = [node.module or ""]
         for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "convexadam_tpu"), (path, name)
+            assert name.split(".")[0] not in _BANNED, (path, name)
 
 
 def test_entry_point_defaults_to_cuda(monkeypatch):
