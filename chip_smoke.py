@@ -25,20 +25,22 @@ Phases, each fatal on failure:
      the sum of every device kernel the call runs);
   3a. MIND statistics to the bit at 192^3 (bf16, timed, and f32) and at
      every (r, d) in {1, 2, 3}^2 on ragged 37 x 41 x 29, 37 x 41 x 150 and
-     37 x 41 x 131 crops (f32, bf16), plus (4, 1) at 37 x 41 x 29, which must
-     run the general kernel;
+     37 x 41 x 131 crops (f32, bf16), plus (4, 1) at 37 x 41 x 29 and at
+     192^3 bf16 (timed), which must run the general kernel;
   3b. the cost volume to the bit at 12 x 32^3 (q = 4, the main path's
      pooled MIND features), at the semantic grid 14 x 32 x 26 x 42 (q = 4)
      and the sweep's 12 x 64 x 53 x 85 (q = 7), all timed (the sweep's
-     plain version not), and at every q in 1..7 and q = 8 on ragged crops
-     across the kernels' tiles and channel chunks, where the profiler must
-     see each q's own kernel (q = 8: the general one); then the variants to
-     the bit, timed: SAD at task 3's coarse grid 36 x 80 x 96 x 112 (q = 3),
-     the semantic grid (q = 5) and task 1's 12 x 48 x 40 x 48 (q = 8, the
-     general kernel), SSD at task 1's grid through the general kernel, one
-     candidate block (one kh) of the (2, 7) class at 14 x 96 x 80 x 128,
-     also against the same slab of the dense volume; SAD at every q in 1..8
-     and blocks of both metrics at q = 1, 4, 7, 8 on the ragged crops;
+     plain version not), and at every q in 0..9 on ragged crops across the
+     kernels' tiles and channel chunks, where the profiler must see the
+     kernel of each q (``kernels/cost_volume.py:kernel_for``: q = 1..7 its
+     own instantiation, q = 0, 8 and 9 the general kernel); then the
+     variants to the bit, timed: SAD at task 3's coarse grid 36 x 80 x 96 x
+     112 (q = 3), the semantic grid (q = 5) and task 1's 12 x 48 x 40 x 48
+     (q = 8, the general kernel), SSD at task 1's grid through the general
+     kernel, one candidate block (one kh) of the (2, 7) class at 14 x 96 x
+     80 x 128 and of task 1's grid at q = 8, each also against the same slab
+     of the dense volume; SAD at every q in 0..9 and blocks of both metrics
+     at q = 0, 1, 4, 7, 8, 9 on the ragged crops;
   3d. the Adam data term, rows to the bit, at 12 x 96^3 (bf16 and f32) and
      at the semantic Adam grid 14 x 96 x 80 x 128 (bf16), all timed, and on a
      ragged grid with points past every face; the strided form (stride 2)
@@ -261,6 +263,10 @@ OUT_DIR = ROOT / "chiprun_out"
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_F32_UNFUSED = 33.5e12
+# torch.profiler sessions a kernel's device time is read from at most, one
+# after another (late in the run a session can see no device event at all,
+# several in a row; device_times)
+PROFILER_SESSIONS = 10
 
 HEADLINE_SHAPE = (192, 192, 192)
 HEADLINE_SHIFT = (5, -4, 3)
@@ -278,15 +284,19 @@ MIND_WIDE_SHAPES = ((37, 41, 150), (37, 41, 131))
 # phase 3b's cost volumes (C, h, w, d) beside the main path's: the semantic
 # entry's coarse grid (192 x 160 x 256 at grid_sp 6, q = 4), the stage-1
 # sweep's largest (192 x 160 x 256 at grid_sp 3, at its widest q, 7), and
-# ragged crops across the compiled kernel's 4-row j tiles, 32-voxel l tiles
-# and 16-channel chunks (C = 21) and the general kernel's 8-row j tiles, with
-# d = 37 and 70 (not multiples of 4: 4-byte stores) and d = 40 (16-byte
-# stores, a partial l tile), run at every q in 1..7 and at q = 8, which runs
-# the general kernel
+# ragged crops across the compiled kernel's 4 x 32 tiles and the general
+# kernel's 8 x 16 ones (partial j and l tiles), 16-channel chunks (C = 21),
+# with d = 37 and 70 (not multiples of 4: stores through shared memory) and
+# d = 40 (16-byte stores), run at every q in 1..7, which run the compiled
+# kernel, and at q = 0, 8 and 9, which run the general kernel (one warp; 17
+# kw over 9 warps in two rounds; 19 over 7 in three, and a last kd block of
+# 1 and of 3)
 COST_VOLUME_SEMANTIC = (14, 32, 26, 42)
 COST_VOLUME_SWEEP = (12, 64, 53, 85)
 SWEEP_Q = 7
 COST_VOLUME_RAGGED = ((12, 9, 11, 37), (14, 7, 10, 40), (21, 6, 9, 70))
+RAGGED_Q = range(10)
+RAGGED_BLOCK_Q = (0, 1, 4, 7, 8, 9)  # candidate blocks of both kernels
 L2R_LABELS = 13  # the organ count of Learn2Reg's Abdomen CT-CT task
 L2R_MARGIN = 36  # voxels from every face: inside the crop phase 4 checks
 L2R_LARGE_AXES = (35, 41)  # semi-axis range of the liver-sized organ
@@ -410,6 +420,7 @@ CELL_FLOPS = 8
 # 2, disp_hw 7) class's grid at the Abdomen shape for a candidate block
 COST_VOLUME_TASK3 = (36, 80, 96, 112)
 COST_VOLUME_TASK1 = (12, 48, 40, 48)
+TASK1_Q = 8  # task 1's disp_hw (pipeline/challenges.py)
 COST_VOLUME_STREAM = (14, 96, 80, 128)
 # phase 3d's strided data term: stride 2 on the main path's Adam grid and on
 # a ragged grid that 2 does not divide
@@ -501,15 +512,17 @@ def device_times(torch, fn, kernels=None, warmup: int = 3, reps: int = 20) -> di
     whose names contain one of ``kernels`` (every device event where
     ``kernels`` is None), ``device_all_ms`` of every device event, and
     ``device_launches``, the selected kernels' launches per call.  A session
-    in which the profiler saw none of the selected kernels is profiled
-    again, up to three sessions: the profiler can miss a short kernel, and
-    a kernel that does not run misses all three."""
+    in which the profiler saw none of the selected kernels is profiled again
+    at once, up to :data:`PROFILER_SESSIONS`: the profiler can miss a short
+    kernel, and late in this script it can see no device event at all for
+    several sessions in a row; a kernel that does not run misses every
+    session."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for session in range(3):
+    for session in range(PROFILER_SESSIONS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -527,7 +540,7 @@ def device_times(torch, fn, kernels=None, warmup: int = 3, reps: int = 20) -> di
             if kernels is None or any(k in e.key for k in kernels):
                 own += e.self_device_time_total
                 launches += e.count
-        if own > 0 or session == 2:
+        if own > 0 or session == PROFILER_SESSIONS - 1:
             break
         print(f"  the profiler saw no {kernels or 'device event'} (saw {seen}); profiling again",
               flush=True)
@@ -1120,7 +1133,7 @@ def cost_volume_cases(torch, fix_s, mov_s, q):
     the default half-width ``q``; then seeded features at the semantic grid
     (:data:`COST_VOLUME_SEMANTIC`, ``q``) and the sweep's
     (:data:`COST_VOLUME_SWEEP`, :data:`SWEEP_Q`), and on every
-    :data:`COST_VOLUME_RAGGED` crop at each q in 1..8."""
+    :data:`COST_VOLUME_RAGGED` crop at each q in :data:`RAGGED_Q`."""
     gen = torch.Generator().manual_seed(1)
     dev = fix_s.device
 
@@ -1130,7 +1143,7 @@ def cost_volume_cases(torch, fix_s, mov_s, q):
     yield ("default", q, fix_s, mov_s)
     yield ("semantic", q, *pair(COST_VOLUME_SEMANTIC, torch.rand))
     yield ("sweep", SWEEP_Q, *pair(COST_VOLUME_SWEEP, torch.randn))
-    for qr in range(1, 9):
+    for qr in RAGGED_Q:
         for shape in COST_VOLUME_RAGGED:
             yield ("ragged", qr, *pair(shape, torch.randn))
 
@@ -1200,10 +1213,11 @@ def cost_volume_variant_phase(torch, dev):
     task 3's coarse grid (q = 3), at the semantic grid (q = 5) and at task
     1's (q = 8, the general kernel), SSD at task 1's grid through the
     general kernel, and a candidate block (one kh) at the (2, 7) class's
-    grid, also against the same slab of the dense volume, all timed; then
-    SAD at every q in 1..8 and blocks at q = 1, 4, 7, 8 on the ragged crops,
-    where the profiler must see the kernel :func:`kernel_instance` names.
-    Returns the records by name and every case's numbers."""
+    grid and at task 1's, each also against the same slab of the dense
+    volume, all timed; then SAD at every q in :data:`RAGGED_Q` and blocks at
+    :data:`RAGGED_BLOCK_Q` on the ragged crops, where the profiler must see
+    the kernel :func:`kernel_instance` names.  Returns the records by name
+    and every case's numbers."""
     from convexadam_torch.kernels.cost_volume import (
         cost_volume,
         cost_volume_block,
@@ -1220,8 +1234,8 @@ def cost_volume_variant_phase(torch, dev):
     timed = (
         ("cost_volume_sad", "task3", COST_VOLUME_TASK3, 3, "sad", torch.rand),
         ("cost_volume_sad", "semantic", COST_VOLUME_SEMANTIC, 5, "sad", torch.rand),
-        ("cost_volume_sad", "task1", COST_VOLUME_TASK1, 8, "sad", torch.randn),
-        ("cost_volume_general", "task1", COST_VOLUME_TASK1, 8, "ssd", torch.randn),
+        ("cost_volume_sad", "task1", COST_VOLUME_TASK1, TASK1_Q, "sad", torch.randn),
+        ("cost_volume_general", "task1", COST_VOLUME_TASK1, TASK1_Q, "ssd", torch.randn),
     )
     for name, what, shape, q, metric, draw in timed:
         fix, mov = pair(shape, draw)
@@ -1253,38 +1267,42 @@ def cost_volume_variant_phase(torch, dev):
         records.setdefault(name, rec)
         del fix, mov
 
-    # one candidate block of the streamed (2, 7) class: the middle kh
-    q, kh = STREAM_CLASS[1], STREAM_CLASS[1]
-    K = 2 * q + 1
-    fix, mov = pair(COST_VOLUME_STREAM, torch.rand)
-    C, h, w, d = COST_VOLUME_STREAM
-    n = h * w * d
-    label = f"cost_volume_block stream {COST_VOLUME_STREAM} q={q} kh={kh}"
-    bk = cost_volume_block(fix, mov, q, kh, 1)
-    bp = cost_volume_block_plain(fix, mov, q, kh, 1)
-    dense = cost_volume(fix, mov, q).reshape(K, K, K, h, w, d)
-    torch.cuda.synchronize()
-    err = max_err(bk, bp)
-    slab_equal = torch.equal(bk.reshape(K, K, h, w, d), dense[:, :, kh])
-    del bp, dense
-    check(err == 0.0 and slab_equal,
-          f"{label}: max err {err}, equal to the dense slab {slab_equal}")
-    nbytes, ops = 2 * C * n * 4 + K * K * n * 4, 3.0 * K * K * n * C
-    t = timed_turns(torch, lambda: cost_volume_block(fix, mov, q, kh, 1),
-                    GLOBALS["cost_volume_block"])
-    p_ms = cuda_ms(torch, lambda: cost_volume_block_plain(fix, mov, q, kh, 1), 1, 3)
-    rec = kernel_record("cost_volume_block", [C, h, w, d, q], "float32", err, 0.0, t, p_ms,
-                        nbytes, ops, rate=PEAK_F32_UNFUSED)
-    rec.update({"metric": "ssd", "kh": kh, "nkh": 1, "equal_to_dense_slab": slab_equal})
-    print_times(label, t, p_ms, rec["bound_ms"])
-    records["cost_volume_block"] = rec
-    detail.append({"case": "stream", "name": "cost_volume_block", "shape": [C, h, w, d], "q": q,
-                   "kh": kh, "max_abs_err": err, "equal_to_dense_slab": slab_equal,
-                   **{k: rec[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")}})
-    del fix, mov, bk
+    # one candidate block, the middle kh, of the streamed (2, 7) class (the
+    # record) and of task 1's grid at its q
+    for what, shape, q, draw in (("stream", COST_VOLUME_STREAM, STREAM_CLASS[1], torch.rand),
+                                 ("task1", COST_VOLUME_TASK1, TASK1_Q, torch.randn)):
+        kh, K = q, 2 * q + 1
+        fix, mov = pair(shape, draw)
+        C, h, w, d = shape
+        n = h * w * d
+        label = f"cost_volume_block {what} {shape} q={q} kh={kh}"
+        bk = cost_volume_block(fix, mov, q, kh, 1)
+        bp = cost_volume_block_plain(fix, mov, q, kh, 1)
+        dense = cost_volume(fix, mov, q).reshape(K, K, K, h, w, d)
+        torch.cuda.synchronize()
+        err = max_err(bk, bp)
+        slab_equal = torch.equal(bk.reshape(K, K, h, w, d), dense[:, :, kh])
+        del bp, dense
+        check(err == 0.0 and slab_equal,
+              f"{label}: max err {err}, equal to the dense slab {slab_equal}")
+        want = kernel_instance(q, "ssd")
+        nbytes, ops = 2 * C * n * 4 + K * K * n * 4, 3.0 * K * K * n * C
+        t = timed_turns(torch, lambda: cost_volume_block(fix, mov, q, kh, 1), (want,))
+        p_ms = cuda_ms(torch, lambda: cost_volume_block_plain(fix, mov, q, kh, 1), 1, 3)
+        rec = kernel_record("cost_volume_block", [C, h, w, d, q], "float32", err, 0.0, t, p_ms,
+                            nbytes, ops, rate=PEAK_F32_UNFUSED)
+        rec.update({"metric": "ssd", "kh": kh, "nkh": 1, "equal_to_dense_slab": slab_equal,
+                    "kernel": want, "case": what})
+        print_times(f"{label} ({want})", t, p_ms, rec["bound_ms"])
+        records.setdefault("cost_volume_block", rec)
+        detail.append({"case": what, "name": "cost_volume_block", "shape": [C, h, w, d], "q": q,
+                       "kh": kh, "kernel": want, "max_abs_err": err,
+                       "equal_to_dense_slab": slab_equal,
+                       **{k: rec[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")}})
+        del fix, mov, bk
 
     # ragged crops: SAD at every q, blocks of both metrics
-    for qr in range(1, 9):
+    for qr in RAGGED_Q:
         for si, shape in enumerate(COST_VOLUME_RAGGED):
             fix, mov = pair(shape)
             K = 2 * qr + 1
@@ -1301,7 +1319,7 @@ def cost_volume_variant_phase(torch, dev):
                 check(ran["device_launches"] == 1, f"SAD ragged q={qr}: no launch of {want}")
                 row["ran"] = want
             detail.append(row)
-            if qr in (1, 4, 7, 8):
+            if qr in RAGGED_BLOCK_Q:
                 for metric in ("ssd", "sad"):
                     kh0, nkh = (qr + si) % K, min(K - (qr + si) % K, 1 + si)
                     bk = cost_volume_block(fix, mov, qr, kh0, nkh, metric)
@@ -1316,7 +1334,8 @@ def cost_volume_variant_phase(torch, dev):
                                    "shape": list(shape), "q": qr, "kh0": kh0, "nkh": nkh,
                                    "metric": metric, "max_abs_err": 0.0})
             print(f"cost volume variants ragged {shape} q={qr}: SAD max_abs_err {err:.1e} (tol 0)"
-                  + (", blocks equal to plain and to the dense slab" if qr in (1, 4, 7, 8) else "")
+                  + (", blocks equal to plain and to the dense slab" if qr in RAGGED_BLOCK_Q
+                     else "")
                   + (f", {row['ran']}" if "ran" in row else ""), flush=True)
     return records, detail
 
@@ -1405,9 +1424,10 @@ def mind_cases(torch, vol):
     first: the 192^3 volume ``vol`` at (r, d) = (1, 2) in bf16 and f32, every
     (r, d) the self-configuring search draws on crops of it (ragged 37 x 41
     x 29, and :data:`MIND_WIDE_SHAPES` across D tiles) in f32 and bf16, and
-    (4, 1), which runs the general kernel, on the 37 x 41 x 29 crop."""
+    (4, 1), which runs the general kernel, on the 37 x 41 x 29 crop and on
+    the 192^3 volume in bf16."""
     dts = (torch.float32, torch.bfloat16)
-    cases = [(HEADLINE_SHAPE, dt, 1, 2) for dt in dts[::-1]]
+    cases = [(HEADLINE_SHAPE, dt, 1, 2) for dt in dts[::-1]] + [(HEADLINE_SHAPE, dts[1], 4, 1)]
     cases += [(RAGGED_SHAPE, dt, r, d) for r, d in MIND_PAIRS + [(4, 1)] for dt in dts]
     cases += [(shape, dt, r, d) for shape in MIND_WIDE_SHAPES for r, d in MIND_PAIRS
               for dt in dts]
@@ -1428,9 +1448,10 @@ def mind_work(shape, itemsize: int, r: int) -> "tuple[float, float]":
 
 def mind_phase(torch, vol):
     """Phase 3a: ``mind_ssd_stats`` against its plain version to the bit on
-    :func:`mind_cases`, the main case timed (the profiler shows which kernel
-    each kind of pair launches).  Returns the main case's record and every
-    case's numbers."""
+    :func:`mind_cases`, the 192^3 bf16 cases timed, the main one (1, 2) and
+    (4, 1) through the general kernel (the profiler shows which kernel each
+    kind of pair launches).  Returns the main case's record and every case's
+    numbers."""
     from convexadam_torch.kernels.mind import mind_ssd_stats, mind_ssd_stats_plain
 
     record, detail = None, []
@@ -1454,13 +1475,14 @@ def mind_phase(torch, vol):
         print(f"mind_ssd_stats {shape} {dt} (r, d) = {(r, d)}: max_abs_err {err:.3e} "
               f"(tol {tol:.1e}){which}", flush=True)
         if shape == HEADLINE_SHAPE and dt == torch.bfloat16:
-            n = x.numel()
-            t = timed_turns(torch, lambda: mind_ssd_stats(x, 1, 2), GLOBALS["mind_ssd_stats"])
-            p_ms = cuda_ms(torch, lambda: mind_ssd_stats_plain(x, 1, 2))
-            record = kernel_record("mind_ssd_stats", list(shape), "bfloat16", err, tol, t, p_ms,
-                                   *mind_work(shape, 2, 1))
-            print_times("mind_ssd_stats", t, p_ms, record["bound_ms"])
-            row.update({k: record[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")})
+            t = timed_turns(torch, lambda: mind_ssd_stats(x, r, d), (row["kernel"],))
+            p_ms = cuda_ms(torch, lambda: mind_ssd_stats_plain(x, r, d))
+            rec = kernel_record("mind_ssd_stats", list(shape), "bfloat16", err, tol, t, p_ms,
+                                *mind_work(shape, 2, r))
+            print_times(f"mind_ssd_stats (r, d) = {(r, d)} ({row['kernel']})", t, p_ms,
+                        rec["bound_ms"])
+            row.update({k: rec[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")})
+            record = record or rec
         detail.append(row)
     return record, detail
 
@@ -3687,8 +3709,8 @@ def parallel_one_process_phase(torch, dev, vol_np, mov_np, results):
     trace_dir = PARALLEL_DIR / "trace"
     x = torch.randn((12, 32, 32, 32), device=dev)
     # as device_times: the profiler can miss short kernels in a session, so
-    # up to three sessions of 20 calls
-    for session in range(3):
+    # up to PROFILER_SESSIONS sessions of 20 calls
+    for session in range(PROFILER_SESSIONS):
         with profile_trace(trace_dir):
             for _ in range(20):
                 cost_volume(x, x, 4)
@@ -3969,7 +3991,7 @@ def main() -> int:
     records.append(rec)
 
     # 3b. cost volume: pooled MIND features of the headline pair, 12 x 32^3,
-    # q = 4; the semantic and sweep grids; ragged crops at q = 1..8
+    # q = 4; the semantic and sweep grids; ragged crops at q = 0..9
     cfg = ConvexAdamConfig()
     feat_f = mindssc(vol, 1, 2, dtype=torch.bfloat16)
     feat_m = mindssc(torch.from_numpy(mov_np).to(dev), 1, 2, dtype=torch.bfloat16)

@@ -55,10 +55,36 @@
 // to q = 4 capped for 3 CTAs an SM, no spills; above, the 52-60 accumulators
 // take about 120 registers, 1 CTA.
 //
-// cost_volume_general_kernel takes any other q at run time (the first
-// design: one thread per voxel of an 8 x 32 tile walking its K^2 (kw, kd)
-// displacements, all channels in shared memory).  The wrapper chooses the
-// kernel by q (kernels/cost_volume.py:kernel_for).
+// cost_volume_general_kernel takes every other q at run time: q = 0, task
+// 1's q = 8 (pipeline/challenges.py) and above; the wrapper chooses the
+// kernel by q (kernels/cost_volume.py:kernel_for).  At task 1's 12 x 48 x 40
+// x 48 it must write 17^3 x 92160 float32 = 1.81 GB, 0.54 ms at 3.35 TB/s,
+// and do 16.3 G separately rounded operations, 0.49 ms: bytes and
+// operations bound it about equally, so an instruction that is neither
+// costs time directly.  The compiled scheme does not carry to q = 8: one
+// warp per kw makes a CTA of 17 warps, for which ptxas allows 96 registers
+// a thread, and R K = 68 accumulators with the slab window need more
+// (cost_volume_kernel<8> spilled and took 2.6x the bound).  This kernel keeps the compiled kernel's thread (R = 4 voxels of
+// a row, 16-byte shared loads of the fixed values and of the slab values p
+// = r + kd they reach) and holds kd in blocks of KB = 8: a block's 32
+// accumulators sum every channel, its planes go out with streaming stores,
+// then the next block's sums begin, so one warp's stores overlap the
+// others' arithmetic.  KB is a multiple of 4, so each block's slab loads
+// start on a 16-byte boundary, and each block size (K = 17 is 8 + 8 + 1) is
+// a case of a switch, so no operation is masked.  A CTA of at most 9 warps
+// takes the K kw in rounds (17 in two), 3 CTAs an SM at 72 registers; its
+// channels, up to 16, are staged once with cp.async (one channel a step of
+// the copy loops: unrolled, their addresses pushed the kernel past 72
+// registers into spills).  The tile is 8 rows x 16 voxels, 4 lanes a row,
+// which leaves no lane idle at task 1's w = 40, d = 48 (a 4 x 32 tile idles
+// a quarter of them there and took 29% longer); the slab's rows are padded
+// to 16 mod 32 floats, so the two rows a quarter warp's 16-byte loads span
+// fall in disjoint banks.  The first general kernel gave each thread one
+// voxel walking its K^2 (kw, kd) displacements and read two shared words
+// per channel term (340 M warp-wide shared loads at task 1, more time than
+// the bound on their own), wrote 4-byte plain stores one plane at a time,
+// and staged with synchronous loads, 3 CTAs of 8 warps an SM at 67.6 KB,
+// with no copy overlapping arithmetic: 3.11 ms at task 1, 5.7x its bound.
 #include "common.cuh"
 
 namespace {
@@ -263,59 +289,189 @@ int launch(const float* fix, const float* mov, float* out, int C, int h, int w, 
 }
 
 // ---------------------------------------------------------------------------
-// cost_volume_general_kernel: runtime q
+// cost_volume_general_kernel: q at run time, kd in blocks
 // ---------------------------------------------------------------------------
 
-constexpr int GW = 8;
-constexpr int GD = 32;
-constexpr int GNT = GW * GD;
+constexpr int GTW = 8;            // j rows of a CTA tile
+constexpr int GTD = 16;           // l voxels of a CTA tile
+constexpr int GLANES = GTD / R;   // lanes a tile row
+constexpr int GTILE = GTW * GTD;  // voxels a CTA tile
+constexpr int KB = 8;             // kd displacements a block: a multiple of 4, so that every
+                                  // block's slab loads start on a 16-byte boundary
+constexpr int GMAX_WARPS = 9;     // warps a CTA at most, each taking every nw-th kw
+constexpr int GMIN_CTAS = 3;      // CTAs an SM the registers must allow
+static_assert(GLANES == 4, "the slab's row padding assumes two tile rows a quarter warp");
+
+// The general kernel's staging for half-width q, worked out alike by the
+// launcher (shared memory) and the kernel: K x K displacements, the slab of
+// SW rows of which a row's first SDN floats are staged (R + K - 1 values a
+// thread's voxels reach, in NV 16-byte loads), a row every SD floats.  A
+// quarter warp's 16-byte loads span two tile rows, so SD is padded to 16 mod
+// 32 floats, and the two rows fall in disjoint banks.
+struct GeneralShape {
+  int K, NV, SW, SDN, SD, SP;
+  __host__ __device__ explicit GeneralShape(int q)
+      : K(2 * q + 1), NV((R + 2 * q + 3) / 4), SW(GTW + 2 * q), SDN(GTD - R + 4 * NV),
+        SD(SDN + (48 - SDN % 32) % 32), SP(SW * SD) {}
+};
+
+// Stage the channels c0 .. c0 + cc - 1 of a CTA's slab (moving row im, the
+// tile grown by q along j and l) and fixed tile (row i) with asynchronous
+// copies, zero-filled outside the volume; each element's offset is worked
+// out once for all cc channels.
+__device__ __forceinline__ void stage_general(float* slab, float* fx, const float* fix,
+                                              const float* mov, const GeneralShape& g, int c0,
+                                              int cc, int h, int w, int d, int q, int i, int im,
+                                              int j0, int l0) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  const size_t hwd = (size_t)h * w * d;
+  const unsigned slab_s = static_cast<unsigned>(__cvta_generic_to_shared(slab));
+  const unsigned fx_s = static_cast<unsigned>(__cvta_generic_to_shared(fx));
+  const bool row_in = im >= 0 && im < h;
+  for (int e = t; e < g.SW * g.SDN; e += nt) {
+    const int r = e / g.SDN, col = e - r * g.SDN;
+    const int gj = j0 - q + r, gl = l0 - q + col;
+    const bool in = row_in && gj >= 0 && gj < w && gl >= 0 && gl < d;
+    const float* src = mov + c0 * hwd + (in ? ((size_t)im * w + gj) * d + gl : 0);
+    const unsigned dst = slab_s + 4 * (r * g.SD + col);
+#pragma unroll 1
+    for (int c = 0; c < cc; ++c) copy4(dst + 4 * c * g.SP, src + c * hwd, in);
+  }
+  for (int e = t; e < GTILE; e += nt) {
+    const int gj = j0 + e / GTD, gl = l0 + e % GTD;
+    const bool in = gj < w && gl < d;
+    const float* src = fix + c0 * hwd + (in ? ((size_t)i * w + gj) * d + gl : 0);
+#pragma unroll 1
+    for (int c = 0; c < cc; ++c) copy4(fx_s + 4 * (c * GTILE + e), src + c * hwd, in);
+  }
+}
+
+// cc staged channels of a thread's R voxels at NB displacements kd: per
+// channel one 16-byte load of its fixed values f and NVB of the slab values
+// s[p], p = r + kd - kd0, they reach
+template <int NB, bool SAD>
+__device__ __forceinline__ void general_sums(float (&acc)[R][NB], const float* f, const float* s,
+                                             int sp, int cc) {
+  constexpr int NVB = (R + NB + 2) / 4;
+#pragma unroll 1
+  for (int c = 0; c < cc; ++c, f += GTILE, s += sp) {
+    const float4 f4 = *reinterpret_cast<const float4*>(f);
+    const float fv[R] = {f4.x, f4.y, f4.z, f4.w};
+    float sv[4 * NVB];
+#pragma unroll
+    for (int v = 0; v < NVB; ++v) {
+      const float4 s4 = *reinterpret_cast<const float4*>(s + 4 * v);
+      sv[4 * v] = s4.x;
+      sv[4 * v + 1] = s4.y;
+      sv[4 * v + 2] = s4.z;
+      sv[4 * v + 3] = s4.w;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int k = 0; k < NB; ++k)
+        acc[r][k] = __fadd_rn(acc[r][k], metric_term<SAD>(__fsub_rn(fv[r], sv[r + k])));
+  }
+}
+
+// One kd block of one kw: its sums over every channel (staging each chunk
+// anew where they do not all fit at once), then its NB planes with
+// streaming stores from o, this thread's first voxel of the block's first
+// plane, one plane apart: a 16-byte store a plane where d is a multiple of
+// 4, else through the warp's tile in shared memory, a row's voxels from
+// consecutive lanes.
+template <int NB, bool SAD>
+__device__ __forceinline__ void general_block(float* slab, float* fx, float* tile,
+                                              const float* fix, const float* mov, float* o,
+                                              size_t plane, const GeneralShape& g, int C, int cs,
+                                              int h, int w, int d, int q, int i, int im, int j0,
+                                              int l0, int lj, int lg, bool live, int kw,
+                                              int kd0) {
+  float acc[R][NB];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int k = 0; k < NB; ++k) acc[r][k] = 0.f;
+  const bool valid = j0 + lj < w && l0 + R * lg < d;
+  for (int c0 = 0; c0 < C; c0 += cs) {
+    const int cc = C - c0 < cs ? C - c0 : cs;
+    if (C > cs) {
+      __syncthreads();  // the previous chunk is read
+      stage_general(slab, fx, fix, mov, g, c0, cc, h, w, d, q, i, im, j0, l0);
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+    }
+    if (live && valid)
+      general_sums<NB, SAD>(acc, fx + lj * GTD + R * lg,
+                            slab + (lj + kw) * g.SD + R * lg + kd0, g.SP, cc);
+  }
+  if (!live) return;
+  if ((d & 3) == 0) {
+    if (valid) {
+#pragma unroll
+      for (int k = 0; k < NB; ++k, o += plane)
+        __stcs(reinterpret_cast<float4*>(o), make_float4(acc[0][k], acc[1][k], acc[2][k], acc[3][k]));
+    }
+  } else {
+    const int lane = threadIdx.x & 31;
+    o -= lj * d + R * lg;  // the tile's first voxel
+#pragma unroll
+    for (int k = 0; k < NB; ++k, o += plane) {
+      *reinterpret_cast<float4*>(tile + lj * GTD + R * lg) =
+          make_float4(acc[0][k], acc[1][k], acc[2][k], acc[3][k]);
+      __syncwarp();
+#pragma unroll 1
+      for (int e = lane; e < GTILE; e += 32) {
+        const int jj = e / GTD, ll = e % GTD;
+        if (j0 + jj < w && l0 + ll < d) __stcs(o + jj * d + ll, tile[e]);
+      }
+      __syncwarp();
+    }
+  }
+}
 
 template <bool SAD>
-__global__ void __launch_bounds__(GNT)
+__global__ void __launch_bounds__(32 * GMAX_WARPS, GMIN_CTAS)
 cost_volume_general_kernel(const float* __restrict__ fix, const float* __restrict__ mov,
                            float* __restrict__ out, int C, int h, int w, int d, int q, int kh0,
-                           int nkh) {
-  extern __shared__ float gsmem[];
-  const int K = 2 * q + 1;
-  const int SW = GW + 2 * q, SD = GD + 2 * q;
-  float* slab = gsmem;               // C x SW x SD
-  float* fx = gsmem + C * SW * SD;   // C x GW x GD
-  const int n_td = (d + GD - 1) / GD;
-  const int j0 = (blockIdx.x / n_td) * GW;
-  const int l0 = (blockIdx.x % n_td) * GD;
-  const int i = blockIdx.y;
-  const int kh = kh0 + blockIdx.z;
-  const int im = i + kh - q;
-  const bool row_in = im >= 0 && im < h;
-  const int t = threadIdx.x;
+                           int nkh, int cs) {
+  extern __shared__ __align__(16) float gsmem[];
+  const GeneralShape g(q);
+  float* slab = gsmem;                // cs x SW x SD
+  float* fx = gsmem + cs * g.SP;      // cs x GTW x GTD
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  float* tile = fx + cs * GTILE + warp * GTILE;  // the warp's, where d % 4 != 0
+  const int lj = lane / GLANES, lg = lane % GLANES;
+  const int n_td = (d + GTD - 1) / GTD;
+  const int j0 = (blockIdx.x / n_td) * GTW, l0 = (blockIdx.x % n_td) * GTD;
+  const int i = blockIdx.z, im = i + kh0 + (int)blockIdx.y - q;
   const size_t hwd = (size_t)h * w * d;
+  const size_t plane = (size_t)g.K * nkh * hwd;  // from kd to kd + 1
+  // this thread's first voxel in the plane of (kw, kd) = (0, 0)
+  float* const o = out + blockIdx.y * hwd + ((size_t)i * w + j0 + lj) * d + l0 + R * lg;
 
-  for (int e = t; e < C * SW * SD; e += GNT) {
-    const int sd = e % SD, sw = (e / SD) % SW, c = e / (SD * SW);
-    const int gj = j0 - q + sw, gl = l0 - q + sd;
-    float v = 0.f;
-    if (row_in && gj >= 0 && gj < w && gl >= 0 && gl < d)
-      v = mov[c * hwd + ((size_t)im * w + gj) * d + gl];
-    slab[e] = v;
+  if (C <= cs) {  // every channel staged once, for every block
+    stage_general(slab, fx, fix, mov, g, 0, C, h, w, d, q, i, im, j0, l0);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
   }
-  const int lj = t / GD, ll = t % GD;
-  const int gj = j0 + lj, gl = l0 + ll;
-  const bool valid = gj < w && gl < d;
-  for (int c = 0; c < C; ++c)
-    fx[c * GNT + t] = valid ? fix[c * hwd + ((size_t)i * w + gj) * d + gl] : 0.f;
-  __syncthreads();
-  if (!valid) return;
-
-  const size_t plane = (size_t)K * nkh;
-  const size_t vox = ((size_t)i * w + gj) * d + gl;
-  for (int kw = 0; kw < K; ++kw) {
-    for (int kd = 0; kd < K; ++kd) {
-      float acc = 0.f;
-      for (int c = 0; c < C; ++c)
-        acc = __fadd_rn(acc, metric_term<SAD>(
-                                 __fsub_rn(fx[c * GNT + t], slab[(c * SW + lj + kw) * SD + ll + kd])));
-      const size_t k = (size_t)kd * plane + (size_t)kw * nkh + (kh - kh0);
-      out[k * hwd + vox] = acc;
+  for (int kw0 = 0; kw0 < g.K; kw0 += nw) {
+    const int kw = kw0 + warp;
+    const bool live = kw < g.K;  // the same for the whole warp
+    for (int kd0 = 0; kd0 < g.K; kd0 += KB) {
+      float* ob = o + ((size_t)kw * nkh * hwd + kd0 * plane);
+#define GENERAL_BLOCK(NB)                                                                     \
+  general_block<NB, SAD>(slab, fx, tile, fix, mov, ob, plane, g, C, cs, h, w, d, q, i, im, j0, \
+                         l0, lj, lg, live, kw, kd0)
+      // K is odd: a full block, or the odd rest of the last one
+      switch (g.K - kd0 < KB ? g.K - kd0 : KB) {
+        case KB: GENERAL_BLOCK(KB); break;
+        case 7: GENERAL_BLOCK(7); break;
+        case 5: GENERAL_BLOCK(5); break;
+        case 3: GENERAL_BLOCK(3); break;
+        case 1: GENERAL_BLOCK(1); break;
+      }
+#undef GENERAL_BLOCK
     }
   }
 }
@@ -324,14 +480,29 @@ template <bool SAD>
 int launch_general(const float* fix, const float* mov, float* out, int C, int h, int w, int d,
                    int q, int kh0, int nkh, cudaStream_t stream) {
   static int granted[MAX_DEVICES] = {};
-  const size_t smem =
-      ((size_t)C * (GW + 2 * q) * (GD + 2 * q) + (size_t)C * GW * GD) * sizeof(float);
-  const int err = ensure_smem(cost_volume_general_kernel<SAD>, smem, granted);
-  if (err != 0) return err;
-  const int n_tiles = ((w + GW - 1) / GW) * ((d + GD - 1) / GD);
-  const dim3 grid(n_tiles, h, nkh);
-  cost_volume_general_kernel<SAD><<<grid, GNT, smem, stream>>>(fix, mov, out, C, h, w, d, q, kh0,
-                                                               nkh);
+  const GeneralShape g(q);
+  const int rounds = (g.K + GMAX_WARPS - 1) / GMAX_WARPS;  // kw a warp takes
+  const int nw = (g.K + rounds - 1) / rounds;
+  // the channels staged at a time: up to CC, as many as the CTA's shared
+  // memory holds beside the warps' output tiles
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t channel = (size_t)g.SP + GTILE;
+  const size_t tiles = (d & 3) ? (size_t)nw * GTILE : 0;
+  const size_t room = (size_t)limit / sizeof(float);
+  const size_t fit = room > tiles ? (room - tiles) / channel : 0;
+  const size_t want = C < CC ? C : CC;
+  const int cs = (int)(fit < want ? fit : want);
+  if (cs < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (cs * channel + tiles) * sizeof(float);
+  const int e = ensure_smem(cost_volume_general_kernel<SAD>, smem, granted);
+  if (e != 0) return e;
+  const dim3 grid(((w + GTW - 1) / GTW) * ((d + GTD - 1) / GTD), nkh, h);
+  cost_volume_general_kernel<SAD><<<grid, 32 * nw, smem, stream>>>(fix, mov, out, C, h, w, d, q,
+                                                                   kh0, nkh, cs);
   return (int)cudaGetLastError();
 }
 

@@ -13,8 +13,10 @@ index ``(kd*K + kw)*nkh + kh - kh0``: the streamed convex path's unit.  The
 caller applies the box passes and the argmin.
 
 On the card, the half-widths the self-configuring search draws, q = 1..7,
-run a kernel compiled for that q (:func:`kernel_for`); any other q runs a
-general kernel with q at run time.  Each launch adds one to one count of
+run a kernel compiled for that q (:func:`kernel_for`); any other q (task
+1's 8 among them) runs a general kernel with q at run time, which holds the
+displacements kd in blocks (``csrc/cost_volume.cu``).  Each launch adds one
+to one count of
 :data:`~convexadam_torch.kernels.LAUNCHES`: ``cost_volume_block`` for a
 block, else ``cost_volume_sad`` for SAD, else ``cost_volume`` (compiled
 kernel) or ``cost_volume_general``.  The entry is bound once.

@@ -4,7 +4,7 @@ kernels on a CUDA card.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 scripts/time_kernels.py [--root DIR] [--check] [--sass]
+    python3 scripts/time_kernels.py [--root DIR] [--check] [--sass] [--only cost_volume]
 
 ``--root`` imports ``convexadam_torch`` from another checkout (for example
 an unpacked parent commit), so two versions of the kernels can be timed in
@@ -13,7 +13,9 @@ generators (``mind_cases``, ``cost_volume_cases``, ``adam_sampler_cases`` and
 ``data_term_cases`` of this checkout, seed 0) it times
 ``mind_ssd_stats`` (the 192^3 headline volume in bfloat16, r = 1, d = 2),
 ``cost_volume`` (the default 12 x 32^3 at q = 4, the semantic grid 14 x 32
-x 26 x 42 at q = 4 and the sweep's 12 x 64 x 53 x 85 at q = 7),
+x 26 x 42 at q = 4, the sweep's 12 x 64 x 53 x 85 at q = 7, and Learn2Reg
+task 1's coarse grid 12 x 48 x 40 x 48 at q = 8, SSD, SAD and one candidate
+block, the middle kh),
 ``sample_trilinear`` (the semantic Adam grid 14 x 96 x 80 x 128 with
 bfloat16 and float32 volumes, with ``F.grid_sample`` on the float32 volume
 beside it) and ``warp_ssd_loss_grad`` (the 12 x 96^3 Adam grid with
@@ -43,6 +45,10 @@ so that its larger surface list fills about 85% of the bucket K (16384 to
 the dual + tiled searches, call time, device time of the search kernels
 (and of the tiled kernel alone), launches and the peak memory the call
 adds.
+``--only cost_volume`` builds ``cost_volume.cu`` alone and times only the
+cost volumes (the default case on seeded 12 x 32^3 features, not pooled
+MIND ones), with ptxas's registers and spills of its kernels: the quick
+comparison of two versions of that kernel.
 ``--sass`` also counts the machine instructions (``cuobjdump -sass``) of
 the compile-time MIND kernels, the data term, the sampler and the
 cost-volume kernels as built for ``--root``; in the fully unrolled MIND
@@ -67,6 +73,7 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--threshold", action="store_true")
+    ap.add_argument("--only", choices=("cost_volume",))
     args = ap.parse_args()
     if (args.check or args.threshold) and args.root.resolve() != ROOT:
         ap.error("--check and --threshold run on this checkout's package only")
@@ -88,7 +95,7 @@ def main() -> int:
     from convexadam_torch.core.smoothing import avg_pool3d
     from convexadam_torch.core.warp import resize_trilinear
     from convexadam_torch.kernels import _build
-    from convexadam_torch.kernels.cost_volume import cost_volume
+    from convexadam_torch.kernels.cost_volume import cost_volume, cost_volume_block
     from convexadam_torch.kernels.mind import mind_ssd_stats
     from convexadam_torch.kernels.warp import sample_trilinear, warp_ssd_loss_grad
 
@@ -96,7 +103,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    _build.build_all()
+    _build.build_all(("cost_volume",) if args.only else _build.KERNEL_SOURCES)
     dev = torch.device("cuda")
     res = {"card": smi, "package": str(pathlib.Path(convexadam_torch.__file__).parent)}
     if args.threshold:
@@ -137,6 +144,32 @@ def main() -> int:
         t = {"call_ms": cs.cuda_ms(torch, fn), **cs.device_times(torch, fn, kernels)}
         return {k: t[k] for k in ("call_ms", "device_ms", "device_launches")}
 
+    def time_cost_volumes(fix_s, mov_s):
+        for what, q, fix, mov in cs.cost_volume_cases(torch, fix_s, mov_s, 4):
+            if what == "ragged":
+                break
+            res[f"cost_volume {what} {tuple(fix.shape)} q={q}"] = timed(
+                lambda: cost_volume(fix, mov, q))
+        # task 1's q = 8: SSD, SAD, and the middle kh's candidate block
+        gen = torch.Generator().manual_seed(2)
+        fix, mov = (torch.randn(cs.COST_VOLUME_TASK1, generator=gen).to(dev) for _ in range(2))
+        key = f"{tuple(fix.shape)} q={cs.TASK1_Q}"
+        for metric in ("ssd", "sad"):
+            res[f"cost_volume task1 {key} {metric}"] = timed(
+                lambda: cost_volume(fix, mov, cs.TASK1_Q, metric))
+        res[f"cost_volume_block task1 {key} kh={cs.TASK1_Q}"] = timed(
+            lambda: cost_volume_block(fix, mov, cs.TASK1_Q, cs.TASK1_Q, 1))
+        res["cost_volume_ptxas"] = _build.resource_usage("cost_volume")
+
+    if args.only == "cost_volume":
+        # no MIND kernel: seeded features at the main path's shape (the
+        # kernel's time does not depend on the values)
+        gen = torch.Generator().manual_seed(0)
+        time_cost_volumes(*(torch.randn((12, 32, 32, 32), generator=gen).to(dev)
+                            for _ in range(2)))
+        print(json.dumps(res))
+        return 0
+
     # the HD95 searches first: they need little memory of their own
     import convexadam_torch.core.edt as tedt
     from convexadam_torch.kernels import edt as ke
@@ -172,10 +205,7 @@ def main() -> int:
 
     shape, dt, r, d, x = next(cs.mind_cases(torch, vol))
     res[f"mind_ssd_stats {shape} {dt} (r, d) = {(r, d)}"] = timed(lambda: mind_ssd_stats(x, r, d))
-    for what, q, fix, mov in cs.cost_volume_cases(torch, fix_s, mov_s, 4):
-        if what == "ragged":
-            break
-        res[f"cost_volume {what} {tuple(fix.shape)} q={q}"] = timed(lambda: cost_volume(fix, mov, q))
+    time_cost_volumes(fix_s, mov_s)
     gen = torch.Generator().manual_seed(0)
     for C, shape, dt, svol, grid, _ in cs.adam_sampler_cases(torch, dev, gen):
         if C == cs.SEMANTIC_LABELS:

@@ -125,20 +125,59 @@ def test_cost_volume_matches_pallas(rng, q, shape):
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
 
 
+def _cost_volume_source() -> str:
+    return (pathlib.Path(__file__).resolve().parent.parent / "convexadam_torch" / "csrc"
+            / "cost_volume.cu").read_text()
+
+
 def test_cost_volume_kernel_choice_covers_the_sweep():
     """The wrapper's choice by q: every half-width of the self-configuring
-    sweep, 1..7, runs the kernel compiled for it, any other q the general
-    kernel; and the C entry compiles exactly those q, each for itself."""
+    sweep, 1..7, runs the kernel compiled for it; every other q, task 1's 8
+    among them, runs the general kernel (q at run time); and the C entry
+    compiles exactly those q, each for itself."""
     assert list(COMPILED_Q) == [1, 2, 3, 4, 5, 6, 7]
     assert [kernel_for(q) for q in range(1, 8)] == ["cost_volume_kernel"] * 7
-    assert {kernel_for(q) for q in (0, 8, 9, 15)} == {"cost_volume_general_kernel"}
-    src = (pathlib.Path(__file__).resolve().parent.parent / "convexadam_torch" / "csrc"
-           / "cost_volume.cu").read_text()
+    assert {kernel_for(q) for q in (0, 8, 9, 15, 16, 24)} == {"cost_volume_general_kernel"}
+    src = _cost_volume_source()
     # the C entry chooses the metric, then dispatch<SAD> the instantiation
     entry = src[src.index("int dispatch("):]
     cases = re.findall(r"case (\d+): return launch<(\d+), SAD>", entry)
     assert [(int(a), int(b)) for a, b in cases] == [(q, q) for q in COMPILED_Q]
     assert "dispatch<true>" in entry and "dispatch<false>" in entry
+    assert "if (general) return launch_general<SAD>" in entry
+
+
+@pytest.mark.parametrize("q", list(COMPILED_Q))
+def test_cost_volume_dispatch_compiles_each_q(q):
+    """``dispatch`` has one case for each compiled q, launching that q's
+    instantiation, and the wrapper sends q there."""
+    entry = _cost_volume_source()
+    entry = entry[entry.index("int dispatch("):]
+    assert len(re.findall(rf"case {q}: return launch<{q}, SAD>\(", entry)) == 1
+    assert kernel_for(q) == "cost_volume_kernel"
+
+
+@pytest.mark.parametrize("q", [0, 8, 9, 12, 16, 17, 24])
+def test_general_kernel_blocks_tile_every_k(q):
+    """The general kernel's loops, replayed from the constants of its
+    source: the kd blocks start on 16-byte boundaries and tile K = 2q + 1
+    exactly, each with a size its ``switch`` has a case for (no masked
+    operation); the warps take every kw, at most ``GMAX_WARPS`` of them."""
+    src = _cost_volume_source()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (KB|GMAX_WARPS) = (\d+);", src)}
+    body = src[src.index("switch (g.K - kd0 < KB"):]
+    body = body[:body.index("}")]
+    sizes = {const["KB"] if c == "KB" else int(c)
+             for c in re.findall(r"case (KB|\d+): GENERAL_BLOCK\(", body)}
+    assert sizes
+    K = 2 * q + 1
+    blocks = [(kd0, min(const["KB"], K - kd0)) for kd0 in range(0, K, const["KB"])]
+    assert all(kd0 % 4 == 0 and nb in sizes for kd0, nb in blocks)
+    assert sum(nb for _, nb in blocks) == K
+    rounds = -(-K // const["GMAX_WARPS"])
+    nw = -(-K // rounds)
+    assert nw <= const["GMAX_WARPS"] and nw * rounds >= K
+    assert kernel_for(q) == "cost_volume_general_kernel"
 
 
 def _pallas_block(vol, pos):

@@ -84,6 +84,35 @@ def test_block_is_the_dense_volume_slab(rng, metric, q, kh0, nkh):
     assert torch.equal(cost_volume(_t(f), _t(m), q, metric).reshape(dense.shape), dense)
 
 
+# task 1's half-width (pipeline/challenges.py: disp_hw 8), which the card runs
+# through the general kernel, and q = 0; a ragged 3 x 8 x 8 x 10 crop keeps
+# the JAX scan over K^3 = 4913 candidates to about a second
+@pytest.mark.parametrize("metric", ["ssd", "sad"])
+@pytest.mark.parametrize("q", [0, 8])
+def test_cost_volume_plain_matches_jax_unsmoothed(rng, q, metric):
+    """``cost_volume_plain`` against the JAX package's raw volume
+    (``correlate(..., smooth_passes=0)``, the XLA scan on the CPU), rtol 1e-5:
+    XLA may fuse the square into the channel sum (measured: SAD equal, SSD
+    2.3e-7 relative)."""
+    f, m = _pair(rng, (3, 8, 8, 10))
+    j_raw, _ = jcv.correlate(jnp.asarray(f), jnp.asarray(m), q, metric=metric, smooth_passes=0)
+    out = cost_volume_plain(_t(f), _t(m), q, metric).numpy()
+    np.testing.assert_allclose(out, np.asarray(j_raw), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("metric", ["ssd", "sad"])
+@pytest.mark.parametrize("kh0,nkh", [(0, 1), (5, 4), (16, 1)])
+def test_cost_volume_block_plain_matches_jax_at_q8(rng, metric, kh0, nkh):
+    """``cost_volume_block_plain`` at q = 8 against the same kh of the JAX
+    package's raw volume, rtol 1e-5 (the rounding, as above)."""
+    q, K = 8, 17
+    f, m = _pair(rng, (3, 8, 8, 10))
+    j_raw, _ = jcv.correlate(jnp.asarray(f), jnp.asarray(m), q, metric=metric, smooth_passes=0)
+    ref = np.asarray(j_raw).reshape(K, K, K, 8, 8, 10)[:, :, kh0:kh0 + nkh]
+    out = cost_volume_block_plain(_t(f), _t(m), q, kh0, nkh, metric).numpy()
+    np.testing.assert_allclose(out.reshape(ref.shape), ref, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("q", [1, 2])
 def test_correlate_masked_matches_jax(rng, q):
     """``ssd *= mask`` then the argmin: the values within 1e-5 (measured
