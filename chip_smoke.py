@@ -11,8 +11,8 @@ Phases, each fatal on failure:
      with the registers and spills ``ptxas`` reports for the kernels of
      ``warp.cu``, ``mind.cu``, ``cost_volume.cu`` and ``edt.cu`` (the backward
      kernel must fit 64 registers; the data term's, the forward sampler's,
-     the compile-time MIND kernels, every cost-volume kernel and the three
-     searches must not spill);
+     every MIND kernel, every cost-volume kernel and the three searches must
+     not spill);
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes and dtypes (and a ragged shape for the MIND and
      sampling kernels; the sampler with float32 and bfloat16 volumes), with
@@ -23,10 +23,16 @@ Phases, each fatal on failure:
      ``device_ms``, the CUDA time per call of the kernel's own ``__global__``
      functions from ``torch.profiler`` over 20 calls (for the library call,
      the sum of every device kernel the call runs);
-  3a. MIND statistics to the bit at 192^3 (bf16, timed, and f32) and at
+  3a. MIND statistics to the bit at 192^3 (bf16 and f32, timed) and at
      every (r, d) in {1, 2, 3}^2 on ragged 37 x 41 x 29, 37 x 41 x 150 and
-     37 x 41 x 131 crops (f32, bf16), plus (4, 1) at 37 x 41 x 29 and at
-     192^3 bf16 (timed), which must run the general kernel;
+     37 x 41 x 131 crops (f32, bf16); on the 37 x 41 x 29 crop also at the
+     pairs of :data:`MIND_GENERAL_PAIRS`, which run the general kernel (r or
+     d 0, d >= 4, r >= 4, halos past shared memory and past the crop), where
+     the profiler must see the kernel ``kernels/mind.py:kernel_for`` names
+     for each pair (``mind_kernel`` of that (r, d), or
+     ``mind_general_kernel``) and no other; the general kernel timed at
+     192^3 at (4, 1) (bf16, f32), (1, 5) and (6, 6) (bf16) beside the
+     compiled (3, 3);
   3b. the cost volume to the bit at 12 x 32^3 (q = 4, the main path's
      pooled MIND features), at the semantic grid 14 x 32 x 26 x 42 (q = 4)
      and the sweep's 12 x 64 x 53 x 85 (q = 7), all timed (the sweep's
@@ -78,6 +84,10 @@ Phases, each fatal on failure:
      kernel launched (mind / cost volume / inverse-consistency steps / data
      term 2 / 2 / 15 / 80 per registration, no plain sampler launch); the golden 48^3
      fixture must stay inside the JAX package's f32 and bf16 envelopes;
+  4g. the same registration at ``mind_r=4, mind_d=1``: two launches of
+     ``mind_general_kernel`` (counted and seen by the profiler), none of a
+     compiled MIND kernel, the other kernels as in 4, the shift recovered;
+     seconds;
   4c. evaluation path: ``evaluate_field`` of the registered field on a
      synthetic 13-organ label pair (seed 0, the same shift; one liver-sized
      organ, twelve of 6-20 voxel semi-axes) with 20
@@ -247,6 +257,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -276,6 +287,17 @@ EXPECTED_LAUNCHES = {
     "warp_ssd_loss_grad": 80, "sample_trilinear": 0, "sample_trilinear_bwd": 0,
 }
 MIND_PAIRS = [(r, d) for r in (1, 2, 3) for d in (1, 2, 3)]  # the search's MIND radii, dilations
+# pairs outside {1, 2, 3}^2, which run the general kernel: every pair whose
+# old dispatch key r * 4 + d fell on a compiled pair's, a radius or a
+# dilation of 0, (4, 1) (the halo staged), halos past shared memory ((5, 5),
+# (1, 12), (6, 6): operands from global memory) and past the crop ((8, 16))
+MIND_GENERAL_PAIRS = [(0, 5), (0, 9), (1, 5), (1, 6), (1, 7), (1, 9), (2, 5), (2, 7), (0, 2),
+                      (1, 0), (4, 1), (5, 5), (1, 12), (6, 6), (8, 16)]
+# the 192^3 cases of phase 3a besides the main path's (1, 2), all timed: the
+# general kernel at (4, 1), (1, 5) and (6, 6), the compiled (3, 3) beside it
+MIND_TIMED = [((3, 3), "bfloat16"), ((4, 1), "bfloat16"), ((3, 3), "float32"),
+              ((4, 1), "float32"), ((1, 5), "bfloat16"), ((6, 6), "bfloat16")]
+GENERAL_MIND = (4, 1)  # phase 4g's (mind_r, mind_d)
 RAGGED_SHAPE = (37, 41, 29)
 # wider than one 64-voxel D tile of the compile-time MIND kernel and not a
 # multiple of it: a tile seam, a partial last tile, and paired stores (even
@@ -335,6 +357,7 @@ REPLACES = {
     "cost_volume_block": "convexadam_tpu/core/convex.py:141",
     "cost_volume_general": "convexadam_tpu/ops/cost_volume_pallas.py:96",
     "warp_ssd_loss_grad_strided": "convexadam_tpu/ops/warp_pallas.py:268",
+    "mind_ssd_stats_general": "convexadam_tpu/ops/mind_pallas.py:196",
 }
 SOURCES = {
     "mind_ssd_stats": "convexadam_torch/csrc/mind.cu",
@@ -350,10 +373,11 @@ SOURCES = {
     "cost_volume_block": "convexadam_torch/csrc/cost_volume.cu",
     "cost_volume_general": "convexadam_torch/csrc/cost_volume.cu",
     "warp_ssd_loss_grad_strided": "convexadam_torch/csrc/warp.cu",
+    "mind_ssd_stats_general": "convexadam_torch/csrc/mind.cu",
 }
 # the __global__ functions each wrapper launches, as the profiler names them
 GLOBALS = {
-    "mind_ssd_stats": ("mind_kernel", "mind_general_kernel"),
+    "mind_ssd_stats": ("mind_kernel",),
     "cost_volume": ("cost_volume_kernel",),
     "sample_trilinear": ("sample_trilinear_kernel",),
     "sample_trilinear_ic": ("ic_step_kernel",),
@@ -366,6 +390,7 @@ GLOBALS = {
     "cost_volume_block": ("cost_volume_kernel", "cost_volume_general_kernel"),
     "cost_volume_general": ("cost_volume_general_kernel",),
     "warp_ssd_loss_grad_strided": ("warp_ssd_kernel", "sum_partials_kernel"),
+    "mind_ssd_stats_general": ("mind_general_kernel",),
 }
 # phase 5, the sweep at the Abdomen shape, its depth cut to two pairs, four
 # stage-1 and two stage-2 settings: three subjects (one organ layout rolled
@@ -510,8 +535,9 @@ def device_times(torch, fn, kernels=None, warmup: int = 3, reps: int = 20) -> di
     """Device time of ``fn`` per call from ``torch.profiler`` over ``reps``
     calls after warm-up: ``device_ms``, the summed CUDA time of the kernels
     whose names contain one of ``kernels`` (every device event where
-    ``kernels`` is None), ``device_all_ms`` of every device event, and
-    ``device_launches``, the selected kernels' launches per call.  A session
+    ``kernels`` is None), ``device_all_ms`` of every device event,
+    ``device_launches``, the selected kernels' launches per call, and
+    ``device_kernels``, the names of every device event.  A session
     in which the profiler saw none of the selected kernels is profiled again
     at once, up to :data:`PROFILER_SESSIONS`: the profiler can miss a short
     kernel, and late in this script it can see no device event at all for
@@ -546,7 +572,7 @@ def device_times(torch, fn, kernels=None, warmup: int = 3, reps: int = 20) -> di
               flush=True)
     check(own > 0, f"the profiler saw no device time of {kernels or 'the call'} (saw {seen})")
     return {"device_ms": own / 1e3 / reps, "device_all_ms": every / 1e3 / reps,
-            "device_launches": launches / reps}
+            "device_launches": launches / reps, "device_kernels": sorted(set(seen))}
 
 
 def timed_turns(torch, kern, kernels, lib=None) -> dict:
@@ -911,6 +937,58 @@ def tiled_edge_cases(torch, dev, surface):
     yield "past the grid's chunk limit", q, t, nq, kt - 100
 
 
+def general_mind_phase(torch, vol_np, mov_np, results):
+    """Phase 4g: ``convex_adam`` on the 192^3 headline pair with the default
+    config but (mind_r, mind_d) = :data:`GENERAL_MIND`: two launches of the
+    general MIND kernel, counted and seen by the profiler, no compiled MIND
+    kernel, the other kernels' launches as the default registration's; the
+    headline shift within 1 voxel on > 90% of the central crop; seconds,
+    median of 3.  Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from convexadam_torch.kernels import LAUNCHES, reset_launches
+    from convexadam_torch.pipeline.convex_adam import ConvexAdamConfig, convex_adam
+
+    cfg = ConvexAdamConfig(mind_r=GENERAL_MIND[0], mind_d=GENERAL_MIND[1])
+    convex_adam(vol_np, mov_np, cfg, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    for session in range(PROFILER_SESSIONS):
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = convex_adam(vol_np, mov_np, cfg, device="cuda")
+            torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        seen = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "mind" in e.key}
+        if seen or session == PROFILER_SESSIONS - 1:
+            break
+    _launch_checks("4g", launches, dict(EXPECTED_LAUNCHES, mind_ssd_stats=0,
+                                        mind_ssd_stats_general=2))
+    general = sum(n for k, n in seen.items() if "mind_general_kernel" in k)
+    check(general == 2 and sum(seen.values()) == 2,
+          f"4g: the profiler saw {seen}, expected 2 launches of mind_general_kernel")
+    check(out.shape == HEADLINE_SHAPE + (3,) and bool(np.isfinite(out).all()), "4g: bad field")
+    c = 32
+    err_v = np.abs(out[c:-c, c:-c, c:-c] - np.array(HEADLINE_SHIFT, np.float32))
+    frac_ok = float(np.mean(np.all(err_v < 1.0, axis=-1)))
+    check(frac_ok > 0.9, f"4g: headline shift recovered in only {frac_ok:.2%} of the crop")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        convex_adam(vol_np, mov_np, cfg, device="cuda")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    results["registration_general_mind"] = {
+        "mind_r_d": list(GENERAL_MIND), "frac_within_1vox": frac_ok,
+        "mean_abs_err_vox": float(err_v.mean()), "profiled_mind_launches": seen,
+        "registration_s_median": float(np.median(times)), "registration_s": times}
+    print(f"4g: registration 192^3 at (mind_r, mind_d) = {GENERAL_MIND}: "
+          f"{float(np.median(times)):.4f} s (median of 3), {frac_ok:.2%} of the crop within "
+          f"1 voxel, mind_general_kernel launches {general}", flush=True)
+    return launches
+
+
 def evaluation_phase(torch, field, seg_f, seg_m, results):
     """Phase 4c: ``evaluate_field`` on the card, its launch counts on both
     search branches, and its HD95 against the host scipy-EDT ``hd95``."""
@@ -1105,7 +1183,8 @@ def ptxas_entry(usage, *parts) -> dict:
     raise AssertionError(f"ptxas reported no kernel named like {parts}")
 
 
-NO_SPILL_KERNELS = ("warp_ssd_kernel", "mind_kernel", "sample_trilinear_kernel", "cost_volume",
+NO_SPILL_KERNELS = ("warp_ssd_kernel", "mind_kernel", "mind_general_kernel",
+                    "sample_trilinear_kernel", "cost_volume",
                     "nearest_sq_kernel", "nearest_sq_dual_kernel", "nearest_sq_pruned_kernel")
 
 
@@ -1113,8 +1192,8 @@ def ptxas_report(_build) -> dict:
     """Print ptxas's registers and spills for the kernels of ``warp.cu``,
     ``mind.cu``, ``cost_volume.cu`` and ``edt.cu`` and check them: the
     backward sampler fits 64 registers; the data term, the forward sampler,
-    the compile-time MIND kernels, every cost-volume kernel and the three
-    searches do not spill.  Returns every source's report."""
+    every MIND kernel, every cost-volume kernel and the three searches do
+    not spill.  Returns every source's report."""
     usage = {name: _build.resource_usage(name) for name in _build.KERNEL_SOURCES}
     for src in ("warp", "mind", "cost_volume", "edt"):
         for mangled, use in usage[src].items():
@@ -1421,18 +1500,27 @@ def adam_sampler_cases(torch, dev, gen):
 
 def mind_cases(torch, vol):
     """Phase 3a's inputs, ``(shape, dtype, r, d, x)``, the main path's case
-    first: the 192^3 volume ``vol`` at (r, d) = (1, 2) in bf16 and f32, every
-    (r, d) the self-configuring search draws on crops of it (ragged 37 x 41
-    x 29, and :data:`MIND_WIDE_SHAPES` across D tiles) in f32 and bf16, and
-    (4, 1), which runs the general kernel, on the 37 x 41 x 29 crop and on
-    the 192^3 volume in bf16."""
+    first: the 192^3 volume ``vol`` at (r, d) = (1, 2) in bf16 and f32 and
+    at the pairs of :data:`MIND_TIMED`; every (r, d) the self-configuring
+    search draws and every pair of :data:`MIND_GENERAL_PAIRS` on the ragged
+    37 x 41 x 29 crop of it, and the search's pairs on
+    :data:`MIND_WIDE_SHAPES` (across D tiles), in f32 and bf16."""
     dts = (torch.float32, torch.bfloat16)
-    cases = [(HEADLINE_SHAPE, dt, 1, 2) for dt in dts[::-1]] + [(HEADLINE_SHAPE, dts[1], 4, 1)]
-    cases += [(RAGGED_SHAPE, dt, r, d) for r, d in MIND_PAIRS + [(4, 1)] for dt in dts]
+    cases = [(HEADLINE_SHAPE, dt, 1, 2) for dt in dts[::-1]]
+    cases += [(HEADLINE_SHAPE, getattr(torch, dt), r, d) for (r, d), dt in MIND_TIMED]
+    cases += [(RAGGED_SHAPE, dt, r, d) for r, d in MIND_PAIRS + MIND_GENERAL_PAIRS for dt in dts]
     cases += [(shape, dt, r, d) for shape in MIND_WIDE_SHAPES for r, d in MIND_PAIRS
               for dt in dts]
     for shape, dt, r, d in cases:
         yield shape, dt, r, d, vol[: shape[0], : shape[1], : shape[2]].to(dt).contiguous()
+
+
+def mind_instance(key: str):
+    """``(r, d)`` of a compiled MIND kernel's profiler name
+    (``...mind_kernel<T, R, DIL>(...)``), or None where the name does not
+    show them."""
+    m = re.search(r"mind_kernel<[^<>]*?,\s*(\d+),\s*(\d+)>", key)
+    return (int(m.group(1)), int(m.group(2))) if m else None
 
 
 def mind_work(shape, itemsize: int, r: int) -> "tuple[float, float]":
@@ -1448,13 +1536,15 @@ def mind_work(shape, itemsize: int, r: int) -> "tuple[float, float]":
 
 def mind_phase(torch, vol):
     """Phase 3a: ``mind_ssd_stats`` against its plain version to the bit on
-    :func:`mind_cases`, the 192^3 bf16 cases timed, the main one (1, 2) and
-    (4, 1) through the general kernel (the profiler shows which kernel each
-    kind of pair launches).  Returns the main case's record and every case's
+    :func:`mind_cases`; for every pair (once, on the ragged crop) and every
+    192^3 case, the profiler must see one launch of the kernel ``kernel_for``
+    names, of that (r, d) where it is a compiled one, and no other MIND
+    kernel; the 192^3 cases timed.  Returns the records of the main case
+    (1, 2) and of the general kernel at (4, 1) (bf16), and every case's
     numbers."""
-    from convexadam_torch.kernels.mind import mind_ssd_stats, mind_ssd_stats_plain
+    from convexadam_torch.kernels.mind import kernel_for, mind_ssd_stats, mind_ssd_stats_plain
 
-    record, detail = None, []
+    records, detail, profiled = {}, [], set()
     for shape, dt, r, d, x in mind_cases(torch, vol):
         mk, vk = mind_ssd_stats(x, r, d)
         mp, vp = mind_ssd_stats_plain(x, r, d)
@@ -1464,27 +1554,39 @@ def mind_phase(torch, vol):
         tol = 0.0
         err = max(max_err(mk, mp), max_err(vk, vp))
         check(err <= tol, f"mind_ssd_stats {shape} {dt} (r, d) = {(r, d)}: max err {err} > {tol}")
-        row = {"shape": list(shape), "dtype": str(dt), "r": r, "d": d, "max_abs_err": err}
-        if (r, d) == (4, 1) or (shape == HEADLINE_SHAPE and dt == torch.bfloat16):
-            kernel = "mind_kernel" if (r, d) in MIND_PAIRS else "mind_general_kernel"
-            ran = device_times(torch, lambda: mind_ssd_stats(x, r, d), (kernel,), 1, 1)
-            check(ran["device_launches"] == 1, f"mind_ssd_stats (r, d) = {(r, d)}: "
-                  f"{ran['device_launches']} launches of {kernel}")
-            row["kernel"] = kernel
-        which = f", ran {row['kernel']}" if "kernel" in row else ""
+        del mk, vk, mp, vp
+        kernel = kernel_for(r, d)
+        row = {"shape": list(shape), "dtype": str(dt), "r": r, "d": d, "max_abs_err": err,
+               "kernel": kernel}
+        if (r, d) not in profiled or shape == HEADLINE_SHAPE:
+            profiled.add((r, d))
+            ran = device_times(torch, lambda: mind_ssd_stats(x, r, d),
+                               ("mind_kernel", "mind_general_kernel"), 1, 1)
+            mine = [k for k in ran["device_kernels"] if kernel in k]
+            others = [k for k in ran["device_kernels"] if "mind" in k and k not in mine]
+            check(ran["device_launches"] == 1 and len(mine) == 1 and not others,
+                  f"mind_ssd_stats (r, d) = {(r, d)}: {ran['device_launches']} launches, "
+                  f"saw {ran['device_kernels']}, expected one {kernel}")
+            inst = mind_instance(mine[0])
+            check(kernel != "mind_kernel" or inst in (None, (r, d)),
+                  f"mind_ssd_stats (r, d) = {(r, d)} ran {mine[0]}")
+            row["profiled"] = mine[0]
         print(f"mind_ssd_stats {shape} {dt} (r, d) = {(r, d)}: max_abs_err {err:.3e} "
-              f"(tol {tol:.1e}){which}", flush=True)
-        if shape == HEADLINE_SHAPE and dt == torch.bfloat16:
-            t = timed_turns(torch, lambda: mind_ssd_stats(x, r, d), (row["kernel"],))
+              f"(tol {tol:.1e}), ran {row.get('profiled', kernel)}", flush=True)
+        if shape == HEADLINE_SHAPE:
+            dname = str(dt)[6:]
+            t = timed_turns(torch, lambda: mind_ssd_stats(x, r, d), (kernel,))
             p_ms = cuda_ms(torch, lambda: mind_ssd_stats_plain(x, r, d))
-            rec = kernel_record("mind_ssd_stats", list(shape), "bfloat16", err, tol, t, p_ms,
-                                *mind_work(shape, 2, r))
-            print_times(f"mind_ssd_stats (r, d) = {(r, d)} ({row['kernel']})", t, p_ms,
+            name = "mind_ssd_stats" if kernel == "mind_kernel" else "mind_ssd_stats_general"
+            rec = kernel_record(name, list(shape), dname, err, tol, t, p_ms,
+                                *mind_work(shape, x.element_size(), r))
+            print_times(f"mind_ssd_stats (r, d) = {(r, d)} {dname} ({kernel})", t, p_ms,
                         rec["bound_ms"])
             row.update({k: rec[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")})
-            record = record or rec
+            if dname == "bfloat16" and (r, d) in ((1, 2), GENERAL_MIND):
+                records.setdefault(name, rec)
         detail.append(row)
-    return record, detail
+    return records["mind_ssd_stats"], records["mind_ssd_stats_general"], detail
 
 
 def data_term_cases(torch, gen, feat_f, feat_m, grid_sp_adam):
@@ -3263,8 +3365,12 @@ def _recording(torch, calls):
 def _captured_kernel(name, a) -> str:
     """The kernel record (and launch count) a recorded call of wrapper
     ``name`` with arguments ``a`` belongs to."""
+    from convexadam_torch.kernels import mind
     from convexadam_torch.kernels.cost_volume import kernel_for
 
+    if name == "mind_ssd_stats":
+        general = mind.kernel_for(a["radius"], a["dilation"]) == "mind_general_kernel"
+        return "mind_ssd_stats_general" if general else name
     if name == "cost_volume":
         if a["metric"] == "sad":
             return "cost_volume_sad"
@@ -3986,9 +4092,11 @@ def main() -> int:
     records = []
 
     # 3a. MIND statistics
-    rec, results["mind"] = mind_phase(torch, vol)
+    rec, general_rec, results["mind"] = mind_phase(torch, vol)
     rec.update(ptxas_entry(results["ptxas"]["mind"], "mind_kernel", "bfloat16", "Li1ELi2E"))
-    records.append(rec)
+    general_rec.update(ptxas_entry(results["ptxas"]["mind"], "mind_general_kernel", "bfloat16",
+                                   "Lb1E"))
+    records += [rec, general_rec]
 
     # 3b. cost volume: pooled MIND features of the headline pair, 12 x 32^3,
     # q = 4; the semantic and sweep grids; ragged crops at q = 0..9
@@ -4095,6 +4203,9 @@ def main() -> int:
         reg[f"golden48_{dtype}"] = {"median_epe": med, "p99_epe": p99, "max_epe": float(epe.max())}
         print(f"golden 48^3 {dtype}: median {med:.4f}, p99 {p99:.4f}", flush=True)
 
+    # 4g. the same registration at an (r, d) the general MIND kernel runs
+    general_launches = general_mind_phase(torch, vol_np, mov_np, results)
+
     # 4c. evaluation path: the registered field on the 13-organ label pair
     eval_launches, tiled_launches = evaluation_phase(torch, out, seg_f, seg_m, results)
 
@@ -4153,7 +4264,12 @@ def main() -> int:
         rec["launches_sweep"] = {"stage1": sweep_l1[name], "stage2": sweep_l2[name],
                                  "paired_stage1": paired_l1[name], "paired_stage2": paired_l2[name],
                                  "stage1_resume": resume_l[name]}
-        if name in variant_runs:
+        if name == "mind_ssd_stats_general":
+            rec["launches"] = general_launches[name]
+            rec["launches_run"] = (f"192^3 registration at (mind_r, mind_d) = {GENERAL_MIND} "
+                                   "of phase 4g")
+            rec["launches_per_registration"] = launches[name]
+        elif name in variant_runs:
             key, run = variant_runs[name]
             rec["launches"] = challenge_launches[key][name]
             rec["launches_run"] = run
@@ -4179,6 +4295,7 @@ def main() -> int:
     results["kernels"] = records
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(results, indent=1))
     print(json.dumps({"registration": reg}))
+    print(json.dumps({"registration_general_mind": results["registration_general_mind"]}))
     print(json.dumps({"evaluation": {k: v for k, v in results["evaluation"].items()
                                      if not isinstance(v, list)}}))
     for key in ("semantic", "multi_output", "autodiff"):

@@ -13,12 +13,13 @@ KERNEL_NAMES = (
     "mind_ssd_stats", "cost_volume", "sample_trilinear", "sample_trilinear_ic",
     "sample_trilinear_bwd", "warp_ssd_loss_grad", "nearest_sq", "nearest_sq_dual",
     "nearest_sq_pruned",
-    # variants of two of the kernels above, counted on their own: the SAD
+    # variants of three of the kernels above, counted on their own: the SAD
     # metric, candidate blocks of the streamed convex path, the general
-    # cost-volume kernel (SSD at a q without its own instantiation), and the
-    # data term on a strided sub-lattice
+    # cost-volume kernel (SSD at a q without its own instantiation), the
+    # data term on a strided sub-lattice, and the general MIND kernel (an
+    # (r, d) without its own instantiation)
     "cost_volume_sad", "cost_volume_block", "cost_volume_general",
-    "warp_ssd_loss_grad_strided",
+    "warp_ssd_loss_grad_strided", "mind_ssd_stats_general",
 )
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNEL_NAMES}

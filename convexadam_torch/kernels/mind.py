@@ -1,16 +1,18 @@
 """MIND-SSC statistics: wrapper of ``csrc/mind.cu`` and its plain version.
 
 Replaces ``convexadam_tpu/ops/mind_pallas.py:mind_ssd_stats_pallas``.  On the
-card the radii and dilations in {1, 2, 3} run a kernel compiled for them,
-any other pair a general kernel with both at run time.  Both versions
+card the radii and dilations in {1, 2, 3} run a kernel compiled for that
+pair (:func:`kernel_for`), any other pair r, d >= 0 the general kernel with
+both at run time, staged as :func:`general_plan` chooses.  Both versions
 return ``mind = boxmean(diff^2) - min_c`` (12, H, W, D) in the
 input dtype and ``var = mean_c(mind)`` (H, W, D) in float32: everything of
-MIND-SSC before the global-mean variance clamp.
+MIND-SSC before the global-mean variance clamp.  A launch adds one to
+``mind_ssd_stats`` (compiled kernel) or ``mind_ssd_stats_general`` of
+:data:`~convexadam_torch.kernels.LAUNCHES`.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Sequence
 
@@ -20,6 +22,41 @@ from convexadam_torch.core.smoothing import _window_sum_axis, replicate_pad3d
 from convexadam_torch.kernels import LAUNCHES, _build
 
 DTYPES = (torch.float32, torch.bfloat16)
+
+# csrc/mind.cu compiles mind_kernel<T, R, DIL> for these (R, DIL): the radii
+# and dilations of the self-configuring search
+COMPILED_PAIRS = frozenset((r, d) for r in (1, 2, 3) for d in (1, 2, 3))
+# the output tile of both kernels (csrc/mind.cu: FH, FW, FD) and the dynamic
+# shared memory an H100 gives one CTA
+TILE = (4, 8, 64)
+SMEM_PER_BLOCK = 232448
+
+
+def kernel_for(radius: int, dilation: int) -> str:
+    """The ``__global__`` function that computes ``(radius, dilation)`` on
+    the card: the one compiled for the pair, or the general one."""
+    return "mind_kernel" if (radius, dilation) in COMPILED_PAIRS else "mind_general_kernel"
+
+
+def general_plan(radius: int, dilation: int, itemsize: int) -> "tuple[bool, int, int]":
+    """``(halo, cw, smem_bytes)`` of the general kernel for elements of
+    ``itemsize`` bytes: the image halo staged in shared memory where it fits
+    beside the H and W sums of the whole region (``cw`` = its FW + 2r
+    columns) and the box means; else the operands read from
+    global memory and the H sums taken in chunks of ``cw`` columns, as many
+    as fit (``csrc/mind.cu``: ``general_smem``)."""
+    fh, fw, fd = TILE
+    b, ep, ew = radius + dilation, fd // 2 + radius, fw + 2 * radius
+    pair = 2 * itemsize
+    fixed = pair * (fh * ep * fw + 12 * 2 * fh * fw * fd // 4)
+    halo = -(-(fh + 2 * b) * (fw + 2 * b) * (fd + 2 * b) * itemsize // 16) * 16
+    column = pair * fh * ep
+    if halo + fixed + column * ew <= SMEM_PER_BLOCK:
+        return True, ew, halo + fixed + column * ew
+    cw = min(ew, (SMEM_PER_BLOCK - fixed) // column)
+    if cw < 1:
+        raise ValueError(f"mind_ssd_stats: radius {radius} needs more shared memory than a CTA has")
+    return False, cw, fixed + column * cw
 
 
 def _mind_shift_pairs() -> "list[tuple[tuple[int, int, int], tuple[int, int, int]]]":
@@ -43,14 +80,6 @@ def _pair_offsets(dilation: int):
         (tuple((c - 1) * dilation for c in s1), tuple((c - 1) * dilation for c in s2))
         for s1, s2 in _mind_shift_pairs()
     ]
-
-
-@functools.lru_cache(maxsize=None)
-def _offsets_arg(dilation: int):
-    """The 12 x 2 x 3 pair offsets as a C int array (read by the general
-    kernel), made once per dilation."""
-    flat = [v for o1, o2 in _pair_offsets(dilation) for v in (*o1, *o2)]
-    return (ctypes.c_int * len(flat))(*flat)
 
 
 def shifted_replicate(img: torch.Tensor, offset: Sequence[int]) -> torch.Tensor:
@@ -96,8 +125,18 @@ def mind_ssd_stats_plain(x: torch.Tensor, radius: int, dilation: int):
     return mind, _true_div(var, float(mind.shape[0]))
 
 
+@functools.lru_cache(maxsize=None)
+def _entry():
+    P, I = _build.P, _build.I  # noqa: E741
+    return _build.bind("mind", "mind_ssd_stats", (P, P, P, I, I, I, I, I, I, I, I, I, P))
+
+
 def mind_ssd_stats(x: torch.Tensor, radius: int, dilation: int):
-    """(mind, var) of the volume ``x`` (H, W, D), float32 or bfloat16."""
+    """(mind, var) of the volume ``x`` (H, W, D), float32 or bfloat16, at
+    any ``radius`` and ``dilation`` >= 0 (on the card a radius up to 433 in
+    float32 and 1240 in bfloat16: :func:`general_plan`)."""
+    if radius < 0 or dilation < 0:
+        raise ValueError(f"mind_ssd_stats: radius {radius} and dilation {dilation} must be >= 0")
     if x.device.type == "cpu":
         return mind_ssd_stats_plain(x, radius, dilation)
     _build.require_cuda(x, "mind_ssd_stats")
@@ -105,12 +144,12 @@ def mind_ssd_stats(x: torch.Tensor, radius: int, dilation: int):
     H, W, D = x.shape
     mind = torch.empty((12, H, W, D), dtype=x.dtype, device=x.device)
     var = torch.empty((H, W, D), dtype=torch.float32, device=x.device)
-    P, I = _build.P, _build.I  # noqa: E741
-    fn = _build.bind("mind", "mind_ssd_stats", [P, P, P, I, I, I, I, I, I, P, P])
+    general = kernel_for(radius, dilation) == "mind_general_kernel"
+    halo, cw, _ = general_plan(radius, dilation, x.element_size()) if general else (False, 0, 0)
     err = _build.call_on(
-        x.device, fn, x.data_ptr(), mind.data_ptr(), var.data_ptr(), H, W, D, radius, dilation,
-        int(x.dtype == torch.bfloat16), ctypes.addressof(_offsets_arg(dilation)),
+        x.device, _entry(), x.data_ptr(), mind.data_ptr(), var.data_ptr(), H, W, D, radius,
+        dilation, int(general), int(halo), cw, int(x.dtype == torch.bfloat16),
     )
     _build.check(err, "mind_ssd_stats")
-    LAUNCHES["mind_ssd_stats"] += 1
+    LAUNCHES["mind_ssd_stats_general" if general else "mind_ssd_stats"] += 1
     return mind, var

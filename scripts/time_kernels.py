@@ -4,7 +4,7 @@ kernels on a CUDA card.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 scripts/time_kernels.py [--root DIR] [--check] [--sass] [--only cost_volume]
+    python3 scripts/time_kernels.py [--root DIR] [--check] [--sass] [--only cost_volume|mind]
 
 ``--root`` imports ``convexadam_torch`` from another checkout (for example
 an unpacked parent commit), so two versions of the kernels can be timed in
@@ -49,6 +49,13 @@ adds.
 cost volumes (the default case on seeded 12 x 32^3 features, not pooled
 MIND ones), with ptxas's registers and spills of its kernels: the quick
 comparison of two versions of that kernel.
+``--only mind`` builds ``mind.cu`` alone and times ``mind_ssd_stats`` on the
+192^3 headline volume at the main path's (1, 2) in bfloat16 and at
+``chip_smoke.py``'s ``MIND_TIMED`` pairs (the general kernel at (4, 1) in
+bfloat16 and float32, (1, 5) and (6, 6) in bfloat16, the compiled (3, 3)
+beside them), each with the MIND kernels the profiler saw (an older
+checkout may launch another kernel than the pair's, or refuse the pair: the
+error is recorded), with ptxas's registers and spills of ``mind.cu``.
 ``--sass`` also counts the machine instructions (``cuobjdump -sass``) of
 the compile-time MIND kernels, the data term, the sampler and the
 cost-volume kernels as built for ``--root``; in the fully unrolled MIND
@@ -73,7 +80,7 @@ def main() -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--threshold", action="store_true")
-    ap.add_argument("--only", choices=("cost_volume",))
+    ap.add_argument("--only", choices=("cost_volume", "mind"))
     args = ap.parse_args()
     if (args.check or args.threshold) and args.root.resolve() != ROOT:
         ap.error("--check and --threshold run on this checkout's package only")
@@ -103,9 +110,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    _build.build_all(("cost_volume",) if args.only else _build.KERNEL_SOURCES)
+    _build.build_all((args.only,) if args.only else _build.KERNEL_SOURCES)
     dev = torch.device("cuda")
     res = {"card": smi, "package": str(pathlib.Path(convexadam_torch.__file__).parent)}
+    if args.only == "mind":
+        res["mind"] = time_mind(torch, cs, dev, resize_trilinear, mind_ssd_stats)
+        res["mind_ptxas"] = _build.resource_usage("mind")
+        print(json.dumps(res))
+        return 0
     if args.threshold:
         res["threshold"] = threshold_sweep(torch, cs, dev)
         print(json.dumps(res))
@@ -120,7 +132,7 @@ def main() -> int:
 
     if args.check:
         cs.ptxas_report(_build)
-        _, res["mind_check"] = cs.mind_phase(torch, vol)
+        *_, res["mind_check"] = cs.mind_phase(torch, vol)
         _, res["cost_volume_check"] = cs.cost_volume_phase(torch, fix_s, mov_s, 4)
         gen = torch.Generator().manual_seed(0)
         _, res["sampler_check"] = cs.sampler_phase(torch, dev, gen, tuple(fix_s.shape[1:]))
@@ -221,6 +233,30 @@ def main() -> int:
                 lambda: warp_ssd_loss_grad(mov, disp, fix, fac, chain))
     print(json.dumps(res))
     return 0
+
+
+def time_mind(torch, cs, dev, resize_trilinear, mind_ssd_stats) -> dict:
+    """Call and device time of ``mind_ssd_stats`` on the 192^3 headline
+    volume at (1, 2) in bfloat16 and at every pair of ``cs.MIND_TIMED``,
+    with the names of the MIND kernels each call ran."""
+    vol_np, _ = cs.headline_pair(torch, resize_trilinear)
+    vol = torch.from_numpy(vol_np).to(dev)
+    out = {}
+    for (r, d), dt in [((1, 2), "bfloat16")] + cs.MIND_TIMED:
+        x = vol.to(getattr(torch, dt)).contiguous()
+        key = f"{tuple(x.shape)} {dt} (r, d) = {(r, d)}"
+        try:
+            def fn():
+                return mind_ssd_stats(x, r, d)
+
+            t = {"call_ms": cs.cuda_ms(torch, fn),
+                 **cs.device_times(torch, fn, ("mind_kernel", "mind_general_kernel"))}
+            out[key] = {k: t[k] for k in ("call_ms", "device_ms", "device_launches",
+                                          "device_kernels")}
+        except (RuntimeError, AssertionError) as e:
+            out[key] = {"error": str(e)}
+        print(key, out[key], flush=True)
+    return out
 
 
 def sphere_pair(torch, dev, K: int, shift=(5, -4, 3)):

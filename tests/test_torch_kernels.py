@@ -24,7 +24,15 @@ from convexadam_torch.core.warp import identity_grid_normalized
 from convexadam_torch.kernels import LAUNCHES
 from convexadam_torch.kernels.cost_volume import COMPILED_Q, cost_volume, kernel_for
 import convexadam_torch.kernels.mind as kmind
-from convexadam_torch.kernels.mind import _pair_offsets, mind_ssd_stats
+from convexadam_torch.kernels.mind import (
+    COMPILED_PAIRS,
+    SMEM_PER_BLOCK,
+    TILE,
+    _pair_offsets,
+    general_plan,
+    kernel_for as mind_kernel_for,
+    mind_ssd_stats,
+)
 from convexadam_torch.kernels.warp import (
     inverse_consistency_steps,
     inverse_consistency_steps_plain,
@@ -38,11 +46,25 @@ torch.set_num_threads(2)
 
 
 MIND_PAIRS = [(r, d) for r in (1, 2, 3) for d in (1, 2, 3)]  # the search's radii and dilations
+# pairs the general kernel runs on the card: a radius or a dilation of 0, a
+# dilation of 5 or 7 (whose old dispatch key r * 4 + d fell on a compiled
+# pair's), radius 4, and a halo past the kernel's shared memory
+MIND_GENERAL_PAIRS = [(0, 2), (1, 5), (2, 7), (4, 1), (1, 12)]
 
 
-@pytest.mark.parametrize("r,d,dtype", [(r, d, "float32") for r, d in MIND_PAIRS]
-                         + [(1, 2, "bfloat16")])
-def test_mind_ssd_stats_matches_pallas(rng, r, d, dtype):
+def _mind_source() -> str:
+    return (pathlib.Path(__file__).resolve().parent.parent / "convexadam_torch" / "csrc"
+            / "mind.cu").read_text()
+
+
+def _mind_constant(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", _mind_source()).group(1))
+
+
+@pytest.mark.parametrize("r,d,dtype",
+                         [(r, d, "float32") for r, d in MIND_PAIRS + MIND_GENERAL_PAIRS]
+                         + [(1, 2, "bfloat16"), (4, 1, "bfloat16")])
+def test_mind_ssd_stats_matches_pallas(rng, monkeypatch, r, d, dtype):
     shape = (16, 16, 20)
     assert mind_supported(shape, r, d, 2 if dtype == "bfloat16" else 4)
     x = rng.standard_normal(shape).astype(np.float32)
@@ -56,11 +78,106 @@ def test_mind_ssd_stats_matches_pallas(rng, r, d, dtype):
         np.testing.assert_allclose(mind_t.numpy(), mind_p, rtol=1e-5, atol=1e-6)
         np.testing.assert_allclose(var_t.numpy(), np.asarray(var_p), rtol=1e-5, atol=1e-6)
     else:
-        # bf16: mind equal to the bit here; the Pallas kernel's var adds the
-        # channels' differences before XLA rounds them to bf16 (excess
-        # precision), so within 2^-7 relative (one or two bf16 ulps)
+        # bf16: mind equal to the bit; where bf16 cannot hold k^3 (729 at
+        # r = 4) the Pallas kernel divides by k^3 rounded to bf16, as
+        # test_mind_bf16_pallas_divides_by_bf16_343 shows at r = 3, so the
+        # plain version is held to it with that divisor.  The Pallas
+        # kernel's var adds the channels' differences before XLA rounds them
+        # to bf16 (excess precision), so within 2^-7 relative (one or two
+        # bf16 ulps)
+        k3 = float((2 * r + 1) ** 3)
+        k3_bf16 = float(torch.tensor(k3).to(torch.bfloat16))
+        if k3_bf16 != k3:
+            true_div = kmind._true_div
+            monkeypatch.setattr(kmind, "_true_div",
+                                lambda t, v: true_div(t, k3_bf16 if v == k3 else v))
+            mind_t, var_t = mind_ssd_stats(torch.from_numpy(x).to(torch.bfloat16), r, d)
         np.testing.assert_array_equal(mind_t.float().numpy(), mind_p)
         np.testing.assert_allclose(var_t.numpy(), np.asarray(var_p), rtol=2.0**-7)
+
+
+def test_mind_kernel_choice_covers_every_pair():
+    """The wrapper's choice by (r, d): the compiled kernel for exactly the
+    search's {1, 2, 3}^2, the general kernel for every other pair."""
+    assert COMPILED_PAIRS == set(MIND_PAIRS)
+    for r in range(17):
+        for d in range(17):
+            want = "mind_kernel" if (r, d) in COMPILED_PAIRS else "mind_general_kernel"
+            assert mind_kernel_for(r, d) == want, (r, d)
+
+
+def test_mind_dispatch_launches_each_pair_its_own_instance():
+    """The C dispatch tests r and dil each on their own: every compiled case
+    launches ``launch_fixed<T, R, DIL>`` for its own (R, DIL), one case a
+    pair of {1, 2, 3}^2, and ``general`` routes to the general kernel.  (A
+    key such as r * 4 + dil gives pairs with dil >= 4 a compiled pair's
+    case.)"""
+    src = _mind_source()
+    entry = src[src.index("int launch(const void* x"):]
+    entry = entry[:entry.index("\n}\n")]
+    cases = re.findall(
+        r"if \(r == (\d+) && dil == (\d+)\) return launch_fixed<T, (\d+), (\d+)>\(", entry)
+    assert sorted((int(a), int(b)) for a, b, _, _ in cases) == sorted(MIND_PAIRS)
+    assert all((a, b) == (c, e) for a, b, c, e in cases)
+    assert len(re.findall(r"launch_fixed<", entry)) == len(MIND_PAIRS)
+    assert "if (general) return launch_general<T>(" in entry
+    assert "switch" not in entry
+
+
+@pytest.mark.parametrize("r,d", [(-1, 2), (1, -2)])
+def test_mind_ssd_stats_refuses_negative_pairs(r, d):
+    with pytest.raises(ValueError, match=">= 0"):
+        mind_ssd_stats(torch.zeros((4, 4, 4)), r, d)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_mind_general_plan_fits_shared_memory(itemsize):
+    """The general kernel's staging for every (r, d) up to 40 x 40 and a few
+    large radii: shared memory within a CTA's, the image halo staged where
+    it fits ((4, 1) among them) and otherwise the H sums in W chunks of at
+    least one column; a radius whose W sums alone outgrow a CTA's shared
+    memory is refused; the tile is the source's."""
+    assert TILE == tuple(_mind_constant(n) for n in ("FH", "FW", "FD"))
+    fh, fw, fd = TILE
+    for r in list(range(41)) + [100, 300, 400]:
+        for d in range(41):
+            halo, cw, nbytes = general_plan(r, d, itemsize)
+            assert nbytes <= SMEM_PER_BLOCK and 1 <= cw <= fw + 2 * r
+            assert not halo or cw == fw + 2 * r
+    assert general_plan(4, 1, itemsize)[0] and not general_plan(1, 12, itemsize)[0]
+    assert general_plan(100, 3, itemsize)[1] < fw + 200  # chunked
+    with pytest.raises(ValueError, match="shared memory"):
+        general_plan(2000, 1, itemsize)
+
+
+@pytest.mark.parametrize("r", range(12))
+def test_mind_general_kernel_adds_every_window_in_order(r):
+    """The general kernel's order of additions, replayed from its loops: the
+    H sums streamed row by row (``2r + 1 >= FH``: a head, a middle and a
+    tail of rows; else every row with a test per plane) give plane h the
+    rows h .. h + 2r in ascending order, and the W sums taken over chunks of
+    columns give column w the columns w .. w + 2r in ascending order, for
+    any chunk width."""
+    fh, fw, _ = TILE
+    rows = {h: [] for h in range(fh)}
+    if 2 * r + 1 >= fh:
+        order = ([(i, range(i + 1)) for i in range(fh - 1)]
+                 + [(i, range(fh)) for i in range(fh - 1, 2 * r + 1)]
+                 + [(2 * r + j, range(j, fh)) for j in range(1, fh)])
+    else:
+        order = [(i, [h for h in range(fh) if 0 <= i - h <= 2 * r]) for i in range(fh + 2 * r)]
+    for i, planes in order:
+        for h in planes:
+            rows[h].append(i)
+    assert all(rows[h] == list(range(h, h + 2 * r + 1)) for h in range(fh))
+    ew = fw + 2 * r
+    for cw in sorted({ew, max(1, ew // 3), 1}):
+        cols = {w: [] for w in range(fw)}
+        for c0 in range(0, ew, cw):
+            ncol = min(cw, ew - c0)
+            for w in range(fw):
+                cols[w] += [w + j for j in range(max(0, c0 - w), min(2 * r, c0 + ncol - 1 - w) + 1)]
+        assert all(cols[w] == list(range(w, w + 2 * r + 1)) for w in range(fw))
 
 
 def test_mind_bf16_pallas_divides_by_bf16_343(rng, monkeypatch):
@@ -81,11 +198,10 @@ def test_mind_bf16_pallas_divides_by_bf16_343(rng, monkeypatch):
 
 
 def test_mind_kernel_pair_table_matches_shift_pairs():
-    """The compile-time MIND kernel's table of the 12 shift pairs
+    """The MIND kernels' table of the 12 shift pairs
     (``csrc/mind.cu:pair_code``, each shift coded (oh+1)*9 + (ow+1)*3 +
     (od+1)) is the plain version's ``_pair_offsets``, pair by pair."""
-    src = (pathlib.Path(__file__).resolve().parent.parent / "convexadam_torch" / "csrc"
-           / "mind.cu").read_text()
+    src = _mind_source()
     body = src[src.index("pair_code(int c)"):]
     body = body[: body.index("}\n}")]
     codes = [tuple(map(int, m)) for m in re.findall(r"return (\d+) \* 27 \+ (\d+);", body)]
@@ -96,12 +212,14 @@ def test_mind_kernel_pair_table_matches_shift_pairs():
     assert [(offset(a), offset(b)) for a, b in codes] == _pair_offsets(1)
 
 
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", range(10))
 def test_mind_bf16_mean_by_reciprocal_equals_true_division(r):
-    """The compile-time MIND kernel's bf16 box mean multiplies the sum by the
-    float reciprocal of k^3 (``csrc/mind.cu``, ``Pair<__nv_bfloat16>::mean``);
-    the plain version divides.  For every finite bf16 sum, subnormals
-    included, both round to the same bf16."""
+    """The MIND kernels' bf16 box mean multiplies the sum by the float
+    reciprocal of k^3 (``csrc/mind.cu``, ``Pair<__nv_bfloat16>::mean``): the
+    compiled kernels at r = 1, 2, 3, the general kernel up to
+    ``RECIP_MAX_R`` (9); the plain version divides.  For every finite bf16
+    sum, subnormals included, both round to the same bf16."""
+    assert r <= _mind_constant("RECIP_MAX_R") == 9
     bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
     a = bits[torch.isfinite(bits)]
     k3 = float((2 * r + 1) ** 3)
