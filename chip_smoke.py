@@ -46,12 +46,16 @@ Phases, each fatal on failure:
      kernel, one candidate block (one kh) of the (2, 7) class at 14 x 96 x
      80 x 128 and of task 1's grid at q = 8, each also against the same slab
      of the dense volume; SAD at every q in 0..9 and blocks of both metrics
-     at q = 0, 1, 4, 7, 8, 9 on the ragged crops;
+     at q = 0, 1, 4, 7, 8, 9 on the ragged crops; a slab's moving row
+     offset (9d) at every q in 0..9, SSD and SAD, volume and block, on two
+     ragged crops, equal to the plain version and to the whole volume's rows;
   3d. the Adam data term, rows to the bit, at 12 x 96^3 (bf16 and f32) and
      at the semantic Adam grid 14 x 96 x 80 x 128 (bf16), all timed, and on a
      ragged grid with points past every face; the strided form (stride 2)
      on the 12 x 96^3 grid's 48^3 sub-lattice (bf16, timed, and f32) and on a
      ragged 3 x 37 x 41 x 29 grid that 2 does not divide, rows to the bit;
+     both forms on lattice rows from ``row0`` (9d's slabs) of the ragged
+     grids, equal to the plain version and to the whole lattice's rows;
   3c. the sampler on the inverse-consistency fields (to the bit, and to
      1e-5 against ``F.grid_sample``), and the fused
      inverse-consistency steps (15 per call, 2 x 3 x 32^3 and a ragged 37 x
@@ -233,6 +237,14 @@ Phases, each fatal on failure:
   9c. the same ranks: 5a's ``run_stage1_sweep`` on a (setting 2, pair 1)
      grid, ``dice``, ``jstd``, ``hd95``, ``rank`` and ``best`` equal to
      5a's to the bit on both;
+  9d. four gloo ranks sharing the card (``--space-rank``):
+     ``register_pairs_sharded(..., shard_space=True)`` at the default config,
+     the 192^3 headline pair split along H over a (pair 1, space 4) grid and
+     9a's two pairs over a (pair 2, space 2) grid: every rank's fields equal
+     to phase 4's lone field (and 9a's second) to the bit, launches a rank
+     2 / 2 / 15 / 80, each rank's recorded cost-volume and data-term calls
+     (a slab's moving row offset and first lattice row) held to their plain
+     versions; each rank's seconds, peak memory and halo bytes;
   10. output: one JSON line per result, ``{"phase6": {...}}``,
      ``{"phase7": {...}}``, ``{"phase8": {...}}``, ``{"phase9": {...}}``,
      ``{"kernels": [...]}`` (thirteen records: the
@@ -240,7 +252,7 @@ Phases, each fatal on failure:
      four variants, SAD, candidate block, general cost volume and strided
      data term, each with its launches on every path, phase 6's under
      ``launches_file``, phase 7's under ``launches_challenges``, 8b's under
-     ``launches_segmentation``, 9a-9c's (per rank) under
+     ``launches_segmentation``, 9a-9d's (per rank) under
      ``launches_parallel``, and 7g's and 8b's readings under
      ``at_challenge_shape`` and ``at_segmentation_shape``,
      the MIND calls with their bound) second to last, then ``{"ok":
@@ -511,6 +523,13 @@ PARALLEL_RANKS = 2
 PARALLEL_DEADLINE_S = 420
 PARALLEL_GROUP_TIMEOUT_S = 180
 PARALLEL_DIR = OUT_DIR / "phase9"
+# phase 9d: gloo ranks sharing the card, each 192^3 pair split along H over
+# the space axis of these (pair, space) grids; the wrappers whose kernels
+# take a slab's offsets (the moving row offset, the data term's first row)
+SPACE_RANKS = 4
+SPACE_GRIDS = ((1, 4), (2, 2))
+SPACE_HELD = ("cost_volume", "warp_ssd_loss_grad")
+SPACE_DEADLINE_S = 300
 CLI_MESH_CLASSES = ((4, 4), (5, 2))  # 9a's CLI settings: phase 5a's two quickest classes
 
 
@@ -1416,7 +1435,55 @@ def cost_volume_variant_phase(torch, dev):
                   + (", blocks equal to plain and to the dense slab" if qr in RAGGED_BLOCK_Q
                      else "")
                   + (f", {row['ran']}" if "ran" in row else ""), flush=True)
+    detail += cost_volume_slab_cases(torch, pair)
     return records, detail
+
+
+def cost_volume_slab_cases(torch, pair):
+    """The moving row offset (phase 9d's slabs) at every q in
+    :data:`RAGGED_Q`, SSD and SAD, volume and one candidate block, on two
+    ragged crops: the fixed rows 2 .. h - 3 with the moving rows they reach
+    (``mov_row0`` = -min(q, 2)) equal to those rows of the whole volume and to
+    the plain version, to the bit; a moving slab a row short of them against
+    the plain version (zeros past it)."""
+    from convexadam_torch.kernels.cost_volume import (
+        cost_volume,
+        cost_volume_block,
+        cost_volume_block_plain,
+        cost_volume_plain,
+    )
+
+    detail = []
+    for shape in (COST_VOLUME_RAGGED[0], COST_VOLUME_RAGGED[2]):
+        fix, mov = pair(shape)
+        h = shape[1]
+        a, b = 2, h - 2
+        for qr in RAGGED_Q:
+            K = 2 * qr + 1
+            ma, mb = max(0, a - qr), min(h, b + qr)
+            for metric in ("ssd", "sad"):
+                dense = cost_volume(fix, mov, qr, metric).reshape(K, K, K, *shape[1:])
+                for m0, m1 in ((ma, mb), (ma + 1, mb)):
+                    f, m = fix[:, a:b].contiguous(), mov[:, m0:m1].contiguous()
+                    vk = cost_volume(f, m, qr, metric, m0 - a)
+                    vp = cost_volume_plain(f, m, qr, metric, m0 - a)
+                    kh = qr % K
+                    bk = cost_volume_block(f, m, qr, kh, 1, metric, m0 - a)
+                    bp = cost_volume_block_plain(f, m, qr, kh, 1, metric, m0 - a)
+                    torch.cuda.synchronize()
+                    ok = torch.equal(vk, vp) and torch.equal(bk, bp)
+                    if m0 == ma:
+                        ok = ok and torch.equal(vk.reshape(K, K, K, b - a, *shape[2:]),
+                                                dense[..., a:b, :, :])
+                    check(ok, f"cost volume slab {shape} q={qr} {metric} moving rows {m0}..{m1 - 1}"
+                          f": max err {max_err(vk, vp)}, block {max_err(bk, bp)}")
+                    detail.append({"case": "slab", "shape": list(shape), "q": qr,
+                                   "metric": metric, "fixed_rows": [a, b],
+                                   "moving_rows": [m0, m1], "max_abs_err": 0.0})
+        print(f"cost volume slabs {shape}: q in {list(RAGGED_Q)}, SSD and SAD, volume and block "
+              f"with the moving row offset equal to plain and to the whole volume's rows",
+              flush=True)
+    return detail
 
 
 def sampler_phase(torch, dev, gen, coarse):
@@ -1635,8 +1702,9 @@ def data_term_phase(torch, gen, feat_f, feat_m, grid_sp_adam):
     from convexadam_torch.kernels.warp import warp_ssd_loss_grad, warp_ssd_loss_grad_plain
 
     record, detail = None, []
-    for what, fix_flat, mov, disp, fac, chain in data_term_cases(torch, gen, feat_f, feat_m,
-                                                                 grid_sp_adam):
+    cases = data_term_cases(torch, gen, feat_f, feat_m, grid_sp_adam)
+    ragged = [c for c in cases if c[0] == "ragged"]
+    for what, fix_flat, mov, disp, fac, chain in cases:
         C, H, W, D = mov.shape
         N = H * W * D
         dev = mov.device
@@ -1677,7 +1745,41 @@ def data_term_phase(torch, gen, feat_f, feat_m, grid_sp_adam):
             if record is None:
                 record = rec
         detail.append(row)
+    detail += data_term_slab_cases(torch, ragged, 1)
     return record, detail
+
+
+def data_term_slab_cases(torch, cases, s):
+    """The data term on lattice rows from ``row0`` (phase 9d's slabs) of the
+    ragged ``cases`` at stride ``s``: the rows of lattice rows 3 .. 11 equal
+    to the plain version's and to those of the whole lattice's, to the bit,
+    ``sum(res^2)`` to the plain version's to 1e-5 relative."""
+    from convexadam_torch.kernels.warp import warp_ssd_loss_grad, warp_ssd_loss_grad_plain
+
+    detail = []
+    for what, fix_flat, mov, disp, fac, chain in cases:
+        C = mov.shape[0]
+        hs, ws, ds = disp.shape[1:]
+        r0, r1 = 3, 12
+        f = fix_flat.reshape(C, hs, ws, ds)[:, r0:r1].reshape(C, -1).contiguous()
+        d = disp[:, r0:r1].contiguous()
+        _, whole = warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain, s)
+        ssq_k, rows_k = warp_ssd_loss_grad(mov, d, f, fac, chain, s, r0)
+        ssq_p, rows_p = warp_ssd_loss_grad_plain(mov, d, f, fac, chain, s, r0)
+        torch.cuda.synchronize()
+        ssq_rel = abs(float(ssq_k) - float(ssq_p)) / float(ssq_p)
+        part = whole.reshape(3, hs, ws, ds)[:, r0:r1].reshape(3, -1)
+        name = (f"warp_ssd_loss_grad stride {s} {what} {tuple(mov.shape)} {mov.dtype} "
+                f"rows {r0}..{r1 - 1}")
+        check(torch.equal(rows_k, rows_p) and torch.equal(rows_k, part) and ssq_rel <= 1e-5,
+              f"{name}: rows max err {max_err(rows_k, rows_p)}, to the whole lattice's "
+              f"{max_err(rows_k, part)}, sum(res^2) rel {ssq_rel}")
+        print(f"{name}: rows equal to plain and to the whole lattice's; sum(res^2) rel err "
+              f"{ssq_rel:.3e}", flush=True)
+        detail.append({"case": f"{what} slab", "shape": list(mov.shape), "stride": s,
+                       "dtype": str(mov.dtype), "lattice_rows": [r0, r1], "max_abs_err": 0.0,
+                       "ssq_rel_err": ssq_rel})
+    return detail
 
 
 def strided_data_term_phase(torch, gen, feat_f, feat_m, grid_sp_adam):
@@ -1750,6 +1852,9 @@ def strided_data_term_phase(torch, gen, feat_f, feat_m, grid_sp_adam):
             print_times(name, t, p_ms, record["bound_ms"])
             row.update({k: record[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")})
         detail.append(row)
+        if what == "ragged":
+            detail += data_term_slab_cases(
+                torch, [(what, fix_flat, mov, disp, fac, chain)], s)
     return record, detail
 
 
@@ -3779,7 +3884,7 @@ def parallel_one_process_phase(torch, dev, vol_np, mov_np, results):
     that shows the cost-volume kernel) and ``probe_device_count() == 1``;
     the sweep CLI with ``--mesh`` over an NCCL process group of one rank,
     its arrays equal to the CLI's without it.  Returns the batch's
-    launches."""
+    launches and its fields on the host."""
     import torch.distributed as dist
 
     import convexadam_torch.selfconfig as selfconfig
@@ -3799,6 +3904,7 @@ def parallel_one_process_phase(torch, dev, vol_np, mov_np, results):
                                                                              device=dev))
     _launch_checks("9a batched pairs", launches,
                    sweep_expected(**{k: 2 * v for k, v in EXPECTED_LAUNCHES.items()}))
+    batched_np = batched.cpu().numpy()
     timings: dict = {}
     for i in range(2):
         with stage_timer("lone", timings):
@@ -3871,7 +3977,7 @@ def parallel_one_process_phase(torch, dev, vol_np, mov_np, results):
           f"NCCL (one rank) equal to the CLI without it ({arrays['mesh'][1]:.2f} / "
           f"{arrays['plain'][1]:.2f} s); {time.perf_counter() - t_phase:.2f} s", flush=True)
     results["parallel"] = {"9a_one_process": out}
-    return launches
+    return launches, batched_np
 
 
 def rank_main(out_dir: str) -> int:
@@ -3946,6 +4052,171 @@ def rank_main(out_dir: str) -> int:
     return 0
 
 
+def space_rank_main(out_dir: str, backend: str = "gloo") -> int:
+    """One rank of phase 9d (``chip_smoke.py --space-rank OUT [BACKEND]``,
+    started by :func:`space_phase`; gloo, or NCCL with one card a rank):
+    ``register_pairs_sharded(..., shard_space=True)`` at the default config
+    on each grid of :data:`SPACE_GRIDS` over the pairs of
+    ``OUT/space_inputs.npz``, twice: a warm-up with the first calls of
+    every kernel wrapper recorded, then the run whose launches, seconds,
+    peak memory and halo and gather bytes count.  Its fields against the
+    one-process fields of the inputs file to the bit, and the recorded calls
+    of :data:`SPACE_HELD` through the kernel and its plain version
+    (:func:`hold_call`), go to ``OUT/space-rank<r>.pkl``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from convexadam_torch.kernels import LAUNCHES, reset_launches
+    from convexadam_torch.parallel import spatial
+    from convexadam_torch.parallel.batch import make_mesh, register_pairs_sharded
+    from convexadam_torch.parallel.distributed import init_distributed
+    from convexadam_torch.pipeline.convex_adam import ConvexAdamConfig
+
+    dev = torch.device("cuda")
+    rank = int(os.environ["RANK"])
+    check(init_distributed(backend=backend, timeout_s=PARALLEL_GROUP_TIMEOUT_S), "not joined")
+    data = np.load(os.path.join(out_dir, "space_inputs.npz"))
+    fixed, moving, refs = data["fixed"], data["moving"], data["fields"]
+    cfg = ConvexAdamConfig()
+    res: dict = {"rank": rank, "grids": {}}
+    for grid in SPACE_GRIDS:
+        mesh = make_mesh(*grid, device=dev)
+        n_pairs = grid[0]
+        calls: list = []
+        for run in ("warm-up", "counted"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated() / 1e9
+            spatial.TRAFFIC.update(halo_bytes=0, gather_bytes=0)
+            dist.barrier()
+            reset_launches()
+            t0 = time.perf_counter()
+            with (_recording(torch, calls) if run == "warm-up" else contextlib.nullcontext()):
+                field = register_pairs_sharded(fixed[:n_pairs], moving[:n_pairs], cfg, mesh,
+                                               shard_space=True)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if run == "warm-up":
+                warm_s = secs
+        got = field.cpu().numpy()
+        plan = spatial.slab_plan(fixed.shape[1], spatial.slab_unit(cfg), grid[1],
+                                 mesh.coord("space"))
+        res["grids"][grid] = {
+            "card": str(mesh.device), "seconds": secs, "warmup_s": warm_s, "start_gb": start,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": dict(LAUNCHES),
+            **spatial.TRAFFIC, "coords": [mesh.coord("pair"), mesh.coord("space")],
+            "rows": plan.own(), "equal": [_bits_equal(got[i], refs[i]) for i in range(n_pairs)],
+            "max_err": [float(np.abs(got[i] - refs[i]).max()) for i in range(n_pairs)],
+            "held": [hold_call(torch, name, a) for name, a in calls if name in SPACE_HELD]}
+        del field, calls
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"space-rank{rank}.pkl"), "wb") as fh:
+        pickle.dump(res, fh)
+    return 0
+
+
+def space_phase(torch, vol_np, mov_np, fields, peak_gb, results, backend="gloo"):
+    """9d: :data:`SPACE_RANKS` ranks (:func:`space_rank_main`; gloo ranks
+    sharing the card, or with ``backend="nccl"`` one card a rank) split the
+    192^3 headline pair along H over a
+    (pair 1, space 4) grid, and two headline pairs (9a's) over a (pair 2,
+    space 2) grid: every rank's fields equal to the one-process fields
+    ``fields`` (phase 4's, 9a's second) to the bit, the default launches a
+    rank and pair (2 / 2 / 15 / 80), each rank's recorded cost-volume and
+    data-term calls (a slab's offsets) held to their plain versions; each
+    rank's seconds, peak memory (phase 4's one-process peak ``peak_gb``
+    beside them) and halo bytes.  Returns each rank's launches by grid."""
+    torch.cuda.empty_cache()
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    moving2 = np.roll(vol_np, PAIRED_SHIFTS[1], axis=(0, 1, 2))
+    np.savez(PARALLEL_DIR / "space_inputs.npz", fixed=np.stack([vol_np, vol_np]),
+             moving=np.stack([mov_np, moving2]), fields=np.stack(fields))
+    ranks, wall = _run_ranks(SPACE_RANKS, "space-rank", "9d", SPACE_DEADLINE_S, [backend])
+    (PARALLEL_DIR / "space_inputs.npz").unlink()
+    launches, out = {}, []
+    for r in ranks:
+        rank = r["rank"]
+        for grid, d in r["grids"].items():
+            what = f"9d {backend} rank {rank} on {d['card']} (pair, space) {grid}"
+            check(all(d["equal"]), f"{what}: fields differ from the one-process fields by "
+                  f"{d['max_err']}")
+            _launch_checks(what, d["launches"], sweep_expected(**EXPECTED_LAUNCHES))
+            held = d["held"]
+            check({h["wrapper"] for h in held} == set(SPACE_HELD) and all(map(_held, held)),
+                  f"{what}: calls held {held}")
+            launches[f"9d_space_{grid[0]}x{grid[1]}_rank{rank}"] = d["launches"]
+            out.append({"rank": rank, "grid": list(grid),
+                        **{k: v for k, v in d.items() if k not in ("launches", "held")},
+                        "held": [{k: h[k] for k in ("wrapper", "args", "max_abs_err")}
+                                 | ({"ssq_rel_err": h["ssq_rel_err"]} if "ssq_rel_err" in h
+                                    else {}) for h in held]})
+            print(f"{what}: coords {d['coords']}, rows {d['rows'][0]}..{d['rows'][1] - 1}, "
+                  f"{d['seconds']:.4f} s ({d['warmup_s']:.4f} s warm-up), peak "
+                  f"{d['peak_gb']:.3f} GB ({d['start_gb']:.3f} held before; one process "
+                  f"{peak_gb:.3f}), halo {d['halo_bytes']} bytes, gathers {d['gather_bytes']} "
+                  f"bytes; fields equal to the one-process fields; {len(held)} cost-volume and "
+                  f"data-term calls held to their plain versions, max_abs_err "
+                  f"{max(h['max_abs_err'] for h in held)} (tol 0)", flush=True)
+    cards = {d["card"] for r in ranks for d in r["grids"].values()}
+    print(f"9d: {SPACE_RANKS} {backend} ranks on {len(cards)} card(s), {wall:.2f} s wall",
+          flush=True)
+    results["parallel"]["9d_space"] = {"ranks": out, "wall_s": wall, "backend": backend,
+                                       "one_process_peak_gb": peak_gb}
+    return launches
+
+
+def _run_ranks(n: int, tag: str, what: str, deadline_s: float,
+               extra=()) -> "tuple[list, float]":
+    """``n`` ranks, each ``python3 chip_smoke.py --<tag> PARALLEL_DIR
+    *extra`` with the process group's environment (a free localhost port);
+    a rank that fails or outlives ``deadline_s`` fails phase ``what``.
+    Returns the ranks' pickled results (``<tag><r>.pkl``, removed) and the
+    seconds."""
+    import pickle
+
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(n):
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                   WORLD_SIZE=str(n))
+        log = open(PARALLEL_DIR / f"{tag}{rank}.log", "w")
+        logs.append(log)
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), f"--{tag}", str(PARALLEL_DIR), *extra]
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                      stderr=subprocess.STDOUT))
+    try:
+        for rank, p in enumerate(procs):
+            left = max(1.0, deadline_s - (time.perf_counter() - t0))
+            try:
+                p.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                check(False, f"{what}: rank {rank} outlived the {deadline_s} s deadline")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t0
+    for rank, p in enumerate(procs):
+        tail = (PARALLEL_DIR / f"{tag}{rank}.log").read_text()[-3000:]
+        check(p.returncode == 0, f"{what}: rank {rank} exited {p.returncode}:\n{tail}")
+    ranks = []
+    for rank in range(n):
+        path = PARALLEL_DIR / f"{tag}{rank}.pkl"
+        with open(path, "rb") as fh:
+            ranks.append(pickle.load(fh))
+        path.unlink()
+    return ranks, wall
+
+
 def parallel_ranks_phase(torch, s1, dense, results):
     """9b and 9c: :data:`PARALLEL_RANKS` gloo ranks sharing the card
     (NCCL takes one rank a device), each a subprocess of this script with a
@@ -3957,43 +4228,8 @@ def parallel_ranks_phase(torch, s1, dense, results):
     launches; 9c: both ranks' ``dice``, ``jstd``, ``hd95``, ``rank`` and
     ``best`` equal to 5a's result ``s1`` to the bit.  Returns each rank's
     launches by run."""
-    import pickle
-
-    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
     torch.cuda.empty_cache()
-    port = _free_port()
-    procs, logs = [], []
-    t0 = time.perf_counter()
-    for rank in range(PARALLEL_RANKS):
-        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
-                   WORLD_SIZE=str(PARALLEL_RANKS))
-        log = open(PARALLEL_DIR / f"rank{rank}.log", "w")
-        logs.append(log)
-        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--rank", str(PARALLEL_DIR)]
-        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
-                                      stderr=subprocess.STDOUT))
-    try:
-        for rank, p in enumerate(procs):
-            left = max(1.0, PARALLEL_DEADLINE_S - (time.perf_counter() - t0))
-            try:
-                p.wait(timeout=left)
-            except subprocess.TimeoutExpired:
-                check(False, f"9b/9c: rank {rank} outlived the {PARALLEL_DEADLINE_S} s deadline")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
-    wall = time.perf_counter() - t0
-    for rank, p in enumerate(procs):
-        tail = (PARALLEL_DIR / f"rank{rank}.log").read_text()[-3000:]
-        check(p.returncode == 0, f"9b/9c: rank {rank} exited {p.returncode}:\n{tail}")
-    ranks = []
-    for rank in range(PARALLEL_RANKS):
-        with open(PARALLEL_DIR / f"rank{rank}.pkl", "rb") as fh:
-            ranks.append(pickle.load(fh))
+    ranks, wall = _run_ranks(PARALLEL_RANKS, "rank", "9b/9c", PARALLEL_DEADLINE_S)
     launches, tp_out, sweep_out = {}, [], []
     for r in ranks:
         rank = r["rank"]
@@ -4039,8 +4275,6 @@ def parallel_ranks_phase(torch, s1, dense, results):
               f"{r['sweep']['seconds']:.4f} s, times {np.round(got.times, 4).tolist()}; "
               f"dice/jstd/hd95/rank/best equal to 5a's; launches {sweep_out[-1]['launches']}",
               flush=True)
-    for rank in range(PARALLEL_RANKS):
-        (PARALLEL_DIR / f"rank{rank}.pkl").unlink()
     print(f"9b/9c: {PARALLEL_RANKS} gloo ranks on one card, {wall:.2f} s wall", flush=True)
     results["parallel"]["9b_tensor_parallel"] = tp_out
     results["parallel"]["9c_sweep"] = sweep_out
@@ -4243,9 +4477,13 @@ def main() -> int:
     # the sweep CLI over an NCCL group of one), then two gloo ranks sharing
     # the card (the tensor-parallel convex stage, the sweep on a grid)
     PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
-    parallel_launches = {"9a_batched": parallel_one_process_phase(torch, dev, vol_np, mov_np,
-                                                                  results)}
+    l9a, batched = parallel_one_process_phase(torch, dev, vol_np, mov_np, results)
+    parallel_launches = {"9a_batched": l9a}
     parallel_launches.update(parallel_ranks_phase(torch, s1, keep["7e_dense"], results))
+    # 9d. four gloo ranks split each pair along H
+    parallel_launches.update(space_phase(torch, vol_np, mov_np, [out, batched[1]],
+                                         reg["peak_mem_gb"], results))
+    del batched
     shutil.rmtree(PARALLEL_DIR)
 
     # 8. output: each kernel's launches on the path that runs it
@@ -4319,4 +4557,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--space-rank"]:
+        sys.exit(space_rank_main(*sys.argv[2:4]))
     sys.exit(main())

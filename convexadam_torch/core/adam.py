@@ -17,7 +17,13 @@ from __future__ import annotations
 
 import torch
 
-from convexadam_torch.core.smoothing import box_smooth_repeated, gaussian_smooth, kovesi_spline
+from convexadam_torch.core.smoothing import (
+    box_smooth_repeated,
+    gaussian_kernel_1d,
+    gaussian_smooth,
+    kovesi_spline,
+    kovesi_widths,
+)
 from convexadam_torch.core.warp import warp_ssd_mean_loss, warp_ssd_mean_loss_unfused
 
 # stage-2 "shift-spline" smoother bank: two Gaussians and six Kovesi
@@ -51,13 +57,33 @@ def resolve_smoother(spec: tuple):
     raise ValueError(f"unknown smoother spec: {spec}")
 
 
-def diffusion_regularizer(disp: torch.Tensor) -> torch.Tensor:
+def smoother_reach(spec: tuple) -> int:
+    """Rows on either side of a voxel that :func:`resolve_smoother`'s
+    smoother of ``spec`` reads."""
+    kind = spec[0]
+    if kind == "box":
+        return spec[2] * (spec[1] // 2)
+    if kind == "gauss":
+        return len(gaussian_kernel_1d(spec[1])) // 2
+    if kind == "kovesi":
+        return sum((w - 1) // 2 for w in kovesi_widths(spec[1], spec[2] if len(spec) > 2 else 4))
+    if kind == "bank":
+        return smoother_reach(SMOOTHER_BANK[spec[1]])
+    raise ValueError(f"unknown smoother spec: {spec}")
+
+
+def diffusion_regularizer(disp: torch.Tensor, counts=None) -> torch.Tensor:
     """Mean squared forward differences of ``disp`` (3, H, W, D) along each
-    spatial axis, each averaged over its own element count, summed."""
+    spatial axis, each averaged over its own element count, summed.
+    ``counts`` (three ints) replaces the element counts: a slab of a field
+    split along H divides its sums by the whole field's, which gives each
+    voxel the whole field's gradient."""
     dh = disp[:, 1:, :, :] - disp[:, :-1, :, :]
     dw = disp[:, :, 1:, :] - disp[:, :, :-1, :]
     dd = disp[:, :, :, 1:] - disp[:, :, :, :-1]
-    return (dh * dh).mean() + (dw * dw).mean() + (dd * dd).mean()
+    if counts is None:
+        return (dh * dh).mean() + (dw * dw).mean() + (dd * dd).mean()
+    return (dh * dh).sum() / counts[0] + (dw * dw).sum() / counts[1] + (dd * dd).sum() / counts[2]
 
 
 def _sub_lattice(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -65,27 +91,36 @@ def _sub_lattice(x: torch.Tensor, stride: int) -> torch.Tensor:
     return x if stride == 1 else x[:, ::stride, ::stride, ::stride]
 
 
-def _value_and_grad(data_term, w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale):
+def _value_and_grad(data_term, w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale,
+                    counts=None):
     """``(loss, smoothed field, d loss / d w)`` of smoother → regulariser +
     ``data_term``, all detached."""
     ds = smooth_fn(w)
-    reg = lambda_weight * diffusion_regularizer(ds)
+    reg = lambda_weight * diffusion_regularizer(ds, counts)
     loss = data_term(mov, ds, fix_flat, cost_scale) + reg
     (g,) = torch.autograd.grad(loss, w)
     return loss.detach(), ds.detach(), g
 
 
-def _grad_step_fused(w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale, stride=1):
+def _grad_step_fused(w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale, stride=1,
+                     slab=None):
     """One gradient evaluation with the fused data-term kernel.  With
     ``stride`` > 1 the data term sees the ``(::stride,)*3`` sub-lattice of
     the smoothed field (``fix_flat`` holds the sub-lattice's fixed
     features); the slice's backward puts its gradient back onto the full
     grid with zeros between the samples before the smoother's, as the JAX
-    package's explicit step does."""
-    def data_term(mov, ds, fix_flat, cost_scale):
-        return warp_ssd_mean_loss(mov, _sub_lattice(ds, stride), fix_flat, cost_scale, stride)
+    package's explicit step does.  ``slab`` (row0, n_points, counts) makes
+    ``w`` the rows of a field split along H from its lattice row ``row0``:
+    the data term and the regulariser then divide by the whole field's
+    counts."""
+    row0, n_points, counts = slab or (0, None, None)
 
-    return _value_and_grad(data_term, w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale)
+    def data_term(mov, ds, fix_flat, cost_scale):
+        return warp_ssd_mean_loss(mov, _sub_lattice(ds, stride), fix_flat, cost_scale, stride,
+                                  row0, n_points)
+
+    return _value_and_grad(data_term, w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale,
+                           counts)
 
 
 def _grad_step_autodiff(w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale):

@@ -71,24 +71,32 @@ def _coupled_argmin(ssd_flat, disp_mesh, s, c, chunk):
     return out
 
 
+def box3(field: torch.Tensor) -> torch.Tensor:
+    """The coupling's zero-padded 3^3 box pass of a picked field (3, h, w,
+    d)."""
+    return avg_pool3d(field, 3, stride=1, padding=1)
+
+
 def coupled_convex(
-    ssd: torch.Tensor, ssd_argmin: torch.Tensor, disp_mesh: torch.Tensor
+    ssd: torch.Tensor, ssd_argmin: torch.Tensor, disp_mesh: torch.Tensor, smooth=box3
 ) -> torch.Tensor:
     """Solve the coupled convex problem in its exact form.
 
     ``ssd`` (K^3, h, w, d), ``ssd_argmin`` (h, w, d), ``disp_mesh``
     (3, K^3).  Returns ``disp_soft`` (3, h, w, d) in coarse voxels.  The
     coupled argmin runs over chunks of voxels whose (3, K^3, chunk) float32
-    difference takes at most :data:`COUPLED_CHUNK_BYTES`.
+    difference takes at most :data:`COUPLED_CHUNK_BYTES`.  ``smooth`` is the
+    box pass of each picked field (a slab of a volume split along h passes
+    one that takes its neighbours' rows).
     """
     shape = ssd.shape[1:]
     ssd_flat = ssd.reshape(ssd.shape[0], -1)
     chunk = max(1, COUPLED_CHUNK_BYTES // (3 * ssd.shape[0] * 4))
-    disp_soft = avg_pool3d(_gather_disp(disp_mesh, ssd_argmin), 3, stride=1, padding=1)
+    disp_soft = smooth(_gather_disp(disp_mesh, ssd_argmin))
     for c in COUPLING_COEFFS:
         s = disp_soft.reshape(3, -1)
         argmin = _coupled_argmin(ssd_flat, disp_mesh, s, c, chunk).reshape(shape)
-        disp_soft = avg_pool3d(_gather_disp(disp_mesh, argmin), 3, stride=1, padding=1)
+        disp_soft = smooth(_gather_disp(disp_mesh, argmin))
     return disp_soft
 
 
@@ -107,6 +115,9 @@ def correlate_coupled_streamed(
     disp_hw: int,
     metric: str = "ssd",
     smooth_passes: int = 2,
+    mov_row0: int = 0,
+    rows: "tuple[int, int] | None" = None,
+    smooth=box3,
 ) -> torch.Tensor:
     """Cost volume + coupled convex without the (K^3, h, w, d) volume.
 
@@ -119,7 +130,8 @@ def correlate_coupled_streamed(
     the cost volume is computed 7 times.  Each coupled cost is the dense
     form's (:func:`_coupled_cost`), and :func:`_first_min` keeps
     the first minimum, so the field equals :func:`coupled_convex` on the
-    dense volume to the bit.
+    dense volume to the bit.  ``mov_row0``, ``rows`` and ``smooth`` are
+    :func:`convex_displacement`'s.
 
     Returns ``disp_soft`` (3, h, w, d) in coarse voxels.
     """
@@ -127,8 +139,9 @@ def correlate_coupled_streamed(
     K = 2 * q + 1
     fix = feat_fix.float().contiguous()
     mov = feat_mov.float().contiguous()
-    shape = tuple(fix.shape[1:])
-    n = fix[0].numel()
+    lo, hi = rows or (0, fix.shape[1])
+    shape = (hi - lo,) + tuple(fix.shape[2:])
+    n = shape[0] * shape[1] * shape[2]
     dev = fix.device
     mesh = displacement_mesh(q, device=dev)
     # the global index kd*K^2 + kw*K + kh of a block's candidate kd*K + kw
@@ -136,10 +149,10 @@ def correlate_coupled_streamed(
     chunk = max(1, COUPLED_CHUNK_BYTES // (3 * K * K * 4))
 
     def block(kh):
-        costs = cost_volume_block(fix, mov, q, kh, 1, metric)
+        costs = cost_volume_block(fix, mov, q, kh, 1, metric, mov_row0)
         for _ in range(smooth_passes):
             costs = window_mean3d(costs, 3, stride=1, padding=1)
-        return costs.reshape(K * K, n), local + kh
+        return costs[:, lo:hi].reshape(K * K, n), local + kh
 
     def argmin_pass(s=None, c=None):
         best = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
@@ -157,10 +170,10 @@ def correlate_coupled_streamed(
             del costs
         return bidx.reshape(shape)
 
-    disp_soft = avg_pool3d(_gather_disp(mesh, argmin_pass()), 3, stride=1, padding=1)
+    disp_soft = smooth(_gather_disp(mesh, argmin_pass()))
     for c in COUPLING_COEFFS:
         am = argmin_pass(disp_soft.reshape(3, -1), c)
-        disp_soft = avg_pool3d(_gather_disp(mesh, am), 3, stride=1, padding=1)
+        disp_soft = smooth(_gather_disp(mesh, am))
     return disp_soft
 
 
@@ -180,16 +193,25 @@ def convex_displacement(
     metric: str = "ssd",
     smooth_passes: int = 2,
     stream_threshold: int = COST_VOLUME_STREAM_THRESHOLD,
+    mov_row0: int = 0,
+    rows: "tuple[int, int] | None" = None,
+    smooth=box3,
 ) -> torch.Tensor:
     """One convex-stage direction: cost volume + coupled convex, taking
     :func:`correlate_coupled_streamed` where the dense estimate
     (:func:`dense_estimate`) exceeds ``stream_threshold`` bytes.  Both give
-    the same field, to the bit."""
+    the same field, to the bit.
+
+    A slab of a volume split along h (:mod:`convexadam_torch.parallel.spatial`)
+    passes its fixed rows grown by the box passes' reach, the moving rows
+    grown by ``disp_hw`` more from the fixed row ``mov_row0``, the rows
+    ``(lo, hi)`` of the fixed slab it owns, and a ``smooth`` that takes its
+    neighbours' rows; the field then covers the owned rows."""
+    kw = dict(metric=metric, smooth_passes=smooth_passes, mov_row0=mov_row0, rows=rows)
     if dense_estimate(disp_hw, feat_fix.shape[1:]) > stream_threshold:
-        return correlate_coupled_streamed(feat_fix, feat_mov, disp_hw, metric=metric,
-                                          smooth_passes=smooth_passes)
-    ssd, am = correlate(feat_fix, feat_mov, disp_hw, metric=metric, smooth_passes=smooth_passes)
-    return coupled_convex(ssd, am, displacement_mesh(disp_hw, device=ssd.device))
+        return correlate_coupled_streamed(feat_fix, feat_mov, disp_hw, smooth=smooth, **kw)
+    ssd, am = correlate(feat_fix, feat_mov, disp_hw, **kw)
+    return coupled_convex(ssd, am, displacement_mesh(disp_hw, device=ssd.device), smooth)
 
 
 def _candidate_costs(fix, mov, disp_hw, lo, hi, metric):

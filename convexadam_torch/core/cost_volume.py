@@ -38,6 +38,8 @@ def correlate(
     disp_hw: int,
     metric: str = "ssd",
     smooth_passes: int = 2,
+    mov_row0: int = 0,
+    rows: "tuple[int, int] | None" = None,
 ) -> "tuple[torch.Tensor, torch.Tensor]":
     """Dense cost volume of coarse features (C, h, w, d).
 
@@ -45,11 +47,18 @@ def correlate(
     3^3 box passes (2 in the packaged pipeline, 1 in the lung and OASIS
     recipes).  Returns the box-smoothed volume (K**3, h, w, d) float32 and
     its argmin over the displacement axis (h, w, d) int64.
+
+    A slab of a volume split along h passes the moving features' first row
+    ``mov_row0`` (:func:`~convexadam_torch.kernels.cost_volume.cost_volume`)
+    and the rows ``(lo, hi)`` of the fixed slab to keep after the box
+    passes: the volume and argmin then cover those rows only.
     """
     ssd = cost_volume(feat_fix.float().contiguous(), feat_mov.float().contiguous(), disp_hw,
-                      metric)
+                      metric, mov_row0)
     for _ in range(smooth_passes):
         ssd = window_mean3d(ssd, 3, stride=1, padding=1)
+    if rows is not None:
+        ssd = ssd[:, rows[0]:rows[1]].contiguous()
     return ssd, torch.argmin(ssd, dim=0)
 
 

@@ -16,9 +16,9 @@ import torch
 from convexadam_torch.kernels.mind import _mind_shift_pairs, mind_ssd_stats, shifted_replicate
 
 __all__ = [
-    "MIND_CHANNEL_PERMUTATION", "label_counts", "mindssc", "mindssc_multichannel",
-    "nnunet_ct_norm", "nnunet_norm", "nnunet_norm_props", "semantic_features",
-    "semantic_template_weights", "shifted_replicate", "_mind_shift_pairs",
+    "MIND_CHANNEL_PERMUTATION", "label_counts", "mind_epilogue", "mindssc",
+    "mindssc_multichannel", "nnunet_ct_norm", "nnunet_norm", "nnunet_norm_props",
+    "semantic_features", "semantic_template_weights", "shifted_replicate", "_mind_shift_pairs",
 ]
 
 # the reference's channel order "to have same ordering as C++ code"
@@ -43,9 +43,15 @@ def mindssc(
     """
     x = img.reshape(img.shape[-3:]).to(dtype).contiguous()
     mind, var = mind_ssd_stats(x, radius, dilation)
-    var = var[None]
-    gm = var.mean()
-    var = torch.clamp(var, gm * 0.001, gm * 1000.0)
+    return mind_epilogue(mind, var, var[None].mean(), dtype)
+
+
+def mind_epilogue(mind: torch.Tensor, var: torch.Tensor, gm: torch.Tensor, dtype) -> torch.Tensor:
+    """Steps 4-6 of :func:`mindssc` on ``mind_ssd_stats``' (mind, var) with
+    the variance's global mean ``gm`` given: a slab of a volume split along
+    H (:mod:`convexadam_torch.parallel.spatial`) takes ``gm`` of the whole
+    volume's variance."""
+    var = torch.clamp(var[None], gm * 0.001, gm * 1000.0)
     mind = torch.exp(-(mind.float() / var)).to(dtype)
     return mind[list(MIND_CHANNEL_PERMUTATION)]
 

@@ -190,14 +190,13 @@ def warp_with_displacement_stacked(vol: torch.Tensor, disp_voxels: torch.Tensor)
     return out.reshape(C, H, W, D)
 
 
-def _linear_resize_axis(x: torch.Tensor, axis: int, out_size: int, align_corners: bool):
-    in_size = x.shape[axis]
-    if in_size == out_size:
-        return x
-    i = torch.arange(out_size, dtype=torch.float32, device=x.device)
+def _resize_source(i: torch.Tensor, in_size: int, out_size: int, align_corners: bool):
+    """The two source rows (int64) and the second one's weight of the
+    output rows ``i`` (float32) of a linear resize from ``in_size`` to
+    ``out_size``."""
     if align_corners:
         if out_size == 1:
-            src = torch.zeros((1,), dtype=torch.float32, device=x.device)
+            src = torch.zeros_like(i)
         else:
             src = i * ((in_size - 1) / (out_size - 1))
     else:
@@ -205,13 +204,38 @@ def _linear_resize_axis(x: torch.Tensor, axis: int, out_size: int, align_corners
         src = torch.clamp((i + 0.5) * (in_size / out_size) - 0.5, min=0.0)
     i0 = torch.floor(src).long().clamp(0, in_size - 1)
     i1 = torch.clamp(i0 + 1, max=in_size - 1)
-    w1 = (src - i0.to(torch.float32)).to(x.dtype)
-    lo = x.index_select(axis, i0)
-    hi = x.index_select(axis, i1)
+    return i0, i1, src - i0.to(torch.float32)
+
+
+def resize_source_rows(in_size: int, out_size: int, lo: int, hi: int,
+                       align_corners: bool = False) -> "tuple[int, int]":
+    """The input rows ``[a, b)`` that the output rows ``[lo, hi)`` of a
+    linear resize read."""
+    if in_size == out_size:
+        return lo, hi
+    i0, i1, _ = _resize_source(torch.arange(lo, hi, dtype=torch.float32), in_size, out_size,
+                               align_corners)
+    return int(i0.min()), int(i1.max()) + 1
+
+
+def _linear_resize_axis(x: torch.Tensor, axis: int, out_size: int, align_corners: bool,
+                        in_size: "int | None" = None, x_row0: int = 0, rows=None):
+    """A linear resize along ``axis`` to ``out_size``.  ``x`` may hold only
+    the rows ``x_row0 ..`` of an input of ``in_size`` rows, and ``rows``
+    (lo, hi) pick the output rows made: each is the whole resize's."""
+    if in_size is None:
+        in_size = x.shape[axis]
+    lo, hi = (0, out_size) if rows is None else rows
+    if in_size == out_size:
+        return x.narrow(axis, lo - x_row0, hi - lo)
+    i = torch.arange(lo, hi, dtype=torch.float32, device=x.device)
+    i0, i1, w1 = _resize_source(i, in_size, out_size, align_corners)
+    a = x.index_select(axis, i0 - x_row0)
+    b = x.index_select(axis, i1 - x_row0)
     shape = [1] * x.ndim
-    shape[axis] = out_size
-    w1 = w1.reshape(shape)
-    return lo * (1 - w1) + hi * w1
+    shape[axis] = hi - lo
+    w1 = w1.to(x.dtype).reshape(shape)
+    return a * (1 - w1) + b * w1
 
 
 def resize_trilinear(
@@ -223,6 +247,17 @@ def resize_trilinear(
     for k, out_size in enumerate(size):
         x = _linear_resize_axis(x, nd - 3 + k, int(out_size), align_corners)
     return x
+
+
+def resize_rows(x: torch.Tensor, size: Sequence[int], rows, in_h: "int | None" = None,
+                x_row0: int = 0) -> torch.Tensor:
+    """:func:`resize_trilinear` (align_corners=False) of a field (..., h, w,
+    d) of which ``x`` holds the rows ``x_row0 ..`` of ``in_h``: only the
+    output rows ``rows`` (lo, hi) along H, each the whole resize's (the
+    resize is separable, H first)."""
+    x = _linear_resize_axis(x, x.ndim - 3, int(size[0]), False, in_h, x_row0, rows)
+    x = _linear_resize_axis(x, x.ndim - 2, int(size[1]), False)
+    return _linear_resize_axis(x, x.ndim - 1, int(size[2]), False)
 
 
 def map_coordinates_trilinear(
@@ -302,12 +337,13 @@ class _WarpSSDLoss(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, disp, mov, fix_flat, cost_scale, stride):
+    def forward(ctx, disp, mov, fix_flat, cost_scale, stride, row0, n_points):
         C, H, W, D = mov.shape
-        n = disp[0].numel()  # the sampled points: H*W*D when stride == 1
+        # the sampled points: H*W*D when stride == 1 and disp is the whole grid
+        n = disp[0].numel() if n_points is None else n_points
         fac = (H / (H - 1.0), W / (W - 1.0), D / (D - 1.0))
         chain = 2.0 * cost_scale / (C * n)
-        ssq, rows = warp_ssd_loss_grad(mov, disp.contiguous(), fix_flat, fac, chain, stride)
+        ssq, rows = warp_ssd_loss_grad(mov, disp.contiguous(), fix_flat, fac, chain, stride, row0)
         ctx.save_for_backward(rows)
         ctx.fac = fac
         ctx.shape = tuple(disp.shape[1:])
@@ -318,12 +354,12 @@ class _WarpSSDLoss(torch.autograd.Function):
         (rows,) = ctx.saved_tensors
         fac = torch.tensor(ctx.fac, dtype=rows.dtype, device=rows.device).reshape(3, 1)
         ddisp = (rows * fac) * grad_out
-        return ddisp.reshape(3, *ctx.shape), None, None, None, None
+        return ddisp.reshape(3, *ctx.shape), None, None, None, None, None, None
 
 
 def warp_ssd_mean_loss(
     mov: torch.Tensor, disp: torch.Tensor, fix_flat: torch.Tensor, cost_scale: float,
-    stride: int = 1,
+    stride: int = 1, row0: int = 0, n_points: "int | None" = None,
 ) -> torch.Tensor:
     """The Adam data term ``mean(mean_c((warp(mov, disp) - fix)^2) * cost_scale)``.
 
@@ -339,8 +375,14 @@ def warp_ssd_mean_loss(
     ((3, hs, ws, ds), hs = ceil(H / stride), and (C, hs*ws*ds)), the point
     (i, j, l) samples at ``stride * (i, j, l) + disp * size / (size - 1)``
     of the whole moving volume.
+
+    A slab of a grid split along H (:mod:`convexadam_torch.parallel.spatial`)
+    passes its lattice rows from ``row0`` in ``disp`` and ``fix_flat`` and
+    the whole grid's point count ``n_points``: each point's gradient is then
+    the whole grid's (the loss is this slab's share of the mean).
     """
-    return _WarpSSDLoss.apply(disp, mov, fix_flat, float(cost_scale), int(stride))
+    return _WarpSSDLoss.apply(disp, mov, fix_flat, float(cost_scale), int(stride), int(row0),
+                              n_points)
 
 
 def warp_ssd_mean_loss_unfused(

@@ -13,6 +13,13 @@
 // convex path (core/convex.py) takes one kh a block, so it never holds more
 // than K^2 candidates of the volume.
 //
+// The moving tensor may hold other rows (i) than the fixed one: hm rows, its
+// row r at the fixed tensor's row r + mo, zeros outside them.  A rank of a
+// volume split along i (parallel/spatial.py) passes its fixed slab and the
+// moving slab grown by q rows where the volume goes on; the whole volume is
+// hm = h, mo = 0.  Only the moving row a CTA stages and its channel stride
+// depend on them, so every other launch is the one it was.
+//
 // Replaces the TPU kernel convexadam_tpu/ops/cost_volume_pallas.py:
 // cost_volume_pallas -> _cost_kernel (SSD); SAD and the candidate blocks
 // replace the XLA scans of convexadam_tpu/core/cost_volume.py:correlate and
@@ -164,7 +171,8 @@ __device__ __forceinline__ float metric_term(float diff) {
 template <int Q, bool SAD>
 __global__ void __launch_bounds__(Cv<Q>::NT, Cv<Q>::MIN_CTAS)
 cost_volume_kernel(const float* __restrict__ fix, const float* __restrict__ mov,
-                   float* __restrict__ out, int C, int h, int w, int d, int kh0, int nkh) {
+                   float* __restrict__ out, int C, int h, int w, int d, int kh0, int nkh,
+                   int hm, int mo) {
   using S = Cv<Q>;
   constexpr int K = S::K, SW = S::SW, SD = S::SD, SP = S::SP, FP = S::FP;
   constexpr int ES = (SP + S::NT - 1) / S::NT, EF = (FP + S::NT - 1) / S::NT;
@@ -177,15 +185,15 @@ cost_volume_kernel(const float* __restrict__ fix, const float* __restrict__ mov,
   const int l0 = (blockIdx.x % n_td) * TD;
   const int kh = kh0 + blockIdx.y;
   const int i = blockIdx.z;
-  const int im = i + kh - Q;
+  const int im = i + kh - Q - mo;  // the moving tensor's row
   const int t = threadIdx.x;
   const int kw = t >> 5, lj = (t >> 3) & 3, lg = t & 7;
   const int j = j0 + lj, l = l0 + R * lg;
   const bool valid = j < w && l < d;
-  const size_t hwd = (size_t)h * w * d;
+  const size_t hwd = (size_t)h * w * d, hwdm = (size_t)hm * w * d;
 
   // this thread's copy elements: their offsets in a channel, -1 outside
-  const bool row_in = im >= 0 && im < h;
+  const bool row_in = im >= 0 && im < hm;
   int so[ES], fo[EF];
 #pragma unroll
   for (int k = 0; k < ES; ++k) {
@@ -209,7 +217,7 @@ cost_volume_kernel(const float* __restrict__ fix, const float* __restrict__ mov,
   for (int c0 = 0; c0 < C; c0 += CC) {
     const int cc = C - c0 < CC ? C - c0 : CC;
     if (c0 > 0) __syncthreads();  // the previous chunk is read
-    copy_channels<S::NT, SP, ES>(slab_s, mov + c0 * hwd, so, cc, hwd);
+    copy_channels<S::NT, SP, ES>(slab_s, mov + c0 * hwdm, so, cc, hwdm);
     copy_channels<S::NT, FP, EF>(fx_s, fix + c0 * hwd, fo, cc, hwd);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
@@ -273,7 +281,7 @@ cost_volume_kernel(const float* __restrict__ fix, const float* __restrict__ mov,
 
 template <int Q, bool SAD>
 int launch(const float* fix, const float* mov, float* out, int C, int h, int w, int d, int kh0,
-           int nkh, cudaStream_t stream) {
+           int nkh, int hm, int mo, cudaStream_t stream) {
   using S = Cv<Q>;
   static int granted[MAX_DEVICES] = {};
   // the staged channels; at least the warps' output tiles
@@ -284,7 +292,8 @@ int launch(const float* fix, const float* mov, float* out, int C, int h, int w, 
   // i outermost: the CTAs in flight share the few moving rows around i,
   // which stay in L2
   const dim3 grid(((w + TW - 1) / TW) * ((d + TD - 1) / TD), nkh, h);
-  cost_volume_kernel<Q, SAD><<<grid, S::NT, smem, stream>>>(fix, mov, out, C, h, w, d, kh0, nkh);
+  cost_volume_kernel<Q, SAD><<<grid, S::NT, smem, stream>>>(fix, mov, out, C, h, w, d, kh0, nkh,
+                                                             hm, mo);
   return (int)cudaGetLastError();
 }
 
@@ -321,21 +330,21 @@ struct GeneralShape {
 // out once for all cc channels.
 __device__ __forceinline__ void stage_general(float* slab, float* fx, const float* fix,
                                               const float* mov, const GeneralShape& g, int c0,
-                                              int cc, int h, int w, int d, int q, int i, int im,
-                                              int j0, int l0) {
+                                              int cc, int h, int w, int d, int hm, int q, int i,
+                                              int im, int j0, int l0) {
   const int t = threadIdx.x, nt = blockDim.x;
-  const size_t hwd = (size_t)h * w * d;
+  const size_t hwd = (size_t)h * w * d, hwdm = (size_t)hm * w * d;
   const unsigned slab_s = static_cast<unsigned>(__cvta_generic_to_shared(slab));
   const unsigned fx_s = static_cast<unsigned>(__cvta_generic_to_shared(fx));
-  const bool row_in = im >= 0 && im < h;
+  const bool row_in = im >= 0 && im < hm;
   for (int e = t; e < g.SW * g.SDN; e += nt) {
     const int r = e / g.SDN, col = e - r * g.SDN;
     const int gj = j0 - q + r, gl = l0 - q + col;
     const bool in = row_in && gj >= 0 && gj < w && gl >= 0 && gl < d;
-    const float* src = mov + c0 * hwd + (in ? ((size_t)im * w + gj) * d + gl : 0);
+    const float* src = mov + c0 * hwdm + (in ? ((size_t)im * w + gj) * d + gl : 0);
     const unsigned dst = slab_s + 4 * (r * g.SD + col);
 #pragma unroll 1
-    for (int c = 0; c < cc; ++c) copy4(dst + 4 * c * g.SP, src + c * hwd, in);
+    for (int c = 0; c < cc; ++c) copy4(dst + 4 * c * g.SP, src + c * hwdm, in);
   }
   for (int e = t; e < GTILE; e += nt) {
     const int gj = j0 + e / GTD, gl = l0 + e % GTD;
@@ -384,8 +393,8 @@ template <int NB, bool SAD>
 __device__ __forceinline__ void general_block(float* slab, float* fx, float* tile,
                                               const float* fix, const float* mov, float* o,
                                               size_t plane, const GeneralShape& g, int C, int cs,
-                                              int h, int w, int d, int q, int i, int im, int j0,
-                                              int l0, int lj, int lg, bool live, int kw,
+                                              int h, int w, int d, int hm, int q, int i, int im,
+                                              int j0, int l0, int lj, int lg, bool live, int kw,
                                               int kd0) {
   float acc[R][NB];
 #pragma unroll
@@ -397,7 +406,7 @@ __device__ __forceinline__ void general_block(float* slab, float* fx, float* til
     const int cc = C - c0 < cs ? C - c0 : cs;
     if (C > cs) {
       __syncthreads();  // the previous chunk is read
-      stage_general(slab, fx, fix, mov, g, c0, cc, h, w, d, q, i, im, j0, l0);
+      stage_general(slab, fx, fix, mov, g, c0, cc, h, w, d, hm, q, i, im, j0, l0);
       asm volatile("cp.async.wait_all;\n" ::: "memory");
       __syncthreads();
     }
@@ -434,7 +443,7 @@ template <bool SAD>
 __global__ void __launch_bounds__(32 * GMAX_WARPS, GMIN_CTAS)
 cost_volume_general_kernel(const float* __restrict__ fix, const float* __restrict__ mov,
                            float* __restrict__ out, int C, int h, int w, int d, int q, int kh0,
-                           int nkh, int cs) {
+                           int nkh, int cs, int hm, int mo) {
   extern __shared__ __align__(16) float gsmem[];
   const GeneralShape g(q);
   float* slab = gsmem;                // cs x SW x SD
@@ -444,14 +453,14 @@ cost_volume_general_kernel(const float* __restrict__ fix, const float* __restric
   const int lj = lane / GLANES, lg = lane % GLANES;
   const int n_td = (d + GTD - 1) / GTD;
   const int j0 = (blockIdx.x / n_td) * GTW, l0 = (blockIdx.x % n_td) * GTD;
-  const int i = blockIdx.z, im = i + kh0 + (int)blockIdx.y - q;
+  const int i = blockIdx.z, im = i + kh0 + (int)blockIdx.y - q - mo;  // the moving tensor's row
   const size_t hwd = (size_t)h * w * d;
   const size_t plane = (size_t)g.K * nkh * hwd;  // from kd to kd + 1
   // this thread's first voxel in the plane of (kw, kd) = (0, 0)
   float* const o = out + blockIdx.y * hwd + ((size_t)i * w + j0 + lj) * d + l0 + R * lg;
 
   if (C <= cs) {  // every channel staged once, for every block
-    stage_general(slab, fx, fix, mov, g, 0, C, h, w, d, q, i, im, j0, l0);
+    stage_general(slab, fx, fix, mov, g, 0, C, h, w, d, hm, q, i, im, j0, l0);
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
   }
@@ -461,8 +470,8 @@ cost_volume_general_kernel(const float* __restrict__ fix, const float* __restric
     for (int kd0 = 0; kd0 < g.K; kd0 += KB) {
       float* ob = o + ((size_t)kw * nkh * hwd + kd0 * plane);
 #define GENERAL_BLOCK(NB)                                                                     \
-  general_block<NB, SAD>(slab, fx, tile, fix, mov, ob, plane, g, C, cs, h, w, d, q, i, im, j0, \
-                         l0, lj, lg, live, kw, kd0)
+  general_block<NB, SAD>(slab, fx, tile, fix, mov, ob, plane, g, C, cs, h, w, d, hm, q, i, im, \
+                         j0, l0, lj, lg, live, kw, kd0)
       // K is odd: a full block, or the odd rest of the last one
       switch (g.K - kd0 < KB ? g.K - kd0 : KB) {
         case KB: GENERAL_BLOCK(KB); break;
@@ -478,7 +487,7 @@ cost_volume_general_kernel(const float* __restrict__ fix, const float* __restric
 
 template <bool SAD>
 int launch_general(const float* fix, const float* mov, float* out, int C, int h, int w, int d,
-                   int q, int kh0, int nkh, cudaStream_t stream) {
+                   int q, int kh0, int nkh, int hm, int mo, cudaStream_t stream) {
   static int granted[MAX_DEVICES] = {};
   const GeneralShape g(q);
   const int rounds = (g.K + GMAX_WARPS - 1) / GMAX_WARPS;  // kw a warp takes
@@ -502,42 +511,46 @@ int launch_general(const float* fix, const float* mov, float* out, int C, int h,
   if (e != 0) return e;
   const dim3 grid(((w + GTW - 1) / GTW) * ((d + GTD - 1) / GTD), nkh, h);
   cost_volume_general_kernel<SAD><<<grid, 32 * nw, smem, stream>>>(fix, mov, out, C, h, w, d, q,
-                                                                   kh0, nkh, cs);
+                                                                   kh0, nkh, cs, hm, mo);
   return (int)cudaGetLastError();
 }
 
 template <bool SAD>
 int dispatch(const float* f, const float* m, float* o, int C, int h, int w, int d, int q,
-             int general, int kh0, int nkh, cudaStream_t s) {
-  if (general) return launch_general<SAD>(f, m, o, C, h, w, d, q, kh0, nkh, s);
+             int general, int kh0, int nkh, int hm, int mo, cudaStream_t s) {
+  if (general) return launch_general<SAD>(f, m, o, C, h, w, d, q, kh0, nkh, hm, mo, s);
   switch (q) {
-    case 1: return launch<1, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
-    case 2: return launch<2, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
-    case 3: return launch<3, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
-    case 4: return launch<4, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
-    case 5: return launch<5, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
-    case 6: return launch<6, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
-    case 7: return launch<7, SAD>(f, m, o, C, h, w, d, kh0, nkh, s);
+    case 1: return launch<1, SAD>(f, m, o, C, h, w, d, kh0, nkh, hm, mo, s);
+    case 2: return launch<2, SAD>(f, m, o, C, h, w, d, kh0, nkh, hm, mo, s);
+    case 3: return launch<3, SAD>(f, m, o, C, h, w, d, kh0, nkh, hm, mo, s);
+    case 4: return launch<4, SAD>(f, m, o, C, h, w, d, kh0, nkh, hm, mo, s);
+    case 5: return launch<5, SAD>(f, m, o, C, h, w, d, kh0, nkh, hm, mo, s);
+    case 6: return launch<6, SAD>(f, m, o, C, h, w, d, kh0, nkh, hm, mo, s);
+    case 7: return launch<7, SAD>(f, m, o, C, h, w, d, kh0, nkh, hm, mo, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// fix, mov (C, h, w, d) float32; out (K, K, nkh, h, w, d) float32 receives
-// the candidates kh in [kh0, kh0 + nkh) (the dense (K^3, h, w, d) volume for
-// kh0 = 0, nkh = K).  sad == 0 sums squared differences, sad == 1 absolute
-// ones.  general == 0 runs cost_volume_kernel<q, sad>, which exists for q =
-// 1..7 (any other q is refused); general == 1 runs
-// cost_volume_general_kernel<sad>.
+// fix (C, h, w, d) and mov (C, hm, w, d) float32; out (K, K, nkh, h, w, d)
+// float32 receives the candidates kh in [kh0, kh0 + nkh) (the dense (K^3,
+// h, w, d) volume for kh0 = 0, nkh = K).  Moving row r lies at fixed row r +
+// mo: fixed row i at shift kh reads moving row i + kh - q - mo, zero outside
+// 0..hm-1 (a slab of a volume split along h, the moving slab grown by q rows
+// where the volume goes on; hm = h, mo = 0 for one whole volume).  sad == 0
+// sums squared differences, sad == 1 absolute ones.  general == 0 runs
+// cost_volume_kernel<q, sad>, which exists for q = 1..7 (any other q is
+// refused); general == 1 runs cost_volume_general_kernel<sad>.
 extern "C" int cost_volume(const void* fix, const void* mov, void* out, int C, int h, int w,
-                           int d, int q, int general, int sad, int kh0, int nkh, void* stream) {
+                           int d, int q, int general, int sad, int kh0, int nkh, int hm, int mo,
+                           void* stream) {
   const int K = 2 * q + 1;
-  if (q < 0 || kh0 < 0 || nkh < 1 || kh0 + nkh > K) return (int)cudaErrorInvalidValue;
+  if (q < 0 || kh0 < 0 || nkh < 1 || kh0 + nkh > K || hm < 1) return (int)cudaErrorInvalidValue;
   const float* f = static_cast<const float*>(fix);
   const float* m = static_cast<const float*>(mov);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return sad ? dispatch<true>(f, m, o, C, h, w, d, q, general, kh0, nkh, s)
-             : dispatch<false>(f, m, o, C, h, w, d, q, general, kh0, nkh, s);
+  return sad ? dispatch<true>(f, m, o, C, h, w, d, q, general, kh0, nkh, hm, mo, s)
+             : dispatch<false>(f, m, o, C, h, w, d, q, general, kh0, nkh, hm, mo, s);
 }

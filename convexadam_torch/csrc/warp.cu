@@ -97,6 +97,13 @@
 // + disp * fac (fac from the full H, W, D), and the rows come out for the
 // sub-lattice's points only.  It is the same kernel with the point's index
 // scaled: s^3 fewer points, so s^3 fewer gathers, the Adam loop's floor.
+//
+// A launch may take only the lattice rows row0 .. row0 + hs - 1 of a grid
+// split along H (a rank's slab, parallel/spatial.py): disp and fix hold
+// those rows, point (i, j, l) samples the whole moving volume at s (row0 +
+// i) + disp * fac, and the rows come out for those points.  Only the
+// point's first coordinate depends on row0, so row0 = 0 over the whole
+// lattice is the launch it was.
 #include "common.cuh"
 
 namespace {
@@ -322,11 +329,12 @@ __device__ __forceinline__ void ssd_channel(const T* v, const int* off, const fl
 }
 
 // The sample position's floor and fraction per axis, stride * index + disp
-// * fac, of point n of an (hs, ws, ds) lattice of N points.
+// * fac, of point n of an (hs, ws, ds) lattice of N points whose first row
+// is the lattice's row0.
 __device__ __forceinline__ void ssd_axes(const float* __restrict__ disp, int n, int N, int ws,
-                                         int ds, int stride, float fac0, float fac1, float fac2,
-                                         Axis& ax, Axis& ay, Axis& az) {
-  const int i = n / (ws * ds), j = (n / ds) % ws, l = n % ds;
+                                         int ds, int stride, int row0, float fac0, float fac1,
+                                         float fac2, Axis& ax, Axis& ay, Axis& az) {
+  const int i = row0 + n / (ws * ds), j = (n / ds) % ws, l = n % ds;
   ax = split(__fadd_rn((float)(stride * i), __fmul_rn(disp[n], fac0)));
   ay = split(__fadd_rn((float)(stride * j), __fmul_rn(disp[N + n], fac1)));
   az = split(__fadd_rn((float)(stride * l), __fmul_rn(disp[2 * N + n], fac2)));
@@ -336,8 +344,8 @@ template <typename T>
 __global__ void __launch_bounds__(NT, 4)
 warp_ssd_kernel(const T* __restrict__ mov, const float* __restrict__ disp,
                 const float* __restrict__ fix, float* __restrict__ rows,
-                float* __restrict__ partials, int C, int H, int W, int D, int stride, int ws,
-                int ds, int N, float fac0, float fac1, float fac2, float chain) {
+                float* __restrict__ partials, int C, int H, int W, int D, int stride, int row0,
+                int ws, int ds, int N, float fac0, float fac1, float fac2, float chain) {
   __shared__ float warp_sums[NT / 32];
   // the point's 8 corner offsets and weights, read once a channel from
   // shared memory rather than held in registers: 64 registers, so four CTAs
@@ -352,7 +360,7 @@ warp_ssd_kernel(const T* __restrict__ mov, const float* __restrict__ disp,
   if (n < N) {
     {
       Axis ax, ay, az;
-      ssd_axes(disp, n, N, ws, ds, stride, fac0, fac1, fac2, ax, ay, az);
+      ssd_axes(disp, n, N, ws, ds, stride, row0, fac0, fac1, fac2, ax, ay, az);
       corner_offsets<NT>(ax, ay, az, H, W, D, off);
       corner_weights<NT>(ax, ay, az, H, W, D, w);
     }
@@ -368,7 +376,7 @@ warp_ssd_kernel(const T* __restrict__ mov, const float* __restrict__ disp,
     // the position again rather than kept across the channels: fewer
     // registers, more CTAs an SM
     Axis ax, ay, az;
-    ssd_axes(disp, n, N, ws, ds, stride, fac0, fac1, fac2, ax, ay, az);
+    ssd_axes(disp, n, N, ws, ds, stride, row0, fac0, fac1, fac2, ax, ay, az);
     rows_from_cv(ax, ay, az, H, W, D, cv, rows + n, N);
   }
   const float s = block_sum(ssq, warp_sums);
@@ -389,16 +397,16 @@ sum_partials_kernel(const float* __restrict__ partials, int n, float* __restrict
 template <typename T>
 int launch_ssd(const void* mov, const void* disp, const void* fix, void* rows, void* partials,
                void* total, int C, int H, int W, int D, int stride, float fac0, float fac1,
-               float fac2, float chain, cudaStream_t stream) {
-  // the (::stride)^3 sub-lattice: ceil(size / stride) points an axis
-  const int hs = (H + stride - 1) / stride, ws = (W + stride - 1) / stride,
-            ds = (D + stride - 1) / stride;
+               float fac2, float chain, int row0, int hs, cudaStream_t stream) {
+  // the (::stride)^3 sub-lattice: ceil(size / stride) points an axis, hs of
+  // its rows from row0
+  const int ws = (W + stride - 1) / stride, ds = (D + stride - 1) / stride;
   const int N = hs * ws * ds;
   const int blocks = (N + NT - 1) / NT;
   warp_ssd_kernel<T><<<blocks, NT, 0, stream>>>(
       static_cast<const T*>(mov), static_cast<const float*>(disp),
       static_cast<const float*>(fix), static_cast<float*>(rows), static_cast<float*>(partials),
-      C, H, W, D, stride, ws, ds, N, fac0, fac1, fac2, chain);
+      C, H, W, D, stride, row0, ws, ds, N, fac0, fac1, fac2, chain);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<1, NR, 0, stream>>>(static_cast<const float*>(partials), blocks,
@@ -474,19 +482,21 @@ extern "C" int sample_trilinear_bwd(const void* vol, const void* grid, const voi
 }
 
 // mov (C, H, W, D) float32 (bf16 == 0) or bfloat16 (bf16 == 1); the N = hs
-// ws ds points of the (::stride)^3 sub-lattice (hs = ceil(H / stride), ...;
-// the whole grid for stride 1): disp (3, N), fix (C, N) and rows (3, N)
-// float32; partials holds ceil(N / warp_ssd_threads()) floats and total one
-// float.
+// ws ds points of the rows row0 .. row0 + hs - 1 of the (::stride)^3
+// sub-lattice (ceil(H / stride) x ws x ds, ws = ceil(W / stride), ...; the
+// whole grid for stride 1, row0 = 0, hs = ceil(H / stride)): disp (3, N),
+// fix (C, N) and rows (3, N) float32; partials holds ceil(N /
+// warp_ssd_threads()) floats and total one float.
 extern "C" int warp_ssd_loss_grad(const void* mov, const void* disp, const void* fix, void* rows,
                                   void* partials, void* total, int C, int H, int W, int D,
                                   float fac0, float fac1, float fac2, float chain, int stride,
-                                  int bf16, void* stream) {
-  if (stride < 1) return (int)cudaErrorInvalidValue;
+                                  int bf16, int row0, int hs, void* stream) {
+  if (stride < 1 || row0 < 0 || hs < 1 || row0 + hs > (H + stride - 1) / stride)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_ssd<__nv_bfloat16>(mov, disp, fix, rows, partials, total, C, H, W, D, stride,
-                                     fac0, fac1, fac2, chain, s);
+                                     fac0, fac1, fac2, chain, row0, hs, s);
   return launch_ssd<float>(mov, disp, fix, rows, partials, total, C, H, W, D, stride, fac0, fac1,
-                           fac2, chain, s);
+                           fac2, chain, row0, hs, s);
 }

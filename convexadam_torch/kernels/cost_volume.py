@@ -10,7 +10,11 @@ outside the moving volume; ``metric`` is ``"ssd"`` (squared differences)
 or ``"sad"`` (absolute ones).  :func:`cost_volume_block` computes the
 candidates ``kh0 <= kh < kh0 + nkh`` only, as a (K^2 * nkh, h, w, d) slab of
 index ``(kd*K + kw)*nkh + kh - kh0``: the streamed convex path's unit.  The
-caller applies the box passes and the argmin.
+caller applies the box passes and the argmin.  Both take ``mov_row0``: the
+moving features may hold other rows than the fixed ones, their first row at
+the fixed features' row ``mov_row0``, with zeros outside them (a slab of a
+volume split along h, :mod:`convexadam_torch.parallel.spatial`); the default
+0 with equal shapes is the whole volume.
 
 On the card, the half-widths the self-configuring search draws, q = 1..7,
 run a kernel compiled for that q (:func:`kernel_for`); any other q (task
@@ -56,8 +60,24 @@ def _metric_term(diff: torch.Tensor, metric: str) -> torch.Tensor:
     return diff * diff if metric == "ssd" else diff.abs()
 
 
+def _padded_moving(mov: torch.Tensor, q: int, h: int, mov_row0: int) -> torch.Tensor:
+    """The moving features (C, hm, w, d) on the fixed rows ``-q .. h + q - 1``
+    and padded by ``q`` along w and d, zeros outside them: (C, h + 2q, w +
+    2q, d + 2q)."""
+    C, hm, w, d = mov.shape
+    if mov_row0 == 0 and hm == h:
+        return F.pad(mov.float(), (q, q, q, q, q, q))
+    out = mov.new_zeros((C, h + 2 * q, w + 2 * q, d + 2 * q), dtype=torch.float32)
+    lo = -q - mov_row0  # the moving row at padded row 0
+    a, b = max(lo, 0), min(lo + h + 2 * q, hm)
+    if a < b:
+        out[:, a - lo:b - lo, q:q + w, q:q + d] = mov[:, a:b].float()
+    return out
+
+
 def cost_volume_block_plain(
-    fix: torch.Tensor, mov: torch.Tensor, disp_hw: int, kh0: int, nkh: int, metric: str = "ssd"
+    fix: torch.Tensor, mov: torch.Tensor, disp_hw: int, kh0: int, nkh: int, metric: str = "ssd",
+    mov_row0: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`cost_volume_block`: one ``kd`` plane
     of K * nkh shifts at a time, the channel sum taken channel by channel in
@@ -67,7 +87,7 @@ def cost_volume_block_plain(
     K = 2 * q + 1
     C, h, w, d = fix.shape
     fix = fix.float()
-    movp = F.pad(mov.float(), (q, q, q, q, q, q))
+    movp = _padded_moving(mov, q, h, mov_row0)
     out = fix.new_empty((K * K * nkh, h, w, d))
     for kd in range(K):
         # (K * nkh, C, h, w, d) with kh fastest: index kw*nkh + kh - kh0
@@ -84,23 +104,24 @@ def cost_volume_block_plain(
 
 
 def cost_volume_plain(
-    fix: torch.Tensor, mov: torch.Tensor, disp_hw: int, metric: str = "ssd"
+    fix: torch.Tensor, mov: torch.Tensor, disp_hw: int, metric: str = "ssd", mov_row0: int = 0
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`cost_volume`: the block of every kh."""
-    return cost_volume_block_plain(fix, mov, disp_hw, 0, 2 * disp_hw + 1, metric)
+    return cost_volume_block_plain(fix, mov, disp_hw, 0, 2 * disp_hw + 1, metric, mov_row0)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     P, I = _build.P, _build.I  # noqa: E741
-    return _build.bind("cost_volume", "cost_volume", (P, P, P, I, I, I, I, I, I, I, I, I, P))
+    return _build.bind("cost_volume", "cost_volume", (P, P, P) + (I,) * 11 + (P,))
 
 
-def _launch(fix, mov, disp_hw, kh0, nkh, metric, what):
+def _launch(fix, mov, disp_hw, kh0, nkh, metric, what, mov_row0):
     _check_metric(metric)
     _build.require_cuda(fix, what)
     _build.require(fix, f"{what} fix", (torch.float32,), (None,) * 4)
-    _build.require(mov, f"{what} mov", (torch.float32,), tuple(fix.shape))
+    _build.require(mov, f"{what} mov", (torch.float32,),
+                   (fix.shape[0], None) + tuple(fix.shape[2:]))
     if mov.device != fix.device:
         raise ValueError(f"{what}: fix and mov must lie on one device")
     C, h, w, d = fix.shape
@@ -111,20 +132,22 @@ def _launch(fix, mov, disp_hw, kh0, nkh, metric, what):
     general = kernel_for(disp_hw) == "cost_volume_general_kernel"
     err = _build.call_on(
         fix.device, _entry(), fix.data_ptr(), mov.data_ptr(), out.data_ptr(), C, h, w, d,
-        disp_hw, int(general), int(metric == "sad"), kh0, nkh,
+        disp_hw, int(general), int(metric == "sad"), kh0, nkh, mov.shape[1], mov_row0,
     )
     _build.check(err, what)
     return out, general
 
 
 def cost_volume(
-    fix: torch.Tensor, mov: torch.Tensor, disp_hw: int, metric: str = "ssd"
+    fix: torch.Tensor, mov: torch.Tensor, disp_hw: int, metric: str = "ssd", mov_row0: int = 0
 ) -> torch.Tensor:
     """(K^3, h, w, d) float32 SSD or SAD volume of float32 features (C, h,
-    w, d)."""
+    w, d); the moving features (C, hm, w, d) begin at the fixed row
+    ``mov_row0``."""
     if fix.device.type == "cpu":
-        return cost_volume_plain(fix, mov, disp_hw, metric)
-    out, general = _launch(fix, mov, disp_hw, 0, 2 * disp_hw + 1, metric, "cost_volume")
+        return cost_volume_plain(fix, mov, disp_hw, metric, mov_row0)
+    out, general = _launch(fix, mov, disp_hw, 0, 2 * disp_hw + 1, metric, "cost_volume",
+                           mov_row0)
     if metric == "sad":
         LAUNCHES["cost_volume_sad"] += 1
     else:
@@ -133,13 +156,14 @@ def cost_volume(
 
 
 def cost_volume_block(
-    fix: torch.Tensor, mov: torch.Tensor, disp_hw: int, kh0: int, nkh: int, metric: str = "ssd"
+    fix: torch.Tensor, mov: torch.Tensor, disp_hw: int, kh0: int, nkh: int, metric: str = "ssd",
+    mov_row0: int = 0,
 ) -> torch.Tensor:
     """The candidates ``kh0 <= kh < kh0 + nkh`` of :func:`cost_volume`: a
     (K^2 * nkh, h, w, d) float32 slab, index ``(kd*K + kw)*nkh + kh - kh0``,
     each value the dense volume's to the bit."""
     if fix.device.type == "cpu":
-        return cost_volume_block_plain(fix, mov, disp_hw, kh0, nkh, metric)
-    out, _ = _launch(fix, mov, disp_hw, kh0, nkh, metric, "cost_volume_block")
+        return cost_volume_block_plain(fix, mov, disp_hw, kh0, nkh, metric, mov_row0)
+    out, _ = _launch(fix, mov, disp_hw, kh0, nkh, metric, "cost_volume_block", mov_row0)
     LAUNCHES["cost_volume_block"] += 1
     return out

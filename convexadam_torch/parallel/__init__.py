@@ -1,6 +1,7 @@
 """Work spread over several ranks: rank grids, batch registration over
-pairs (:mod:`convexadam_torch.parallel.batch`) and the process group
-(:mod:`convexadam_torch.parallel.distributed`)."""
+pairs (:mod:`convexadam_torch.parallel.batch`), one volume split along H
+with explicit halo exchanges (:mod:`convexadam_torch.parallel.spatial`)
+and the process group (:mod:`convexadam_torch.parallel.distributed`)."""
 
 from convexadam_torch.parallel.batch import (  # noqa: F401
     Mesh,

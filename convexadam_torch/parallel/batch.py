@@ -12,12 +12,13 @@ name:
   the sweeps (``selfconfig``) spread pairs the same way;
 * **settings**: the sweeps spread each batch of settings along the
   ``setting`` axis (:func:`make_sweep_mesh`);
+* **space**: ``register_pairs_sharded(..., shard_space=True)`` splits each
+  volume of a pair along H over the ``space`` axis; the ranks of a
+  ``space`` group exchange the halos of every stencil explicitly
+  (:mod:`convexadam_torch.parallel.spatial`), where the JAX package leaves
+  them to GSPMD;
 * **displacements**: ``core/convex.py:convex_displacement_tp`` spreads the
   (2q+1)^3 candidates of one convex stage over a process group.
-
-The JAX package's spatial sharding (``shard_space=True``: one volume split
-along its first axis over the ``space`` axis, with GSPMD's halo exchanges
-for the stencils) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -148,20 +149,38 @@ def register_pairs_sharded(
     rank registers its contiguous block (the batch padded with the last
     pair to a multiple of the axis), the blocks are gathered along the axis,
     and every rank returns the (B, H, W, D, 3) fields on its device, each
-    equal to :func:`register_pairs_batched`'s.  Ranks along ``space``
-    repeat the work.  ``shard_space=True`` (splitting each volume along its
-    first axis over ``space``) is not ported and raises."""
-    if shard_space:
-        raise NotImplementedError(
-            "register_pairs_sharded(shard_space=True): spatial sharding of one volume "
-            "over the 'space' axis (the JAX package's GSPMD halo exchange) is not ported"
-        )
-    f, m = _volumes(fixed, mesh.device), _volumes(moving, mesh.device)
-    B, n = f.shape[0], mesh.size("pair")
+    equal to :func:`register_pairs_batched`'s.
+
+    Without ``shard_space`` the ranks along ``space`` repeat the work.  With
+    ``shard_space=True`` they split each pair along H
+    (:func:`~convexadam_torch.parallel.spatial.register_slab`): a rank moves
+    only its slab to its device, and the slab edges fall on multiples of
+    :func:`~convexadam_torch.parallel.spatial.slab_unit` rows; a volume of
+    fewer such units than ``space`` ranks raises ``ValueError``."""
+    B, n = len(fixed), mesh.size("pair")
     chunk = -(-B // n)
     idx = [min(i, B - 1) for i in range(chunk * n)]
     mine = idx[mesh.coord("pair") * chunk:(mesh.coord("pair") + 1) * chunk]
-    local = register_pairs_batched(f[mine], m[mine], cfg, device=mesh.device)
+    if shard_space:
+        local = _register_space(fixed, moving, mine, cfg, mesh)
+    else:
+        f, m = _volumes(fixed, mesh.device), _volumes(moving, mesh.device)
+        local = register_pairs_batched(f[mine], m[mine], cfg, device=mesh.device)
     if not mesh.distributed:
         return local[:B]
     return torch.cat(all_gather_tensor(local, mesh.group("pair")))[:B]
+
+
+def _register_space(fixed, moving, pairs, cfg, mesh: Mesh) -> torch.Tensor:
+    """The pairs ``pairs`` of the batch, each split along H over ``mesh``'s
+    ``space`` axis: (len(pairs), H, W, D, 3) on every rank of the axis."""
+    from convexadam_torch.parallel.spatial import register_slab, slab_plan, slab_unit
+
+    H = int(torch.as_tensor(fixed[0]).shape[0])
+    plan = slab_plan(H, slab_unit(cfg), mesh.size("space"), mesh.coord("space"))
+    a, b = plan.own()
+    fields = []
+    for i in pairs:
+        f, m = (torch.as_tensor(v[i])[a:b].to(mesh.device, torch.float32) for v in (fixed, moving))
+        fields.append(register_slab(f, m, cfg, plan, mesh.group("space")))
+    return torch.stack(fields)

@@ -70,6 +70,25 @@ class ConvexAdamConfig:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
 
 
+def check_grids(cfg: ConvexAdamConfig, shape, convex: bool = True, adam: bool = False) -> None:
+    """Raise unless the coarse grid (with ``convex``) and the Adam grid (with
+    ``adam``) of a volume of ``shape`` have at least 2 cells along every
+    axis."""
+    H, W, D = shape
+    g = cfg.grid_sp
+    if convex and min(H // g, W // g, D // g) < 2:
+        raise ValueError(
+            f"grid_sp={g} leaves a coarse grid of {(H // g, W // g, D // g)} for "
+            f"volume {tuple(shape)}; every coarse axis needs >= 2 cells"
+        )
+    g2 = cfg.grid_sp_adam
+    if adam and min(H // g2, W // g2, D // g2) < 2:
+        raise ValueError(
+            f"grid_sp_adam={g2} leaves an Adam grid of {(H // g2, W // g2, D // g2)} "
+            f"for volume {tuple(shape)}; every axis needs >= 2 cells"
+        )
+
+
 def _convex_stage(
     feat_fix: torch.Tensor,
     feat_mov: torch.Tensor,
@@ -87,11 +106,7 @@ def _convex_stage(
     """
     H, W, D = full_shape
     g = cfg.grid_sp
-    if min(H // g, W // g, D // g) < 2:
-        raise ValueError(
-            f"grid_sp={g} leaves a coarse grid of {(H // g, W // g, D // g)} for "
-            f"volume {full_shape}; every coarse axis needs >= 2 cells"
-        )
+    check_grids(cfg, full_shape)
     fix_s = avg_pool3d(feat_fix, g, stride=g)
     mov_s = avg_pool3d(feat_mov, g, stride=g)
     kw = dict(metric=cfg.cost_metric, smooth_passes=cfg.cost_smooth_passes)
@@ -122,11 +137,7 @@ def _adam_inputs(
     ``disp_hr`` in full-resolution voxels at any resolution."""
     H, W, D = feat_fix.shape[1:]
     g2 = cfg.grid_sp_adam
-    if min(H // g2, W // g2, D // g2) < 2:
-        raise ValueError(
-            f"grid_sp_adam={g2} leaves an Adam grid of {(H // g2, W // g2, D // g2)} "
-            f"for volume {(H, W, D)}; every axis needs >= 2 cells"
-        )
+    check_grids(cfg, (H, W, D), convex=False, adam=True)
     patch_fix = avg_pool3d(feat_fix.float(), g2, stride=g2)
     # the moving features stay in the compute dtype (bf16 halves the data
     # term's gather traffic); the kernel accumulates in float32 either way

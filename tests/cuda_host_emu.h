@@ -1,7 +1,10 @@
-// Host emulation of the CUDA features convexadam_torch/csrc/mind.cu uses, so
-// that tests/test_torch_mind_host.py can build the kernel source with g++ and
-// run it on CPU tensors: every CUDA thread of a block is a std::thread,
-// __syncthreads a std::barrier, the blocks run one after another; the
+// Host emulation of the CUDA features convexadam_torch/csrc/mind.cu,
+// cost_volume.cu and warp.cu use, so that tests/test_torch_mind_host.py and
+// tests/test_torch_slab_host.py can build the kernel sources with g++ and
+// run them on CPU tensors: every CUDA thread of a block is a std::thread,
+// __syncthreads a std::barrier, __syncwarp and the warp shuffles a barrier of
+// the warp's threads, cp.async a copy done at once (so cp.async.wait_all has
+// nothing to wait for), the blocks run one after another; the
 // __f*_rn intrinsics are host float operations (built with
 // -ffp-contract=off), and the bf16x2 PTX instructions of Pair<__nv_bfloat16>
 // (rewritten by the test into emu_asm calls) compute in float and round to
@@ -13,6 +16,7 @@
 #include <cstdint>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
@@ -22,6 +26,7 @@
 #define __launch_bounds__(...)
 #define __restrict__
 #define __builtin_assume(x) ((void)0)
+#define __align__(n) alignas(n)
 using std::max;
 using std::min;
 struct dim3 {
@@ -30,13 +35,30 @@ struct dim3 {
 };
 struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx, blockIdx;
+inline thread_local dim3 blockDim;
 inline thread_local std::barrier<>* emu_bar;
+inline thread_local std::barrier<>* emu_warp_bar;
+inline thread_local float* emu_warp_slots;
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+inline void __syncwarp() { emu_warp_bar->arrive_and_wait(); }
+// every lane of the warp writes its value, then reads its partner's
+inline float __shfl_xor_sync(unsigned, float v, int o) {
+  const unsigned lane = threadIdx.x & 31;
+  emu_warp_slots[lane] = v;
+  emu_warp_bar->arrive_and_wait();
+  const float r = emu_warp_slots[lane ^ o];
+  emu_warp_bar->arrive_and_wait();
+  return r;
+}
 struct float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+template <class T> inline void __stcs(T* p, T v) { *p = v; }
+template <class T> inline T __ldcs(const T* p) { return *p; }
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
+enum { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 typedef void* cudaStream_t;
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 alignas(16) inline float4 emu_smem_store[232448 / 16];
@@ -45,6 +67,17 @@ inline float4* const emu_smem = emu_smem_store;
 // the card refuses it (cudaErrorInvalidValue is 1, this 98)
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int v) { return v <= 232448 ? 0 : 98; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, int, int) { *v = 232448; return 0; }
+// a shared-memory address is its offset in the emulated shared memory; an
+// asynchronous copy of n = 4 bytes (0: zero-fill) is done at once
+inline unsigned __cvta_generic_to_shared(const void* p) {
+  return (unsigned)((const char*)p - (const char*)emu_smem);
+}
+inline void emu_cp_async4(unsigned dst, const float* src, int n) {
+  const float v = n ? *src : 0.f;
+  memcpy((char*)emu_smem + dst, &v, 4);
+}
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
@@ -87,13 +120,21 @@ inline void emu_launch(dim3 grid, unsigned nt, const std::function<void()>& body
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
         std::barrier<> bar(nt);
+        const unsigned nw = (nt + 31) / 32;
+        std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+        std::vector<float> slots(32 * nw);
+        for (unsigned w = 0; w < nw; ++w)
+          warp_bars.emplace_back(new std::barrier<>(std::min(32u, nt - 32 * w)));
         std::vector<std::thread> th;
         th.reserve(nt);
         for (unsigned t = 0; t < nt; ++t)
           th.emplace_back([&, t, x, y, z] {
             threadIdx = {t, 0, 0};
             blockIdx = {x, y, z};
+            blockDim = dim3(nt);
             emu_bar = &bar;
+            emu_warp_bar = warp_bars[t / 32].get();
+            emu_warp_slots = slots.data() + 32 * (t / 32);
             body();
           });
         for (auto& h : th) h.join();

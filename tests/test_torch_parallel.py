@@ -185,11 +185,26 @@ def test_register_pairs_sharded_equals_batched(two_ranks):
     np.testing.assert_array_equal(refs["batched"][2], lone.numpy())
 
 
-def test_register_pairs_sharded_refuses_shard_space():
+def test_register_pairs_sharded_space_equals_batched(two_ranks):
+    """Three pairs, each split along H over a (pair 1, space 2) grid (two
+    slabs of 12 rows): every rank holds all three fields, equal to the
+    one-device batch to the bit."""
+    ranks, refs, _ = two_ranks
+    for r in ranks:
+        np.testing.assert_array_equal(r["space"], refs["batched"])
+
+
+def test_register_pairs_sharded_refuses_shard_space(two_ranks):
+    """``shard_space=True`` refuses a volume of fewer slab units than
+    ``space`` ranks (4 rows, one unit of 4, over two ranks; 3 rows on one
+    process), naming the shape, as a ``ValueError``."""
+    ranks, _, _ = two_ranks
+    for r in ranks:
+        assert r["space_refusal"] is not None and "4 rows along H" in r["space_refusal"]
     vols, movs, cfg = w.register_case()
     mesh = tbatch.make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="space"):
-        tbatch.register_pairs_sharded(vols, movs, cfg, mesh, shard_space=True)
+    with pytest.raises(ValueError, match="3 rows along H"):
+        tbatch.register_pairs_sharded(vols[:, :3], movs[:, :3], cfg, mesh, shard_space=True)
 
 
 def test_one_process_meshes():

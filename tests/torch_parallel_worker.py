@@ -160,6 +160,15 @@ def main(out_dir: str, cli_config: str) -> int:
             f, m, q, dist.group.WORLD, metric=metric, smooth_passes=passes).numpy()
     vols, movs, cfg = register_case()
     res["sharded"] = register_pairs_sharded(vols, movs, cfg, make_mesh(device="cpu")).numpy()
+    # each pair split along H over a (pair 1, space 2) grid; a volume of one
+    # 4-row slab unit refused
+    space = make_mesh(1, 2, device="cpu")
+    res["space"] = register_pairs_sharded(vols, movs, cfg, space, shard_space=True).numpy()
+    try:
+        register_pairs_sharded(vols[:, :4], movs[:, :4], cfg, space, shard_space=True)
+        res["space_refusal"] = None
+    except ValueError as e:
+        res["space_refusal"] = str(e)
     for grid in GRIDS:
         res[("sweeps", grid)] = sweeps(make_sweep_mesh(*grid, device="cpu"))
     saves = []
