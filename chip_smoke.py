@@ -49,11 +49,13 @@ Phases, each fatal on failure:
      at q = 0, 1, 4, 7, 8, 9 on the ragged crops; a slab's moving row
      offset (9d) at every q in 0..9, SSD and SAD, volume and block, on two
      ragged crops, equal to the plain version and to the whole volume's rows;
-  3d. the Adam data term, rows to the bit, at 12 x 96^3 (bf16 and f32) and
-     at the semantic Adam grid 14 x 96 x 80 x 128 (bf16), all timed, and on a
-     ragged grid with points past every face; the strided form (stride 2)
-     on the 12 x 96^3 grid's 48^3 sub-lattice (bf16, timed, and f32) and on a
-     ragged 3 x 37 x 41 x 29 grid that 2 does not divide, rows to the bit;
+  3d. the Adam data term, rows to the bit, at 12 x 96^3 (bf16 and f32), at
+     the semantic Adam grid 14 x 96 x 80 x 128 (bf16) and at 5b's
+     grid_sp_adam 3 grid 14 x 64 x 53 x 85 (bf16; no axis divides the
+     Abdomen shape), all timed, and on a ragged grid with points past every
+     face; the strided form (strides 2 and 3) on the 12 x 96^3 grid's 48^3
+     and 32^3 sub-lattices (bf16, timed, and f32) and on a ragged 3 x 37 x
+     41 x 29 grid that neither stride divides, rows to the bit;
      both forms on lattice rows from ``row0`` (9d's slabs) of the ragged
      grids, equal to the plain version and to the whole lattice's rows;
   3c. the sampler on the inverse-consistency fields (to the bit, and to
@@ -121,18 +123,25 @@ Phases, each fatal on failure:
      160 x 256 on three 13-organ subjects (predictions = ground truth),
      pairs (0, 1) and (1, 2):
   5a. ``run_stage1_sweep`` over the first seeded setting of the (grid_sp,
-     disp_hw) classes (2, 5), (3, 7), (4, 4) and (5, 2): launches 2 cost
-     volumes and 15 inverse-consistency steps per (setting, pair), one
-     pruned search per label bucket per case, nothing else; the winner's
-     Dice above the identity's; every (setting, pair)'s Dice and HD95 equal
-     to ``convex_field_semantic`` + ``evaluate_field`` composed outside the
-     engine, SDlogJ to 1e-4 relative, the negative fraction to 1e-6; times
-     per class and the (2, 5) class's peak memory;
+     disp_hw) classes (2, 5), (3, 7), (4, 4) and (5, 2), then over the
+     first seeded setting of each of the other 18 classes the seeded
+     sampler draws: launches 2 cost volumes and 15 inverse-consistency
+     steps per (setting, pair), one pruned search per label bucket per
+     case, nothing else; each run's winner's Dice above the identity's;
+     every (setting, pair)'s Dice and HD95 equal to ``convex_field_semantic``
+     + ``evaluate_field`` composed outside the engine, SDlogJ to 1e-4
+     relative, the negative fraction to 1e-6; each composed convex stage
+     dense (2 cost volumes, no candidate block) with its peak above what it
+     held before at most its ``dense_estimate`` + 1 GB; seconds per setting
+     and peak of every class;
   5b. ``run_stage2_sweep`` from 5a's winner over the first seeded Adam
-     settings with grid_sp_adam 1 and 2: launches 120 data terms per
+     settings with grid_sp_adam 1, 2, 3 and 4: launches 120 data terms per
      (setting, pair), pass A's 2 + 15 per pair, 16 x buckets pruned searches
-     per (setting, pair); the 16 variants of one (setting, pair) recomputed
-     outside the engine, Dice and HD95 equal to ``evaluate_field``'s;
+     per (setting, pair); the 16 variants of the first pair at grid_sp_adam
+     1 and 3 recomputed outside the engine, Dice and HD95 equal to
+     ``evaluate_field``'s, at 3 (the Adam grid 64 x 53 x 85) with the first
+     calls of each kernel wrapper recorded and held to their plain versions
+     as in 7g;
   5c. both paired sweeps on two MIND pairs at 192^3 (20 keypoints each):
      three settings with distinct (r, d), then one Adam setting; 2 MIND
      launches per (setting, pair); the winners' TRE below the initial TRE;
@@ -196,9 +205,10 @@ Phases, each fatal on failure:
   7e. the (grid_sp 2, disp_hw 7) class at 192 x 160 x 256 both ways:
      streamed (``stream_threshold=0``) equal to dense to the bit, both peaks;
      the natural dispatch at 256 x 256 x 320 (above the threshold) streams;
-  7f. the 192^3 headline registration with ``adam_sample_stride=2``: 80
-     strided data terms, central p95 |diff| to phase 4's field under 0.5
-     voxels;
+  7f. the 192^3 headline registration with ``adam_sample_stride`` 2 and 3:
+     80 strided data terms each, the shift recovered (> 90% of the central
+     box within 1 voxel), central p95 |diff| to phase 4's field under 0.5
+     voxels at stride 2 (recorded at 3);
   7g. 7a-7f's recipes (task 3 with its own weights, 7e's natural dispatch)
      run again with the arguments of the first three calls of each kernel
      wrapper they reach recorded (every kernel launched must have a
@@ -244,7 +254,11 @@ Phases, each fatal on failure:
      to phase 4's lone field (and 9a's second) to the bit, launches a rank
      2 / 2 / 15 / 80, each rank's recorded cost-volume and data-term calls
      (a slab's moving row offset and first lattice row) held to their plain
-     versions; each rank's seconds, peak memory and halo bytes;
+     versions; each rank's seconds, peak memory and halo bytes; then a
+     12 x 32 x 32 pair (three slab units of 4 rows for four ranks, the last
+     holding none) over (pair 1, space 4): every rank's field equal to the
+     one-process field to the bit, no MIND, cost-volume or data-term launch
+     on the rank of no rows;
   10. output: one JSON line per result, ``{"phase6": {...}}``,
      ``{"phase7": {...}}``, ``{"phase8": {...}}``, ``{"phase9": {...}}``,
      ``{"kernels": [...]}`` (thirteen records: the
@@ -266,6 +280,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import pathlib
@@ -404,16 +419,25 @@ GLOBALS = {
     "warp_ssd_loss_grad_strided": ("warp_ssd_kernel", "sum_partials_kernel"),
     "mind_ssd_stats_general": ("mind_general_kernel",),
 }
-# phase 5, the sweep at the Abdomen shape, its depth cut to two pairs, four
-# stage-1 and two stage-2 settings: three subjects (one organ layout rolled
-# by three shifts), the first seeded stage-1 setting of the largest dense
-# class, the widest displacement, the commonest class and the smallest, the
-# first seeded Adam settings at grid_sp_adam 1 and 2; two MIND pairs for the
-# paired sweeps
+# phase 5, the sweep at the Abdomen shape, its depth cut to two pairs, the
+# first seeded stage-1 setting of each of the 22 (grid_sp, disp_hw) classes
+# the seeded sampler draws, and the first seeded stage-2 setting of each
+# grid_sp_adam: three subjects (one organ layout rolled by three shifts); a
+# sweep of four classes (the largest dense class, the widest displacement,
+# the commonest class and the smallest), whose result 5b-5d and 9c use, then
+# one of the other 18; two MIND pairs for the paired sweeps
 SWEEP_SHIFTS = ((0, 0, 0), HEADLINE_SHIFT, (-3, 4, -2))
 SWEEP_PAIRS = ((0, 1), (1, 2))
 SWEEP_CLASSES = ((2, 5), (3, 7), (4, 4), (5, 2))  # (grid_sp, disp_hw)
-SWEEP_ADAM_GRIDS = (1, 2)
+SWEEP_ADAM_GRIDS = (1, 2, 3, 4)
+# 5b's settings whose 16 variants of one pair are recomputed outside the
+# engine: grid_sp_adam 1, and 3 (the first Adam grid that does not divide
+# the volume, 64 x 53 x 85), whose kernel calls are also recorded and held
+SWEEP_RECOMPUTED_GRIDS = (1, 3)
+# the convex stage's peak above what it holds before, at most its dense
+# estimate and this: the one-hot features made at full resolution before
+# they are pooled (two volumes, 0.88 GB, and one volume's boolean mask)
+SWEEP_PEAK_MARGIN_GB = 1.0
 ADAM_ITERS = 120  # the sweep's Adam iterations (settings.STAGE2_SNAPSHOT_ITERS' last)
 PAIRED_SHIFTS = (HEADLINE_SHIFT, (-4, 3, 5))
 PAIRED_KEYPOINTS = 20
@@ -459,9 +483,9 @@ COST_VOLUME_TASK3 = (36, 80, 96, 112)
 COST_VOLUME_TASK1 = (12, 48, 40, 48)
 TASK1_Q = 8  # task 1's disp_hw (pipeline/challenges.py)
 COST_VOLUME_STREAM = (14, 96, 80, 128)
-# phase 3d's strided data term: stride 2 on the main path's Adam grid and on
-# a ragged grid that 2 does not divide
-DATA_TERM_STRIDE = 2
+# phase 3d's strided data term: strides 2 and 3 on the main path's Adam grid
+# and on a ragged grid that neither divides (7f registers at both)
+DATA_TERM_STRIDES = (2, 3)
 # phase 7, the challenge recipes at their published shapes: Learn2Reg 2021
 # task 1 Abdomen MR-CT (preprocessed at 2 mm) with an original CT grid of
 # 240 x 200 x 240 at 1.6 mm (the same extent), task 2 lung CT, task 3 OASIS
@@ -528,6 +552,11 @@ PARALLEL_DIR = OUT_DIR / "phase9"
 # take a slab's offsets (the moving row offset, the data term's first row)
 SPACE_RANKS = 4
 SPACE_GRIDS = ((1, 4), (2, 2))
+# 9d's short case: 12 rows hold three slab units of 4 (the test config's
+# grid_sp 4 and grid_sp_adam 2) for four ranks, so the last holds none
+SPACE_TINY_SHAPE = (12, 32, 32)
+SPACE_TINY_CONFIG = dict(grid_sp=4, disp_hw=2, selected_niter=10, grid_sp_adam=2)
+SPACE_TINY_SHIFT = (2, -1, 1)
 SPACE_HELD = ("cost_volume", "warp_ssd_loss_grad")
 SPACE_DEADLINE_S = 300
 CLI_MESH_CLASSES = ((4, 4), (5, 2))  # 9a's CLI settings: phase 5a's two quickest classes
@@ -1661,9 +1690,10 @@ def data_term_cases(torch, gen, feat_f, feat_m, grid_sp_adam):
     flattened to (C, N), the main path's case first: its Adam grid (the
     headline pair's MIND features pooled to 12 x 96^3, a smooth field of a
     few voxels) with bf16 and with f32 moving features, the semantic Adam
-    grid 14 x 96 x 80 x 128 in bf16 (seeded features), and a ragged 3 x 37 x
-    41 x 29 grid whose displacements push points past every face (f32 and
-    bf16)."""
+    grid 14 x 96 x 80 x 128 in bf16 (seeded features), the sweep's Adam grid
+    at grid_sp_adam 3, 14 x 64 x 53 x 85 (no axis divides the Abdomen
+    shape; 5b's settings at 3), in bf16, and a ragged 3 x 37 x 41 x 29 grid
+    whose displacements push points past every face (f32 and bf16)."""
     from convexadam_torch.core.smoothing import avg_pool3d
     from convexadam_torch.core.warp import resize_trilinear
 
@@ -1679,10 +1709,14 @@ def data_term_cases(torch, gen, feat_f, feat_m, grid_sp_adam):
     sem_grid = tuple(s // grid_sp_adam for s in ABDOMEN_SHAPE)
     sem_fix, sem_mov = (torch.rand((SEMANTIC_LABELS, *sem_grid), generator=gen).to(dev)
                         for _ in range(2))
+    g3_grid = tuple(s // 3 for s in ABDOMEN_SHAPE)
+    g3_fix, g3_mov = (torch.rand((SEMANTIC_LABELS, *g3_grid), generator=gen).to(dev)
+                      for _ in range(2))
     rag_fix, rag_mov = (torch.randn((3, *RAGGED_SHAPE), generator=gen).to(dev) for _ in range(2))
     rag_disp = ((torch.rand((3, *RAGGED_SHAPE), generator=gen) * 2 - 1) * 6).to(dev)
     cases = [("mind", pf, pm.to(torch.bfloat16), mind_disp), ("mind", pf, pm, mind_disp),
              ("semantic", sem_fix, sem_mov.to(torch.bfloat16), smooth(sem_grid)),
+             ("semantic g3", g3_fix, g3_mov.to(torch.bfloat16), smooth(g3_grid)),
              ("ragged", rag_fix, rag_mov, rag_disp),
              ("ragged", rag_fix, rag_mov.to(torch.bfloat16), rag_disp)]
     out = []
@@ -1783,13 +1817,14 @@ def data_term_slab_cases(torch, cases, s):
 
 
 def strided_data_term_phase(torch, gen, feat_f, feat_m, grid_sp_adam):
-    """Phase 3d's strided data term: ``warp_ssd_loss_grad(..., stride=2)``
-    against its plain version, rows to the bit and ``sum(res^2)`` to 1e-5
-    relative, on the main path's Adam grid 12 x 96^3 (bf16 and f32 moving
-    features; the sub-lattice 48^3 of a smooth field) and on a ragged 3 x
-    37 x 41 x 29 grid that 2 does not divide (19 x 21 x 15 points pushed past
-    every face); the first case timed.  Returns its record and every case's
-    numbers."""
+    """Phase 3d's strided data term: ``warp_ssd_loss_grad(..., stride=s)``
+    for each ``s`` of :data:`DATA_TERM_STRIDES` against its plain version,
+    rows to the bit and ``sum(res^2)`` to 1e-5 relative, on the main path's
+    Adam grid 12 x 96^3 (bf16 and f32 moving features; the sub-lattice 48^3
+    or 32^3 of a smooth field) and on a ragged 3 x 37 x 41 x 29 grid that
+    neither stride divides (points pushed past every face); the first case
+    of each stride timed.  Returns stride 2's record (stride 3's timing as
+    its ``at_stride_3``) and every case's numbers."""
     from convexadam_torch.core.smoothing import avg_pool3d
     from convexadam_torch.core.warp import resize_trilinear
     from convexadam_torch.kernels.warp import (
@@ -1798,63 +1833,72 @@ def strided_data_term_phase(torch, gen, feat_f, feat_m, grid_sp_adam):
         warp_ssd_loss_grad_plain,
     )
 
-    s = DATA_TERM_STRIDE
     dev = feat_f.device
     pf = avg_pool3d(feat_f.float(), grid_sp_adam).contiguous()
     pm = avg_pool3d(feat_m.float(), grid_sp_adam).contiguous()
-    sub = tuple(sub_extent(n, s) for n in pf.shape[1:])
-    coarse = torch.randn((3, *[n // 8 for n in sub]), generator=gen) * 2.0
-    mind_disp = resize_trilinear(coarse, sub).to(dev).contiguous()
     rag_fix, rag_mov = (torch.randn((3, *RAGGED_SHAPE), generator=gen).to(dev) for _ in range(2))
-    rag_sub = tuple(sub_extent(n, s) for n in RAGGED_SHAPE)
-    rag_disp = ((torch.rand((3, *rag_sub), generator=gen) * 2 - 1) * 6).to(dev)
-    cases = [("mind", pf, pm.to(torch.bfloat16), mind_disp), ("mind", pf, pm, mind_disp),
-             ("ragged", rag_fix, rag_mov, rag_disp),
-             ("ragged", rag_fix, rag_mov.to(torch.bfloat16), rag_disp)]
     record, detail = None, []
-    for what, fix, mov, disp in cases:
-        C, H, W, D = mov.shape
-        n = disp[0].numel()
-        fix_flat = fix[:, ::s, ::s, ::s].reshape(C, n).contiguous()
-        fac = (H / (H - 1.0), W / (W - 1.0), D / (D - 1.0))
-        chain = 2.0 * 12.0 / (C * n)
-        ssq_k, rows_k = warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain, s)
-        ssq_p, rows_p = warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain, s)
-        pos = [s * torch.arange(m, device=dev).reshape([-1 if a == b else 1 for b in range(3)])
-               + disp[a] * fac[a] for a, m in enumerate(disp.shape[1:])]
-        faces = [int((p < 0).sum()) for p in pos] + \
-                [int((p > e - 1).sum()) for p, e in zip(pos, (H, W, D))]
-        torch.cuda.synchronize()
-        ssq_rel = abs(float(ssq_k) - float(ssq_p)) / float(ssq_p)
-        err = max_err(rows_k, rows_p)
-        name = f"warp_ssd_loss_grad stride {s} {what} {(C, H, W, D)} {mov.dtype}"
-        check(ssq_rel <= 1e-5, f"{name}: sum(res^2) relative err {ssq_rel}")
-        check(err == 0.0, f"{name}: rows max err {err} > 0")
-        check(what != "ragged" or min(faces) > 0, f"{name}: points past the faces {faces}")
-        print(f"{name}: {n} points, rows max_abs_err {err:.3e} (tol 0); sum(res^2) rel err "
-              f"{ssq_rel:.3e}; points past the faces {faces}", flush=True)
-        row = {"case": what, "shape": [C, H, W, D], "stride": s, "points": n,
-               "dtype": str(mov.dtype), "max_abs_err": err, "ssq_rel_err": ssq_rel,
-               "points_past_faces": faces}
+    for s in DATA_TERM_STRIDES:
+        sub = tuple(sub_extent(n, s) for n in pf.shape[1:])
+        coarse = torch.randn((3, *[n // 8 for n in sub]), generator=gen) * 2.0
+        mind_disp = resize_trilinear(coarse, sub).to(dev).contiguous()
+        rag_sub = tuple(sub_extent(n, s) for n in RAGGED_SHAPE)
+        rag_disp = ((torch.rand((3, *rag_sub), generator=gen) * 2 - 1) * 6).to(dev)
+        cases = [("mind", pf, pm.to(torch.bfloat16), mind_disp), ("mind", pf, pm, mind_disp),
+                 ("ragged", rag_fix, rag_mov, rag_disp),
+                 ("ragged", rag_fix, rag_mov.to(torch.bfloat16), rag_disp)]
+        timed = None
+        for what, fix, mov, disp in cases:
+            C, H, W, D = mov.shape
+            n = disp[0].numel()
+            fix_flat = fix[:, ::s, ::s, ::s].reshape(C, n).contiguous()
+            fac = (H / (H - 1.0), W / (W - 1.0), D / (D - 1.0))
+            chain = 2.0 * 12.0 / (C * n)
+            ssq_k, rows_k = warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain, s)
+            ssq_p, rows_p = warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain, s)
+            pos = [s * torch.arange(m, device=dev).reshape([-1 if a == b else 1 for b in range(3)])
+                   + disp[a] * fac[a] for a, m in enumerate(disp.shape[1:])]
+            faces = [int((p < 0).sum()) for p in pos] + \
+                    [int((p > e - 1).sum()) for p, e in zip(pos, (H, W, D))]
+            torch.cuda.synchronize()
+            ssq_rel = abs(float(ssq_k) - float(ssq_p)) / float(ssq_p)
+            err = max_err(rows_k, rows_p)
+            name = f"warp_ssd_loss_grad stride {s} {what} {(C, H, W, D)} {mov.dtype}"
+            check(ssq_rel <= 1e-5, f"{name}: sum(res^2) relative err {ssq_rel}")
+            check(err == 0.0, f"{name}: rows max err {err} > 0")
+            check(what != "ragged" or min(faces) > 0, f"{name}: points past the faces {faces}")
+            print(f"{name}: {n} points, rows max_abs_err {err:.3e} (tol 0); sum(res^2) rel err "
+                  f"{ssq_rel:.3e}; points past the faces {faces}", flush=True)
+            row = {"case": what, "shape": [C, H, W, D], "stride": s, "points": n,
+                   "dtype": str(mov.dtype), "max_abs_err": err, "ssq_rel_err": ssq_rel,
+                   "points_past_faces": faces}
+            if timed is None:
+                t = timed_turns(torch, lambda: warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain,
+                                                                  s),
+                                GLOBALS["warp_ssd_loss_grad_strided"])
+                p_ms = cuda_ms(torch, lambda: warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac,
+                                                                       chain, s))
+                # the moving values the corners reach (at most 8 a point, at
+                # most the volume), the sub-lattice's fixed features and field
+                # read once, its rows written once; operations as the dense
+                # term's
+                nbytes = (C * min(H * W * D, 8 * n) * mov.element_size() + C * n * 4
+                          + 3 * n * 4 * 2)
+                timed = kernel_record("warp_ssd_loss_grad_strided", [C, H, W, D],
+                                      str(mov.dtype)[6:], err, 0.0, t, p_ms, nbytes,
+                                      1.0 * n * (C * 37 + 110))
+                timed["stride"] = s
+                print_times(name, t, p_ms, timed["bound_ms"])
+                row.update({k: timed[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")})
+            detail.append(row)
+            if what == "ragged":
+                detail += data_term_slab_cases(
+                    torch, [(what, fix_flat, mov, disp, fac, chain)], s)
         if record is None:
-            t = timed_turns(torch, lambda: warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain, s),
-                            GLOBALS["warp_ssd_loss_grad_strided"])
-            p_ms = cuda_ms(torch, lambda: warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac,
-                                                                   chain, s))
-            # the moving values the corners reach (at most 8 a point, at most
-            # the volume), the sub-lattice's fixed features and field read
-            # once, its rows written once; operations as the dense term's
-            nbytes = (C * min(H * W * D, 8 * n) * mov.element_size() + C * n * 4
-                      + 3 * n * 4 * 2)
-            record = kernel_record("warp_ssd_loss_grad_strided", [C, H, W, D], str(mov.dtype)[6:],
-                                   err, 0.0, t, p_ms, nbytes, 1.0 * n * (C * 37 + 110))
-            record["stride"] = s
-            print_times(name, t, p_ms, record["bound_ms"])
-            row.update({k: record[k] for k in ("call_ms", "device_ms", "plain_ms", "bound_ms")})
-        detail.append(row)
-        if what == "ragged":
-            detail += data_term_slab_cases(
-                torch, [(what, fix_flat, mov, disp, fac, chain)], s)
+            record = timed
+        else:
+            record[f"at_stride_{s}"] = {k: v for k, v in timed.items()
+                                        if k not in ("name", "timing_readings")}
     return record, detail
 
 
@@ -2155,6 +2199,14 @@ def sweep_subjects():
     return np.stack([np.roll(base, s, axis=(0, 1, 2)) for s in SWEEP_SHIFTS])
 
 
+def seeded_classes() -> "list[tuple[int, int]]":
+    """Every (grid_sp, disp_hw) class the seeded stage-1 sampler draws, in
+    the order of its first setting."""
+    from convexadam_torch.selfconfig import stage1_settings
+
+    return list(dict.fromkeys((s.grid_sp, s.disp_hw) for s in stage1_settings()))
+
+
 def sweep_settings(classes=SWEEP_CLASSES):
     """The first seeded stage-1 setting of each (grid_sp, disp_hw) class of
     ``classes`` (phase 5a's settings)."""
@@ -2185,65 +2237,97 @@ def sweep_expected(**per_kernel):
     return out
 
 
-def sweep_stage1_phase(torch, dev, segs, smi, results):
-    """Phase 5a: ``run_stage1_sweep`` on the three subjects, pairs
-    :data:`SWEEP_PAIRS`, over the first seeded setting of each class of
-    :data:`SWEEP_CLASSES`; its launches, its winner against the identity,
-    and every (setting, pair) against ``convex_field_semantic`` +
-    ``evaluate_field`` composed outside the engine.  Returns the settings,
-    the result, the launches, the label buckets and the (2, 5) class's field
-    of the first pair (for phase 5e)."""
-    from convexadam_torch import evaluate_field
+def _stage1_run(torch, dev, segs, settings, groups, what, checkpoint=None):
+    """``run_stage1_sweep`` over ``settings`` on the three subjects, pairs
+    :data:`SWEEP_PAIRS`: its launches (2 cost volumes and 15 IC steps a
+    (setting, pair), one pruned search a label bucket and case), a finite
+    result and the winner's Dice above the identity's.  Returns the result,
+    the launches, the seconds, the peak and the identity's Dice."""
     from convexadam_torch.core.metrics import dice_coeff
     from convexadam_torch.kernels import LAUNCHES, reset_launches
     from convexadam_torch.selfconfig import run_stage1_sweep
-    from convexadam_torch.selfconfig.checkpoint import SweepCheckpointer
-    from convexadam_torch.selfconfig.engine import _suggest_label_groups, convex_field_semantic
 
-    settings = sweep_settings()
-    groups, global_cap = _suggest_label_groups(segs, L2R_LABELS)
-    SweepCheckpointer(SWEEP_CHECKPOINT).clear()
     P, S = len(SWEEP_PAIRS), len(settings)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     res = run_stage1_sweep(segs, segs, SWEEP_PAIRS, settings, L2R_LABELS,
-                           checkpoint_path=SWEEP_CHECKPOINT, device=dev)
+                           checkpoint_path=checkpoint, device=dev)
     wall = time.perf_counter() - t0
     launches = dict(LAUNCHES)
-    sweep_peak = torch.cuda.max_memory_allocated() / 1e9
+    peak = torch.cuda.max_memory_allocated() / 1e9
     n = S * P
-    _launch_checks("stage-1 sweep", launches, sweep_expected(
+    _launch_checks(what, launches, sweep_expected(
         cost_volume=2 * n, sample_trilinear_ic=IC_ITERS * n,
         nearest_sq_pruned=len(groups) * n), at_least=("nearest_sq_pruned",) if res.rescored else ())
     check(res.dice.shape == (S, 2) and bool(np.isfinite(res.dice).all())
           and bool(np.isfinite(res.hd95).all()) and bool((res.times > 0).all()),
-          "bad stage-1 sweep result")
+          f"bad {what} result")
     ident = float(np.mean([
         dice_coeff(torch.from_numpy(segs[f]), torch.from_numpy(segs[m]), L2R_LABELS + 1).mean()
         for f, m in SWEEP_PAIRS]))
     check(res.dice[res.best, 0] > ident,
-          f"stage-1 winner's Dice {res.dice[res.best, 0]:.4f} not above the identity's {ident:.4f}")
+          f"{what}: winner's Dice {res.dice[res.best, 0]:.4f} not above the identity's {ident:.4f}")
+    return res, launches, wall, peak, ident
 
-    # every (setting, pair) composed outside the engine; the first field of
-    # the (2, 5) class gives that class's peak memory
-    rows, field25 = [], None
+
+def sweep_stage1_phase(torch, dev, segs, smi, results):
+    """Phase 5a: ``run_stage1_sweep`` on the three subjects, pairs
+    :data:`SWEEP_PAIRS`, over the first seeded setting of each class of
+    :data:`SWEEP_CLASSES` (the result 5b-5d and 9c use), then over the
+    first seeded setting of each other class the seeded sampler draws
+    (:func:`seeded_classes`, 22 in all); each run's launches and winner
+    against the identity, and every (setting, pair) of both against
+    ``convex_field_semantic`` + ``evaluate_field`` composed outside the
+    engine: Dice and HD95 exactly, SDlogJ to 1e-4 relative; each class's
+    convex stage dense (2 cost volumes, no candidate block) and its peak
+    above what was held before it (as 7e measures it) at most its
+    ``dense_estimate`` and :data:`SWEEP_PEAK_MARGIN_GB`.  Returns the four
+    classes' settings, result and launches (the other run's added to them),
+    the label buckets and the (2, 5) class's field of the first pair (for
+    phase 5e)."""
+    from convexadam_torch import evaluate_field
+    from convexadam_torch.core import convex
+    from convexadam_torch.selfconfig.checkpoint import SweepCheckpointer
+    from convexadam_torch.selfconfig.engine import _suggest_label_groups, convex_field_semantic
+
+    settings = sweep_settings()
+    others = sweep_settings([c for c in seeded_classes() if c not in SWEEP_CLASSES])
+    groups, global_cap = _suggest_label_groups(segs, L2R_LABELS)
+    SweepCheckpointer(SWEEP_CHECKPOINT).clear()
+    P = len(SWEEP_PAIRS)
+    res, launches, wall, sweep_peak, ident = _stage1_run(
+        torch, dev, segs, settings, groups, "stage-1 sweep", SWEEP_CHECKPOINT)
+    res_o, launches_o, wall_o, peak_o, _ = _stage1_run(
+        torch, dev, segs, others, groups, "stage-1 sweep, the other classes")
+
+    # every (setting, pair) of both runs composed outside the engine, each
+    # convex stage counted and its peak read
+    rows, field25, classes = [], None, []
     sd_tol, neg_tol = 1e-4, 1e-6  # float32 std and mean against evaluate_field's float64
     worst = {"dice": 0.0, "hd95": 0.0, "sdlogj_rel": 0.0, "neg_jac_frac": 0.0}
-    peak25 = None
-    for s, st in enumerate(settings):
+    runs = [(st, res, s) for s, st in enumerate(settings)] + \
+           [(st, res_o, s) for s, st in enumerate(others)]
+    for st, r, s in runs:
+        cls = (st.grid_sp, st.disp_hw)
+        est = convex.dense_estimate(st.disp_hw, [n // st.grid_sp for n in ABDOMEN_SHAPE]) / 1e9
+        over = []
         for i, (f, m) in enumerate(SWEEP_PAIRS):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            field = convex_field_semantic(segs[f], segs[m], st.nn_mult, L2R_LABELS + 1,
-                                          st.grid_sp, st.disp_hw, device=dev)
-            torch.cuda.synchronize()
-            if (st.grid_sp, st.disp_hw) == (2, 5) and i == 0:
-                peak25, field25 = torch.cuda.max_memory_allocated() / 1e9, field
+            field, l_c, secs_c, peak_c, start_c = _run7(torch, lambda: convex_field_semantic(
+                segs[f], segs[m], st.nn_mult, L2R_LABELS + 1, st.grid_sp, st.disp_hw, device=dev))
+            where = f"stage 1 {st}, pair {(f, m)}"
+            _launch_checks(f"{where}, convex stage (dense)", l_c, sweep_expected(
+                cost_volume=2, sample_trilinear_ic=IC_ITERS))
+            over.append(peak_c - start_c)
+            check(over[-1] <= est + SWEEP_PEAK_MARGIN_GB,
+                  f"{where}: convex stage peak {over[-1]:.3f} GB above the {start_c:.3f} GB held "
+                  f"before, over the {est:.3f} GB estimate + {SWEEP_PEAK_MARGIN_GB} GB")
+            if cls == (2, 5) and i == 0:
+                field25 = field
             ev = evaluate_field(field.permute(1, 2, 3, 0), segs[f], segs[m], L2R_LABELS,
                                 device=dev)
-            c = {k: res.cases[k][s, i] for k in ("dice", "hd95", "sdlogj", "neg_jac_frac")}
+            c = {k: r.cases[k][s, i] for k in ("dice", "hd95", "sdlogj", "neg_jac_frac")}
             hd_case = float(np.mean(ev["hd95"].astype(np.float64)))
             errs = {"dice": float(np.abs(ev["dice"] - c["dice"]).max()),
                     "hd95": abs(hd_case - float(c["hd95"])),
@@ -2251,15 +2335,25 @@ def sweep_stage1_phase(torch, dev, segs, smi, results):
                     "neg_jac_frac": abs(ev["neg_jac_frac"] - float(c["neg_jac_frac"]))}
             for k in worst:
                 worst[k] = max(worst[k], errs[k])
-            where = f"stage 1 {st}, pair {(f, m)}"
             check(errs["dice"] == 0.0, f"{where}: engine Dice differs from evaluate_field's")
             check(errs["hd95"] == 0.0, f"{where}: engine HD95 {c['hd95']} != {hd_case}")
             check(errs["sdlogj_rel"] <= sd_tol, f"{where}: SDlogJ rel err {errs['sdlogj_rel']}")
             check(errs["neg_jac_frac"] <= neg_tol, f"{where}: neg. Jacobian err {errs['neg_jac_frac']}")
             rows.append({"setting": list(dataclasses.astuple(st)), "pair": [f, m],
                          "dice_mean": float(np.mean(ev["dice"])), "hd95_mean": hd_case,
-                         "sdlogj": ev["sdlogj"], "neg_jac_frac": ev["neg_jac_frac"]})
-    check(peak25 is not None, "no (2, 5) setting composed")
+                         "sdlogj": ev["sdlogj"], "neg_jac_frac": ev["neg_jac_frac"],
+                         "convex_s": secs_c, "convex_peak_above_gb": over[-1]})
+            del field
+        classes.append({"class": list(cls), "setting": list(dataclasses.astuple(st)),
+                        "coarse_grid": [n // st.grid_sp for n in ABDOMEN_SHAPE],
+                        "seconds_per_setting": float(r.times[s]), "dice": float(r.dice[s, 0]),
+                        "hd95": float(r.hd95[s]), "dense_estimate_gb": est,
+                        "convex_peak_above_gb": max(over), "dense": True})
+        print(f"stage 1, class {cls} {st}: {r.times[s]:.4f} s per setting ({P} pairs at "
+              f"{ABDOMEN_SHAPE}); Dice {r.dice[s, 0]:.4f}, HD95 {r.hd95[s]:.4f}; convex stage "
+              f"dense, peak {max(over):.3f} GB above what it held before (estimate {est:.3f} GB) "
+              f"[{smi}]", flush=True)
+    check(field25 is not None, "no (2, 5) setting composed")
     out = {
         "shape": list(ABDOMEN_SHAPE), "labels": L2R_LABELS, "pairs": [list(p) for p in SWEEP_PAIRS],
         "settings": [list(dataclasses.astuple(s)) for s in settings],
@@ -2268,28 +2362,34 @@ def sweep_stage1_phase(torch, dev, segs, smi, results):
         "hd95": res.hd95.tolist(), "times_s": res.times.tolist(), "rank": res.rank.tolist(),
         "best": res.best, "identity_dice": ident, "rescored": res.rescored,
         "rescore_s": res.rescore_sec, "wall_s": wall, "sweep_peak_gb": sweep_peak,
-        "peak_gb_grid_sp2_disp_hw5": peak25, "max_err_vs_composed": worst,
+        "other_classes": {"settings": [list(dataclasses.astuple(s)) for s in others],
+                          "times_s": res_o.times.tolist(), "best": res_o.best,
+                          "rescored": res_o.rescored, "wall_s": wall_o, "sweep_peak_gb": peak_o,
+                          "launches": launches_o},
+        "per_class": classes, "peak_margin_gb": SWEEP_PEAK_MARGIN_GB,
+        "max_err_vs_composed": worst,
         "tolerances": {"dice": 0.0, "hd95": 0.0, "sdlogj_rel": sd_tol, "neg_jac_frac": neg_tol},
         "composed": rows, "launches": launches, "card": smi,
     }
-    for s, st in enumerate(settings):
-        print(f"stage 1, class {(st.grid_sp, st.disp_hw)} {st}: {res.times[s]:.4f} s per setting "
-              f"({P} pairs at {ABDOMEN_SHAPE}); Dice {res.dice[s, 0]:.4f}, HD95 "
-              f"{res.hd95[s]:.4f} [{smi}]", flush=True)
     print(f"stage 1: winner {settings[res.best]} Dice {res.dice[res.best, 0]:.4f} (identity "
           f"{ident:.4f}); rescored {res.rescored}; sweep {wall:.2f} s wall, peak "
-          f"{sweep_peak:.2f} GB; class (2, 5) peak {peak25:.2f} GB [{smi}]; engine vs composed: "
+          f"{sweep_peak:.2f} GB; the other {len(others)} classes {wall_o:.2f} s wall, peak "
+          f"{peak_o:.2f} GB, winner {others[res_o.best]} [{smi}]; engine vs composed: "
           f"Dice {worst['dice']}, HD95 {worst['hd95']}, SDlogJ rel {worst['sdlogj_rel']:.2e} "
           f"(tol {sd_tol}), neg. fraction {worst['neg_jac_frac']:.2e} (tol {neg_tol})", flush=True)
     results["sweep_stage1"] = out
-    return settings, res, launches, field25
+    total = {k: launches[k] + launches_o[k] for k in launches}
+    return settings, res, total, field25
 
 
 def sweep_stage2_phase(torch, dev, segs, winner, smi, results):
     """Phase 5b: ``run_stage2_sweep`` from 5a's winner over the first seeded
-    Adam settings with grid_sp_adam 1 and 2; its launches; the 16 variants
-    of the first (setting, pair) recomputed outside the engine against
-    ``evaluate_field``."""
+    Adam settings with each grid_sp_adam of :data:`SWEEP_ADAM_GRIDS`; its
+    launches; the 16 variants of the first pair at each setting of
+    :data:`SWEEP_RECOMPUTED_GRIDS` recomputed outside the engine against
+    ``evaluate_field``, those at grid_sp_adam 3 (the 64 x 53 x 85 Adam
+    grid) with the first calls of each kernel wrapper recorded and held to
+    their plain versions (:func:`hold_recorded_calls`)."""
     from convexadam_torch import evaluate_field
     from convexadam_torch.kernels import LAUNCHES, reset_launches
     from convexadam_torch.selfconfig import run_stage2_sweep, stage2_settings
@@ -2320,37 +2420,58 @@ def sweep_stage2_phase(torch, dev, segs, winner, smi, results):
           and bool(np.isfinite(res.hd95).all()) and bool(np.isfinite(res.jstd).all()),
           "bad stage-2 sweep result")
 
-    # setting 0 (grid_sp_adam 1), pair 0: the 16 fields recomputed outside
-    st, (f, m) = adam[0], SWEEP_PAIRS[0]
+    # the first pair's 16 fields recomputed outside, at each setting of
+    # SWEEP_RECOMPUTED_GRIDS; at grid_sp_adam 3 the kernel calls recorded
+    f, m = SWEEP_PAIRS[0]
     pf, pm = (torch.from_numpy(segs[k]).to(dev) for k in (f, m))
-    coarse = convex_field_semantic(pf, pm, winner.nn_mult, L2R_LABELS + 1, winner.grid_sp,
-                                   winner.disp_hw, coarse=True, device=dev)
-    fields = _stage2_variants(pf, pm, coarse, winner.nn_mult, st.lambda_weight, st.grid_sp_adam,
-                              st.effective_avg_n, L2R_LABELS, _cost_scale(pf, pm, L2R_LABELS))
     worst = {"dice": 0.0, "hd95": 0.0}
-    for v, field in enumerate(fields):
-        ev = evaluate_field(field.permute(1, 2, 3, 0), segs[f], segs[m], L2R_LABELS, device=dev)
-        it, kk = divmod(v, 4)
-        d_err = float(np.abs(ev["dice"] - res.cases["dice"][0, 0, it, kk]).max())
-        h_err = abs(float(np.mean(ev["hd95"].astype(np.float64))) - res.cases["hd95"][0, 0, it, kk])
-        worst = {"dice": max(worst["dice"], d_err), "hd95": max(worst["hd95"], h_err)}
-        check(d_err == 0.0 and h_err == 0.0, f"stage 2 {st} variant {v}: Dice err {d_err}, HD95 "
-              f"err {h_err} against evaluate_field")
+    held: dict = {}
+    for g in SWEEP_RECOMPUTED_GRIDS:
+        s = SWEEP_ADAM_GRIDS.index(g)
+        st, calls = adam[s], []
+        with (_recording(torch, calls) if g == 3 else contextlib.nullcontext()):
+            coarse = convex_field_semantic(pf, pm, winner.nn_mult, L2R_LABELS + 1,
+                                           winner.grid_sp, winner.disp_hw, coarse=True, device=dev)
+            fields = list(_stage2_variants(pf, pm, coarse, winner.nn_mult, st.lambda_weight,
+                                           st.grid_sp_adam, st.effective_avg_n, L2R_LABELS,
+                                           _cost_scale(pf, pm, L2R_LABELS)))
+        for v, field in enumerate(fields):
+            ev = evaluate_field(field.permute(1, 2, 3, 0), segs[f], segs[m], L2R_LABELS,
+                                device=dev)
+            it, kk = divmod(v, 4)
+            d_err = float(np.abs(ev["dice"] - res.cases["dice"][s, 0, it, kk]).max())
+            h_err = abs(float(np.mean(ev["hd95"].astype(np.float64)))
+                        - res.cases["hd95"][s, 0, it, kk])
+            worst = {"dice": max(worst["dice"], d_err), "hd95": max(worst["hd95"], h_err)}
+            check(d_err == 0.0 and h_err == 0.0, f"stage 2 {st} variant {v}: Dice err {d_err}, "
+                  f"HD95 err {h_err} against evaluate_field")
+        del fields
+        if calls:
+            used = {k: 1 for k in ("cost_volume", "sample_trilinear_ic", "warp_ssd_loss_grad")}
+            rows = hold_recorded_calls(torch, f"5b grid_sp_adam {g}", calls, used)
+            check(any(r["args"]["mov"][1:4] == [n // g for n in ABDOMEN_SHAPE]
+                      for r in rows["warp_ssd_loss_grad"]),
+                  f"5b: no data-term call on the grid_sp_adam {g} grid recorded")
+            held[g] = {k: [{n: v for n, v in r.items() if n != "run"} for r in rows_k]
+                       for k, rows_k in rows.items()}
+        del calls
     out = {
         "convex_setting": list(dataclasses.astuple(winner)),
         "adam_settings": [list(dataclasses.astuple(s)) for s in adam],
         "dice": res.dice.tolist(), "jstd": res.jstd.tolist(), "hd95": res.hd95.tolist(),
         "times_s": res.times.tolist(), "best": res.best, "rescored": res.rescored,
         "rescore_s": res.rescore_sec, "wall_s": wall, "peak_gb": peak,
-        "max_err_vs_recomputed": worst, "launches": launches, "card": smi,
+        "recomputed_grids": list(SWEEP_RECOMPUTED_GRIDS), "max_err_vs_recomputed": worst,
+        "held_calls": held, "launches": launches, "card": smi,
     }
     for s, a in enumerate(adam):
         print(f"stage 2, {a}: {res.times[s]:.4f} s per setting ({P} pairs x 16 variants at "
               f"{ABDOMEN_SHAPE}); best Dice {res.dice[s * 16:(s + 1) * 16, 0].max():.4f} "
               f"[{smi}]", flush=True)
     print(f"stage 2: winner variant {res.best} Dice {res.dice[res.best, 0]:.4f}; rescored "
-          f"{res.rescored}; sweep {wall:.2f} s wall, peak {peak:.2f} GB; 16 variants vs "
-          f"evaluate_field: Dice {worst['dice']}, HD95 {worst['hd95']}", flush=True)
+          f"{res.rescored}; sweep {wall:.2f} s wall, peak {peak:.2f} GB; 16 variants at "
+          f"grid_sp_adam {SWEEP_RECOMPUTED_GRIDS} vs evaluate_field: Dice {worst['dice']}, HD95 "
+          f"{worst['hd95']}", flush=True)
     results["sweep_stage2"] = out
     return adam, launches
 
@@ -3397,28 +3518,36 @@ def streamed_phase(torch, dev, results, recipes, keep=None):
 
 def strided_phase(torch, dev, vol_np, mov_np, single, results, recipes):
     """7f: the default registration of the 192^3 headline pair with
-    ``adam_sample_stride=2``: 80 strided data terms and no dense one, a
-    finite field, the central p95 |diff| to phase 4's stride-1 field
-    ``single`` under 0.5 voxels (the JAX package's envelope) and the shift
-    recovered (> 90% within 1 voxel)."""
+    ``adam_sample_stride`` 2 and 3 (:data:`DATA_TERM_STRIDES`): 80 strided
+    data terms and no dense one each, a finite field, the shift recovered
+    (> 90% of the central box within 1 voxel) and the central p95 |diff| to
+    phase 4's stride-1 field ``single``, at stride 2 under 0.5 voxels (the
+    JAX package's envelope), at stride 3 recorded.  Returns each run's
+    launches by its key (``7f_strided``, ``7f_strided3``)."""
     from convexadam_torch.pipeline.convex_adam import ConvexAdamConfig, convex_adam
 
-    cfg = ConvexAdamConfig(adam_sample_stride=DATA_TERM_STRIDE)
-    recipes["7f_strided"] = lambda: convex_adam(vol_np, mov_np, cfg, device=dev)
-    out, launches, secs, peak, _ = _run7(torch, recipes["7f_strided"])
-    _launch_checks("7f strided", launches, sweep_expected(
-        mind_ssd_stats=2, cost_volume=2, sample_trilinear_ic=IC_ITERS,
-        warp_ssd_loss_grad_strided=cfg.selected_niter))
-    check(bool(np.isfinite(out).all()), "7f: non-finite field")
     box = _central(HEADLINE_SHAPE)
-    p95 = float(np.percentile(np.abs(out[box] - single[box]), 95))
-    frac = _frac_within(out[box], HEADLINE_SHIFT)
-    check(p95 < 0.5, f"7f: central p95 |diff| to the stride-1 field {p95:.4f} voxels")
-    check(frac > 0.9, f"7f: shift recovered within 1 voxel in only {frac:.2%} of the central box")
-    print(f"7f stride {DATA_TERM_STRIDE}: central p95 |diff| to stride 1 {p95:.4f} voxels, "
-          f"{frac:.2%} within 1 voxel", flush=True)
-    return _report7(results, "7f_strided", launches, secs, peak, p95_vs_stride1=p95,
-                    frac_within_1vox=frac)
+    launches = {}
+    for stride in DATA_TERM_STRIDES:
+        key = "7f_strided" if stride == 2 else f"7f_strided{stride}"
+        cfg = ConvexAdamConfig(adam_sample_stride=stride)
+        recipes[key] = functools.partial(convex_adam, vol_np, mov_np, cfg, device=dev)
+        out, l_s, secs, peak, _ = _run7(torch, recipes[key])
+        _launch_checks(f"7f stride {stride}", l_s, sweep_expected(
+            mind_ssd_stats=2, cost_volume=2, sample_trilinear_ic=IC_ITERS,
+            warp_ssd_loss_grad_strided=cfg.selected_niter))
+        check(bool(np.isfinite(out).all()), f"7f stride {stride}: non-finite field")
+        p95 = float(np.percentile(np.abs(out[box] - single[box]), 95))
+        frac = _frac_within(out[box], HEADLINE_SHIFT)
+        check(stride != 2 or p95 < 0.5,
+              f"7f: central p95 |diff| to the stride-1 field {p95:.4f} voxels")
+        check(frac > 0.9, f"7f stride {stride}: shift recovered within 1 voxel in only "
+              f"{frac:.2%} of the central box")
+        print(f"7f stride {stride}: central p95 |diff| to stride 1 {p95:.4f} voxels, "
+              f"{frac:.2%} within 1 voxel", flush=True)
+        launches[key] = _report7(results, key, launches=l_s, secs=secs, peak=peak, stride=stride,
+                                 p95_vs_stride1=p95, frac_within_1vox=frac)
+    return launches
 
 
 def _cloned(torch, x):
@@ -3605,7 +3734,7 @@ def challenge_phase(torch, dev, vol_np, mov_np, single, records, results, keep=N
     launches.update(task3_phase(torch, dev, results, recipes))
     launches["7d_curious"] = curious_phase(torch, dev, results, recipes)
     launches.update(streamed_phase(torch, dev, results, recipes, keep))
-    launches["7f_strided"] = strided_phase(torch, dev, vol_np, mov_np, single, results, recipes)
+    launches.update(strided_phase(torch, dev, vol_np, mov_np, single, results, recipes))
     del recipes["7c_task3_template"]  # task 3's shapes again, other weights
     challenge_kernel_phase(torch, recipes, records, results)
     results["challenges"]["phase7_s"] = time.perf_counter() - t0
@@ -4062,7 +4191,9 @@ def space_rank_main(out_dir: str, backend: str = "gloo") -> int:
     peak memory and halo and gather bytes count.  Its fields against the
     one-process fields of the inputs file to the bit, and the recorded calls
     of :data:`SPACE_HELD` through the kernel and its plain version
-    (:func:`hold_call`), go to ``OUT/space-rank<r>.pkl``."""
+    (:func:`hold_call`), go to ``OUT/space-rank<r>.pkl``; then the short
+    case (:data:`SPACE_TINY_SHAPE`) over (pair 1, space 4), its field and
+    launches."""
     import pickle
 
     import torch
@@ -4112,6 +4243,17 @@ def space_rank_main(out_dir: str, backend: str = "gloo") -> int:
             "held": [hold_call(torch, name, a) for name, a in calls if name in SPACE_HELD]}
         del field, calls
         torch.cuda.empty_cache()
+    cfg = ConvexAdamConfig(**SPACE_TINY_CONFIG)
+    mesh = make_mesh(1, SPACE_RANKS, device=dev)
+    dist.barrier()
+    reset_launches()
+    got = register_pairs_sharded(data["tiny_fixed"][None], data["tiny_moving"][None], cfg, mesh,
+                                 shard_space=True)[0].cpu().numpy()
+    plan = spatial.slab_plan(SPACE_TINY_SHAPE[0], spatial.slab_unit(cfg), SPACE_RANKS,
+                             mesh.coord("space"))
+    res["tiny"] = {"rows": plan.own(), "launches": dict(LAUNCHES),
+                   "equal": _bits_equal(got, data["tiny_field"]),
+                   "max_err": float(np.abs(got - data["tiny_field"]).max())}
     dist.barrier()
     dist.destroy_process_group()
     with open(os.path.join(out_dir, f"space-rank{rank}.pkl"), "wb") as fh:
@@ -4129,12 +4271,28 @@ def space_phase(torch, vol_np, mov_np, fields, peak_gb, results, backend="gloo")
     rank and pair (2 / 2 / 15 / 80), each rank's recorded cost-volume and
     data-term calls (a slab's offsets) held to their plain versions; each
     rank's seconds, peak memory (phase 4's one-process peak ``peak_gb``
-    beside them) and halo bytes.  Returns each rank's launches by grid."""
+    beside them) and halo bytes; then the short case
+    (:data:`SPACE_TINY_SHAPE`, three slab units for four ranks): every
+    rank's field equal to the one-process field to the bit, the rank of no
+    rows launching no MIND, cost-volume or data-term kernel and the others
+    the config's (2 / 2 / 15 / 10), inverse consistency on every rank.
+    Returns each rank's launches by grid."""
+    from scipy.ndimage import uniform_filter
+
+    from convexadam_torch.pipeline.convex_adam import ConvexAdamConfig, convex_adam
+
     torch.cuda.empty_cache()
     PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
     moving2 = np.roll(vol_np, PAIRED_SHIFTS[1], axis=(0, 1, 2))
+    rng = np.random.default_rng(0)
+    tiny = (uniform_filter(rng.standard_normal(SPACE_TINY_SHAPE).astype(np.float32), 3)
+            * 100).astype(np.float32)
+    tiny_m = np.roll(tiny, SPACE_TINY_SHIFT, axis=(0, 1, 2))
+    tiny_cfg = ConvexAdamConfig(**SPACE_TINY_CONFIG)
+    tiny_field = convex_adam(tiny, tiny_m, tiny_cfg, device="cuda")
     np.savez(PARALLEL_DIR / "space_inputs.npz", fixed=np.stack([vol_np, vol_np]),
-             moving=np.stack([mov_np, moving2]), fields=np.stack(fields))
+             moving=np.stack([mov_np, moving2]), fields=np.stack(fields), tiny_fixed=tiny,
+             tiny_moving=tiny_m, tiny_field=tiny_field)
     ranks, wall = _run_ranks(SPACE_RANKS, "space-rank", "9d", SPACE_DEADLINE_S, [backend])
     (PARALLEL_DIR / "space_inputs.npz").unlink()
     launches, out = {}, []
@@ -4161,11 +4319,30 @@ def space_phase(torch, vol_np, mov_np, fields, peak_gb, results, backend="gloo")
                   f"bytes; fields equal to the one-process fields; {len(held)} cost-volume and "
                   f"data-term calls held to their plain versions, max_abs_err "
                   f"{max(h['max_abs_err'] for h in held)} (tol 0)", flush=True)
+    tiny_out = []
+    for r in ranks:
+        t, rank = r["tiny"], r["rank"]
+        what = f"9d {backend} rank {rank}, {SPACE_TINY_SHAPE} over (pair 1, space {SPACE_RANKS})"
+        check(t["equal"], f"{what}: field differs from the one-process field by {t['max_err']}")
+        holds = t["rows"][0] < t["rows"][1]
+        n_iter = SPACE_TINY_CONFIG["selected_niter"]
+        _launch_checks(what, t["launches"], sweep_expected(
+            mind_ssd_stats=2 * holds, cost_volume=2 * holds, sample_trilinear_ic=IC_ITERS,
+            warp_ssd_loss_grad=n_iter * holds))
+        launches[f"9d_space_tiny_rank{rank}"] = t["launches"]
+        tiny_out.append({"rank": rank, "rows": list(t["rows"]), "equal": t["equal"],
+                         "launches": {k: v for k, v in t["launches"].items() if v}})
+        rows = f"rows {t['rows'][0]}..{t['rows'][1] - 1}" if holds else "no rows"
+        print(f"{what}: {rows}, field equal to the one-process field, launches "
+              f"{tiny_out[-1]['launches']}", flush=True)
+    check(sum(1 for t in tiny_out if t["rows"][0] == t["rows"][1]) == 1,
+          f"9d: the short case's plan {[t['rows'] for t in tiny_out]} leaves no rank empty")
     cards = {d["card"] for r in ranks for d in r["grids"].values()}
     print(f"9d: {SPACE_RANKS} {backend} ranks on {len(cards)} card(s), {wall:.2f} s wall",
           flush=True)
-    results["parallel"]["9d_space"] = {"ranks": out, "wall_s": wall, "backend": backend,
-                                       "one_process_peak_gb": peak_gb}
+    results["parallel"]["9d_space"] = {"ranks": out, "tiny": {
+        "shape": list(SPACE_TINY_SHAPE), "config": SPACE_TINY_CONFIG, "ranks": tiny_out},
+        "wall_s": wall, "backend": backend, "one_process_peak_gb": peak_gb}
     return launches
 
 

@@ -179,11 +179,17 @@ def correlate_coupled_streamed(
 
 def dense_estimate(disp_hw: int, coarse_shape) -> int:
     """Bytes the dense path is reckoned to hold: the float32 (K^3, h, w, d)
-    volume and one smoothing temporary of its size."""
+    volume, and the larger of one smoothing temporary of its size and the
+    coupled argmin's two (3, K^3, chunk) float32 temporaries (the
+    difference and its square, :func:`_coupled_cost`; they outweigh the
+    volume below about 2 GB)."""
     n = 1
     for s in coarse_shape:
         n *= int(s)
-    return (2 * disp_hw + 1) ** 3 * n * 4 * 2
+    k3 = (2 * disp_hw + 1) ** 3
+    volume = k3 * n * 4
+    chunk = min(n, max(1, COUPLED_CHUNK_BYTES // (3 * k3 * 4)))
+    return volume + max(volume, 2 * 3 * k3 * chunk * 4)
 
 
 def convex_displacement(

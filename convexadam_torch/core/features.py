@@ -106,7 +106,8 @@ def semantic_features(
         w = weights.float() * mult
     labels = torch.arange(num_labels, dtype=torch.int32, device=pf.device).reshape(-1, 1, 1, 1)
     wv = w.to(dtype).reshape(num_labels, 1, 1, 1)
-    return (pf[None] == labels).to(dtype) * wv, (pm[None] == labels).to(dtype) * wv
+    # weighted in place: no second full-resolution copy of either volume
+    return (pf[None] == labels).to(dtype).mul_(wv), (pm[None] == labels).to(dtype).mul_(wv)
 
 
 def semantic_template_weights(

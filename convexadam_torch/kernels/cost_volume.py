@@ -138,12 +138,23 @@ def _launch(fix, mov, disp_hw, kh0, nkh, metric, what, mov_row0):
     return out, general
 
 
+def _empty(fix: torch.Tensor, disp_hw: int, nkh: int) -> "torch.Tensor | None":
+    """The (K^2 * nkh, h, w, d) output where it holds no value (a slab of no
+    rows): an empty grid is no launch, nor a call of the plain version."""
+    K = 2 * disp_hw + 1
+    if fix.shape[1:].numel() == 0:
+        return torch.empty((K * K * nkh,) + tuple(fix.shape[1:]), device=fix.device)
+    return None
+
+
 def cost_volume(
     fix: torch.Tensor, mov: torch.Tensor, disp_hw: int, metric: str = "ssd", mov_row0: int = 0
 ) -> torch.Tensor:
     """(K^3, h, w, d) float32 SSD or SAD volume of float32 features (C, h,
     w, d); the moving features (C, hm, w, d) begin at the fixed row
     ``mov_row0``."""
+    if (out := _empty(fix, disp_hw, 2 * disp_hw + 1)) is not None:
+        return out
     if fix.device.type == "cpu":
         return cost_volume_plain(fix, mov, disp_hw, metric, mov_row0)
     out, general = _launch(fix, mov, disp_hw, 0, 2 * disp_hw + 1, metric, "cost_volume",
@@ -162,6 +173,8 @@ def cost_volume_block(
     """The candidates ``kh0 <= kh < kh0 + nkh`` of :func:`cost_volume`: a
     (K^2 * nkh, h, w, d) float32 slab, index ``(kd*K + kw)*nkh + kh - kh0``,
     each value the dense volume's to the bit."""
+    if (out := _empty(fix, disp_hw, nkh)) is not None:
+        return out
     if fix.device.type == "cpu":
         return cost_volume_block_plain(fix, mov, disp_hw, kh0, nkh, metric, mov_row0)
     out, _ = _launch(fix, mov, disp_hw, kh0, nkh, metric, "cost_volume_block", mov_row0)

@@ -137,6 +137,9 @@ def mind_ssd_stats(x: torch.Tensor, radius: int, dilation: int):
     float32 and 1240 in bfloat16: :func:`general_plan`)."""
     if radius < 0 or dilation < 0:
         raise ValueError(f"mind_ssd_stats: radius {radius} and dilation {dilation} must be >= 0")
+    if x.numel() == 0:  # a slab of no rows: no launch
+        return (torch.empty((12,) + tuple(x.shape), dtype=x.dtype, device=x.device),
+                torch.empty(x.shape, device=x.device))
     if x.device.type == "cpu":
         return mind_ssd_stats_plain(x, radius, dilation)
     _build.require_cuda(x, "mind_ssd_stats")

@@ -332,8 +332,11 @@ def warp_ssd_loss_grad(mov, disp, fix_flat, fac, chain: float, stride: int = 1, 
     Returns ``(ssq, rows)``: the 0-dim float32 ``sum(res^2)`` and the (3, N)
     float32 gradient rows of ``sum(res^2) * chain / 2`` with respect to the
     sample positions.  A strided launch counts as
-    ``warp_ssd_loss_grad_strided``.
+    ``warp_ssd_loss_grad_strided``.  No lattice point (a slab of no rows)
+    is no launch: a zero sum and no rows.
     """
+    if disp.shape[1:].numel() == 0:
+        return torch.zeros((), device=mov.device), torch.empty((3, 0), device=mov.device)
     if mov.device.type == "cpu":
         return warp_ssd_loss_grad_plain(mov, disp, fix_flat, fac, chain, stride, row0)
     _build.require_cuda(mov, "warp_ssd_loss_grad")

@@ -155,8 +155,12 @@ def register_pairs_sharded(
     ``shard_space=True`` they split each pair along H
     (:func:`~convexadam_torch.parallel.spatial.register_slab`): a rank moves
     only its slab to its device, and the slab edges fall on multiples of
-    :func:`~convexadam_torch.parallel.spatial.slab_unit` rows; a volume of
-    fewer such units than ``space`` ranks raises ``ValueError``."""
+    :func:`~convexadam_torch.parallel.spatial.slab_unit` rows; where a
+    volume holds fewer such units than ``space`` ranks, the last ranks hold
+    no rows and receive the gathered fields.  Either way the fields are
+    :func:`register_pairs_batched`'s to the bit.  A volume that the one-process
+    run refuses (``check_grids``) raises ``ValueError``, naming its rows along
+    H."""
     B, n = len(fixed), mesh.size("pair")
     chunk = -(-B // n)
     idx = [min(i, B - 1) for i in range(chunk * n)]

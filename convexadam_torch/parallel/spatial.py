@@ -13,7 +13,9 @@ volume, and each voxel's arithmetic is the one-volume run's:
 
 * the slab plan (:func:`slab_plan`): slab edges on multiples of
   ``lcm(grid_sp, grid_sp_adam * adam_sample_stride)`` full-resolution rows,
-  so the pooling to the coarse and Adam grids is local;
+  so the pooling to the coarse and Adam grids is local; a volume of fewer
+  such units than ranks leaves the last ranks no rows: they compute nothing,
+  take no halo and send none, and join the gathers with empty slabs;
 * MIND: ``r + d`` image rows; the variance's global mean is taken of the
   variance gathered whole (:func:`gather_rows`) on every rank, so it is the
   one-volume value to the bit (a sum reduced across ranks would not be);
@@ -63,18 +65,17 @@ TRAFFIC = {"halo_bytes": 0, "gather_bytes": 0}
 @dataclasses.dataclass(frozen=True)
 class SlabPlan:
     """Each rank's slab of a volume of ``size`` rows along H: rank ``c`` owns
-    the full-resolution rows ``starts[c] .. starts[c + 1] - 1``; ``coord`` is
-    this rank's.  At a grid pooled by ``f`` (a multiple of which every start
-    is) the slab is ``starts[c] // f ..``, the last one to ``size // f``."""
+    the full-resolution rows ``starts[c] .. starts[c + 1] - 1`` (none where
+    the two are equal); ``coord`` is this rank's.  At a grid pooled by ``f``
+    (a multiple of which every start is) the slab is ``starts[c] // f ..
+    starts[c + 1] // f``, the last one holding to ``size // f``."""
 
     size: int
     starts: tuple
     coord: int
 
     def rows(self, f: int = 1) -> "list[tuple[int, int]]":
-        n = len(self.starts) - 1
-        return [(self.starts[c] // f, self.starts[c + 1] // f if c < n - 1 else self.size // f)
-                for c in range(n)]
+        return [(a // f, b // f) for a, b in zip(self.starts[:-1], self.starts[1:])]
 
     def own(self, f: int = 1) -> "tuple[int, int]":
         return self.rows(f)[self.coord]
@@ -82,16 +83,17 @@ class SlabPlan:
 
 def slab_plan(size: int, unit: int, n_ranks: int, coord: int) -> SlabPlan:
     """Slabs of whole units of ``unit`` rows, as even as they come (the
-    first ``units % n_ranks`` ranks take one more), the last also taking
-    the rows past the last whole unit."""
+    first ``units % n_ranks`` ranks take one more), the last rank that holds
+    any also taking the rows past the last whole unit.  With fewer units
+    than ranks, the ranks past the last unit hold no rows (rank 0 holds the
+    whole volume where it has no whole unit); every other rank holds at
+    least one unit, and so rows of every grid pooled by a divisor of
+    ``unit``."""
     units = size // unit
-    if units < n_ranks:
-        raise ValueError(
-            f"a volume of {size} rows along H holds {units} slabs of {unit} rows, fewer than the "
-            f"{n_ranks} ranks of the space axis")
     base, extra = divmod(units, n_ranks)
-    starts = tuple(unit * (c * base + min(c, extra)) for c in range(n_ranks)) + (size,)
-    return SlabPlan(size, starts, coord)
+    owners = min(n_ranks, max(units, 1))
+    starts = tuple(unit * (c * base + min(c, extra)) for c in range(owners))
+    return SlabPlan(size, starts + (size,) * (n_ranks - owners + 1), coord)
 
 
 def _axis_rows(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
@@ -108,8 +110,8 @@ def exchange_halo(x: torch.Tensor, lo: int, hi: int, ranges, group=None):
     before and ``hi`` after from the ranks that own them (``ranges``: every
     rank's (first, end) row, in rank order), nothing past a global edge.
     Every rank of ``group`` calls it with the same ``lo``, ``hi`` and
-    ``ranges``; a halo may span several ranks.  Returns the grown slab and
-    its first row."""
+    ``ranges``; a halo may span several ranks, and a rank that holds no rows
+    takes none.  Returns the grown slab and its first row."""
     n_ranks, me = world(group)
     if n_ranks == 1:
         return x, ranges[me][0]
@@ -117,6 +119,8 @@ def exchange_halo(x: torch.Tensor, lo: int, hi: int, ranges, group=None):
 
     def need(r):
         s, e = ranges[r]
+        if s == e:  # a rank that holds no rows computes nothing from a halo
+            return ()
         return ((max(0, s - lo), s), (e, min(n, e + hi)))
 
     def overlap(a, b):
@@ -187,6 +191,13 @@ def uniform_halo(out_ranges, in_ranges, in_size: int, out_size: int) -> "tuple[i
     return lo, hi
 
 
+def _pool(x: torch.Tensor, f: int) -> torch.Tensor:
+    """``avg_pool3d`` by ``f`` of a slab; a slab of no rows stays one."""
+    if x.shape[-3] == 0:
+        return x.new_empty(tuple(x.shape[:-2]) + (x.shape[-2] // f, x.shape[-1] // f))
+    return avg_pool3d(x, f, stride=f)
+
+
 def _mind_slab(img, cfg, plan, group, dtype):
     """MIND-SSC features (12, rows, W, D) of this rank's rows of a volume."""
     r, d = cfg.mind_r, cfg.mind_d
@@ -206,6 +217,8 @@ def _convex_slab(fix_c, mov_c, cfg, plan, group):
     own0, own1 = plan.own(g)
     f, f0 = exchange_halo(fix_c, passes, passes, ranges, group)
     m, m0 = exchange_halo(mov_c, passes + q, passes + q, ranges, group)
+    if own0 == own1:  # no rows: the box passes' exchanges take none from here
+        return torch.empty((3, 0) + tuple(fix_c.shape[2:]), device=fix_c.device)
 
     def smooth(field):
         e, e0 = exchange_halo(field, 1, 1, ranges, group)
@@ -221,8 +234,7 @@ def _coarse_field(feat_fix, feat_mov, cfg, plan, group, record):
     consistency, else ``disp_soft * g``."""
     g = cfg.grid_sp
     ranges = plan.rows(g)
-    fix_c = avg_pool3d(feat_fix, g, stride=g)
-    mov_c = avg_pool3d(feat_mov, g, stride=g)
+    fix_c, mov_c = _pool(feat_fix, g), _pool(feat_mov, g)
     soft = gather_rows(_convex_slab(fix_c, mov_c, cfg, plan, group), ranges, group)
     if not cfg.ic:
         if record is not None:
@@ -247,8 +259,10 @@ def _adam_slab(feat_fix, feat_mov, coarse, cfg, plan, group, shape, dtype):
     grid = (H // g2, W // g2, D // g2)
     ranges = plan.rows(g2)
     a, b = plan.own(g2)
-    patch_fix = avg_pool3d(feat_fix.float(), g2, stride=g2)
-    patch_mov = gather_rows(avg_pool3d(feat_mov.float(), g2, stride=g2).to(dtype), ranges, group)
+    patch_fix = _pool(feat_fix.float(), g2)
+    patch_mov = gather_rows(_pool(feat_mov.float(), g2).to(dtype), ranges, group)
+    if a == b:  # no rows: the loop's exchanges take none from here
+        return torch.empty((3, 0) + grid[1:], device=patch_mov.device)
     if cfg.ic:
         # the one-volume path resizes to full resolution, then to the Adam grid
         fa, fb = resize_source_rows(H, grid[0], a, b)
@@ -294,17 +308,26 @@ def register_slab(fix, mov, cfg, plan: SlabPlan, group=None, record=None) -> tor
     shape = (H, W, D)
     g2 = cfg.grid_sp_adam
     run_adam = cfg.lambda_weight > 0
-    check_grids(cfg, shape, adam=run_adam)
+    try:
+        check_grids(cfg, shape, adam=run_adam)
+    except ValueError as e:
+        raise ValueError(f"a volume of {H} rows along H: {e}") from None
     dtype = cfg.compute_dtype(fix.device)
     ranges = plan.rows()
+    if any(s == e for s, e in ranges) and dist.get_backend(group) == "nccl":
+        # the group's first batch_isend_irecv must include all its ranks, and a
+        # rank of no rows joins none: a barrier sets the communicator up first
+        dist.barrier(group=group)
     with torch.no_grad():
         feat_fix, feat_mov = (_mind_slab(x, cfg, plan, group, dtype) for x in (fix, mov))
         if record is not None:
             record["features"] = tuple(gather_rows(f, ranges, group) for f in (feat_fix, feat_mov))
         coarse = _coarse_field(feat_fix, feat_mov, cfg, plan, group, record)
     a, b = plan.own()
+    field = torch.empty((3, 0, W, D), device=fix.device)  # a rank of no rows makes none
     if not run_adam:
-        field = resize_rows(coarse, shape, (a, b))
+        if a < b:
+            field = resize_rows(coarse, shape, (a, b))
     else:
         fitted = _adam_slab(feat_fix, feat_mov, coarse, cfg, plan, group, shape, dtype)
         if record is not None:
@@ -312,14 +335,16 @@ def register_slab(fix, mov, cfg, plan: SlabPlan, group=None, record=None) -> tor
         k = cfg.selected_smooth
         k += k > 0 and k % 2 == 0  # an even cascade is rounded up, as the one-volume path does
         reach = 3 * (k // 2)
-        out_ranges = [(max(0, s - reach), min(H, e + reach)) for s, e in ranges]
+        out_ranges = [(max(0, s - reach), min(H, e + reach)) if s < e else (s, e)
+                      for s, e in ranges]
         lo, hi = uniform_halo(out_ranges, plan.rows(g2), H // g2, H)
         x, first = exchange_halo(fitted, lo, hi, plan.rows(g2), group)
         ea, eb = out_ranges[plan.coord]
-        field = resize_rows(x * g2, shape, (ea, eb), in_h=H // g2, x_row0=first)
-        if k > 0:
-            field = box_smooth_repeated(field, k, 3)
-        field = field[:, a - ea:b - ea]
+        if a < b:
+            field = resize_rows(x * g2, shape, (ea, eb), in_h=H // g2, x_row0=first)
+            if k > 0:
+                field = box_smooth_repeated(field, k, 3)
+            field = field[:, a - ea:b - ea]
     return gather_rows(field.detach(), ranges, group).permute(1, 2, 3, 0)
 
 

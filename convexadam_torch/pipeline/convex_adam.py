@@ -104,11 +104,25 @@ def _convex_stage(
     one resize takes it to the Adam grid; with ``coarse`` it stays there in
     either case (the sweep's stage-2 cache), still in full-resolution voxels.
     """
-    H, W, D = full_shape
     g = cfg.grid_sp
     check_grids(cfg, full_shape)
-    fix_s = avg_pool3d(feat_fix, g, stride=g)
-    mov_s = avg_pool3d(feat_mov, g, stride=g)
+    return _convex_pooled(avg_pool3d(feat_fix, g, stride=g), avg_pool3d(feat_mov, g, stride=g),
+                          cfg, full_shape, for_adam_init, coarse)
+
+
+def _convex_pooled(
+    fix_s: torch.Tensor,
+    mov_s: torch.Tensor,
+    cfg: ConvexAdamConfig,
+    full_shape: "tuple[int, int, int]",
+    for_adam_init: bool = False,
+    coarse: bool = False,
+) -> torch.Tensor:
+    """:func:`_convex_stage` from the features pooled by ``grid_sp``, so
+    that a caller may drop the full-resolution ones before the cost
+    volume."""
+    H, W, D = full_shape
+    g = cfg.grid_sp
     kw = dict(metric=cfg.cost_metric, smooth_passes=cfg.cost_smooth_passes)
     disp_soft = convex_displacement(fix_s, mov_s, cfg.disp_hw, **kw)
     if cfg.ic:

@@ -64,7 +64,7 @@ from convexadam_torch.core.metrics import (
     rank_product,
     sort_rank,
 )
-from convexadam_torch.core.smoothing import box_smooth_repeated
+from convexadam_torch.core.smoothing import avg_pool3d, box_smooth_repeated
 from convexadam_torch.core.warp import resize_trilinear, warp_with_displacement
 from convexadam_torch.kernels import _build
 from convexadam_torch.kernels.edt import PRUNED_TILE, host_ints
@@ -73,8 +73,10 @@ from convexadam_torch.parallel.distributed import all_gather_object
 from convexadam_torch.pipeline.convex_adam import (
     ConvexAdamConfig,
     _adam_inputs,
+    _convex_pooled,
     _convex_stage,
     _upsample_and_smooth,
+    check_grids,
 )
 from convexadam_torch.selfconfig.checkpoint import SweepCheckpointer
 from convexadam_torch.selfconfig.l2r import _on, _sync
@@ -107,14 +109,20 @@ def convex_field_semantic(
     one-hot channel count.  Label volumes are numpy arrays or tensors, moved
     to ``device`` (``cuda`` unless ``device="cpu"``).  The features are made
     with ``mult=1`` and then scaled by ``nn_mult``, in the JAX package's
-    order."""
+    order (in place), and pooled one at a time: the full-resolution ones
+    (0.88 GB at 192 x 160 x 256 with 14 channels) are gone before the cost
+    volume."""
     dev = _resolve_device(device)
     pf, pm = _on(pred_fixed, dev), _on(pred_moving, dev)
     cfg = ConvexAdamConfig(grid_sp=grid_sp, disp_hw=disp_hw, ic=True)
+    check_grids(cfg, tuple(pf.shape))
     with torch.no_grad():
         ff, fm = semantic_features(pf, pm, num_labels=num_labels, mult=1.0)
-        ff, fm = ff * nn_mult, fm * nn_mult
-        return _convex_stage(ff, fm, cfg, tuple(pf.shape), coarse=coarse)
+        fix_s = avg_pool3d(ff.mul_(nn_mult), grid_sp, stride=grid_sp)
+        del ff
+        mov_s = avg_pool3d(fm.mul_(nn_mult), grid_sp, stride=grid_sp)
+        del fm
+        return _convex_pooled(fix_s, mov_s, cfg, tuple(pf.shape), coarse=coarse)
 
 
 def convex_field_mind(

@@ -21,6 +21,13 @@ def edt_nearest_indices(input_mask: np.ndarray) -> np.ndarray:
     return edt3d(input_mask, with_distance=False)[0]
 
 
-def edt_distance(input_mask: np.ndarray) -> np.ndarray:
-    """(H, W, D) float32 distance of each voxel to the nearest zero voxel."""
-    return edt3d(input_mask, with_distance=True)[1]
+def edt_distance(input_mask: np.ndarray, sampling=None) -> np.ndarray:
+    """(H, W, D) float32 distance of each voxel to the nearest zero voxel.
+    With ``sampling`` (the voxel spacing, one value or one per axis),
+    scipy's ``distance_transform_edt(input_mask, sampling=sampling)``, in
+    float64, as the JAX package computes it."""
+    if sampling is None:
+        return edt3d(input_mask, with_distance=True)[1]
+    from scipy.ndimage import distance_transform_edt
+
+    return distance_transform_edt(input_mask, sampling=sampling)

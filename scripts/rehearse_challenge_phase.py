@@ -91,8 +91,11 @@ def main() -> int:
     threshold = k3 * 20 * 18 * 24 * 8  # the subjects' grid, dense
     convex.COST_VOLUME_STREAM_THRESHOLD = threshold
     # convex_displacement's default was bound when the module loaded
-    defaults = convex.convex_displacement.__defaults__
-    convex.convex_displacement.__defaults__ = defaults[:-1] + (threshold,)
+    code = convex.convex_displacement.__code__
+    defaults = list(convex.convex_displacement.__defaults__)
+    names = code.co_varnames[code.co_argcount - len(defaults):code.co_argcount]
+    defaults[names.index("stream_threshold")] = threshold
+    convex.convex_displacement.__defaults__ = tuple(defaults)
     cs.HEADLINE_SHAPE = (48, 48, 48)
     cs.curious_inputs = _cropped_curious_inputs
     cs.l2r_label_pair = _box_pair
@@ -106,8 +109,11 @@ def main() -> int:
     feat_f = mindssc(torch.from_numpy(vol), 1, 2)
     feat_m = mindssc(torch.from_numpy(mov), 1, 2)
     gen = torch.Generator().manual_seed(0)
+    rec, rows = cs.data_term_phase(torch, gen, feat_f, feat_m, 2)
+    print(f"3d: {rec['name']}, {len(rows)} cases")
     rec, rows = cs.strided_data_term_phase(torch, gen, feat_f, feat_m, 2)
-    print(f"3d strided: {rec['name']}, {len(rows)} cases")
+    print(f"3d strided: {rec['name']} (strides 2 and {rec['at_stride_3']['stride']}), "
+          f"{len(rows)} cases")
     single = convex_adam(vol, mov, device=dev)
     results: dict = {}
     records = [{"name": name} for name in KERNEL_NAMES]

@@ -50,7 +50,7 @@ def main() -> int:
     torch.set_num_threads(4)
     for name in ("synchronize", "reset_peak_memory_stats"):
         setattr(torch.cuda, name, lambda *a, **k: None)
-    torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.max_memory_allocated = torch.cuda.memory_allocated = lambda *a, **k: 0
     cs._launch_checks = lambda what, launches, expected, at_least=(): print(
         f"  (CPU: no launches) expected on the card, {what}: "
         f"{ {k: v for k, v in expected.items() if v} }")

@@ -195,9 +195,10 @@ def test_register_pairs_sharded_space_equals_batched(two_ranks):
 
 
 def test_register_pairs_sharded_refuses_shard_space(two_ranks):
-    """``shard_space=True`` refuses a volume of fewer slab units than
-    ``space`` ranks (4 rows, one unit of 4, over two ranks; 3 rows on one
-    process), naming the shape, as a ``ValueError``."""
+    """``shard_space=True`` refuses, as a ``ValueError`` naming the rows
+    along H, a volume that the one-process run refuses too (4 rows over two
+    ranks and 3 rows on one process: grid_sp 4 leaves fewer than 2 coarse
+    rows, ``check_grids``)."""
     ranks, _, _ = two_ranks
     for r in ranks:
         assert r["space_refusal"] is not None and "4 rows along H" in r["space_refusal"]

@@ -50,6 +50,26 @@ def test_edt_edge_cases_equal_the_jax_native_edt(case):
     np.testing.assert_array_equal(edt_distance(m), jnative.distance(m))
 
 
+@pytest.mark.parametrize("sampling", [(1.5, 1.0, 0.8), 2.0])
+@pytest.mark.parametrize("frac", [0.5, 0.99])
+def test_edt_distance_sampling_equals_jax(frac, sampling):
+    """``edt_distance(mask, sampling=...)`` equals the JAX package's (scipy
+    with the voxel spacing, tolerance 0, float64), and the call without
+    ``sampling`` stays on the native EDT, float32, equal to the JAX
+    package's native distances."""
+    from convexadam_tpu.utils.edt import edt_distance as j_edt_distance
+
+    m = _random_mask(frac, seed=3)
+    got = edt_distance(m, sampling=sampling)
+    want = j_edt_distance(m, sampling=sampling)
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+    plain = edt_distance(m)
+    assert plain.dtype == np.float32
+    np.testing.assert_array_equal(plain, jnative.distance(m))
+    assert not np.allclose(got, plain)
+
+
 @pytest.mark.parametrize("frac", [0.5, 0.9, 0.99])
 def test_scipy_breaks_ties_otherwise(frac):
     """Why the port carries the native EDT: scipy's distances agree (to

@@ -358,6 +358,128 @@ def test_stage2_sweep_matches_jax_host():
     assert res.best == ref.best and np.isfinite(res.dice).all()
 
 
+_SEEDED_STAGE2 = tset.stage2_settings()
+
+
+@pytest.mark.parametrize("n", [18, 36])
+@pytest.mark.parametrize("setting", [1, 11])
+def test_stage2_sweep_grid_3_and_4_match_jax_host(n, setting):
+    """Stage 2 at the first seeded settings of grid_sp_adam 3 (setting 1:
+    avg_n 3, lambda 0.8) and 4 (setting 11: avg_n 1, lambda 0.4) from pass
+    A at the first stage-1 setting, one pair, host HD95, against the JAX
+    package.
+
+    grid_sp_adam 3 (6^3 and 12^3 Adam grids), measured: Dice 1.2e-7 (mean
+    2.8e-8), SDlogJ 1.2e-7, HD95 4.7e-7, the winner the same; held to
+    ``test_stage2_sweep_matches_jax_host``'s bounds.
+
+    grid_sp_adam 4 (4^3 and 9^3 Adam grids): the 60-iteration variants
+    agree (Dice 4.2e-5), then the 120-iteration loops part as each parts
+    from itself (``test_stage2_adam_grid4_parts_from_jax_as_from_itself``):
+    measured Dice 4.3e-3 (mean 1.1e-3), SDlogJ 7.3e-4, HD95 0.20 at 18^3
+    and 0 at 36^3.  Bounds: 1e-4 for the first four variants, then Dice
+    1e-2 (mean 3e-3), SDlogJ 2e-3, HD95 0.5; the winner is not held (it
+    ranks variants whose metrics lie within that spread)."""
+    preds, segs = _dataset(n=n)
+    st = [_SEEDED_STAGE2[setting]]
+    assert st[0].grid_sp_adam == (3 if setting == 1 else 4)
+    ref = jeng.run_stage2_sweep(preds, segs, _PAIRS[:1], _jax_settings(_STAGE1)[0],
+                                _jax_settings(st), num_labels=2, hd95_mode="host")
+    res = teng.run_stage2_sweep(preds, segs, _PAIRS[:1], _STAGE1[0], st, num_labels=2,
+                                hd95_mode="host", device="cpu")
+    assert res.dice.shape == (16, 2) and np.isfinite(res.dice).all()
+    err = np.abs(res.dice - ref.dice)
+    if st[0].grid_sp_adam == 3:
+        np.testing.assert_allclose(res.dice, ref.dice, rtol=0, atol=5e-3)
+        assert err.mean() < 1e-3
+        np.testing.assert_allclose(res.jstd, ref.jstd, rtol=0, atol=2e-4)
+        np.testing.assert_allclose(res.hd95, ref.hd95, rtol=0, atol=0.05)
+        assert res.best == ref.best
+    else:
+        assert err[:4].max() < 1e-4, err[:4].max()
+        assert err.max() < 1e-2 and err.mean() < 3e-3, (err.max(), err.mean())
+        np.testing.assert_allclose(res.jstd, ref.jstd, rtol=0, atol=2e-3)
+        np.testing.assert_allclose(res.hd95, ref.hd95, rtol=0, atol=0.5)
+
+
+def _jax_stage2_inputs(shape, grid_sp_adam, offset):
+    """The JAX package's stage-2 Adam inputs for pair (0, 1) of
+    ``_dataset`` cropped to ``shape``: pass A's coarse field at the first
+    stage-1 setting resized to the Adam grid, plus ``offset``; the pooled
+    one-hot features; the cost scale."""
+    from convexadam_tpu.core.features import label_counts, semantic_features
+    from convexadam_tpu.core.smoothing import avg_pool3d as jpool
+    from convexadam_tpu.core.warp import resize_trilinear as jresize
+
+    preds, _ = _dataset(n=max(shape))
+    f, m = (jnp.asarray(p[:shape[0], :shape[1], :shape[2]]) for p in preds[:2])
+    st = _STAGE1[0]
+    coarse = jeng.convex_field_semantic(f, m, jnp.float32(st.nn_mult), 3, st.grid_sp, st.disp_hw,
+                                        coarse=True)
+    ff, fm = semantic_features(f, m, num_labels=3, mult=1.0, dtype=jnp.float32)
+    ff, fm = ff * jnp.float32(st.nn_mult), fm * jnp.float32(st.nn_mult)
+    g2 = grid_sp_adam
+    hr = jresize(coarse, shape, align_corners=False)
+    init = jresize(hr, tuple(s // g2 for s in shape), align_corners=False) / g2 + offset
+    scale = jnp.sum((label_counts(f, 3) + label_counts(m, 3)) > 0).astype(jnp.float32)
+    return jpool(ff, g2, stride=g2), jpool(fm, g2, stride=g2), init, scale
+
+
+_ADAM_SNAPSHOTS = (60, 120)
+
+
+def _both_adam_stages(inputs, setting, init=None):
+    """The JAX package's and the port's 120-iteration stage-2 Adam loops on
+    the same inputs (the port's from ``init`` where given): their snapshots
+    at :data:`_ADAM_SNAPSHOTS`."""
+    from convexadam_torch.core.adam import adam_instance_optimisation as tadam
+    from convexadam_tpu.core.adam import adam_instance_optimisation as jadam
+
+    pf, pm, jinit, scale = inputs
+    kw = dict(niter=120, snapshot_iters=_ADAM_SNAPSHOTS, smoother=("bank", setting.avg_n))
+    _, ref = jadam(pf, pm, jinit, jnp.float32(setting.lambda_weight), cost_scale=scale, **kw)
+    t = [torch.from_numpy(np.array(a)) for a in (pf, pm, jinit)]
+    _, out = tadam(t[0], t[1], t[2] if init is None else init, setting.lambda_weight,
+                   cost_scale=float(scale), **kw)
+    return np.asarray(ref), out.detach().numpy()
+
+
+def test_stage2_adam_grid4_parts_from_jax_as_from_itself():
+    """Why stage 2 at grid_sp_adam 4 parts from the JAX package at 36^3
+    (setting 11, a 9^3 Adam grid): not a fault, and not the one-sided
+    derivative of ``test_adam_stage_from_jax_init``.  From the JAX package's
+    own init plus 0.013 (no sample on a voxel) the first step agrees to
+    1.2e-7 voxels and the 60-iteration field to 5.0e-3; by 120 iterations
+    the fields lie up to 0.74 voxels apart (mean 9.5e-3).  The port's loop
+    from the same init moved by one ulp parts from itself as far (max 0.63,
+    mean 9.6e-3), and so does the JAX package's (max 0.26, mean 6.9e-3):
+    Adam at ``lr=1`` on a one-hot data term that is flat between label
+    edges amplifies rounding.  Bounds: the 60-iteration field within 2e-2;
+    at 120 the mean gap to the JAX package under twice the port's own."""
+    setting = _SEEDED_STAGE2[11]
+    inputs = _jax_stage2_inputs((36, 36, 36), setting.grid_sp_adam, 0.013)
+    ref, out = _both_adam_stages(inputs, setting)
+    assert np.abs(out[0] - ref[0]).max() < 2e-2
+    init = torch.from_numpy(np.array(inputs[2]))
+    _, moved = _both_adam_stages(inputs, setting, torch.nextafter(init, init + 1))
+    gap, own = np.abs(out[1] - ref[1]).mean(), np.abs(out[1] - moved[1]).mean()
+    assert 0 < gap < 2 * own, (gap, own)
+
+
+def test_stage2_adam_on_a_non_dividing_grid_from_jax_init():
+    """Stage 2's Adam loop at grid_sp_adam 3 on 37 x 38 x 40 labels (a
+    12 x 12 x 13 Adam grid; no axis divides), setting 1, from the JAX
+    package's own init plus 0.013: measured 3.1e-4 voxels apart at most
+    over the 60- and 120-iteration snapshots (8.2e-5 at 120).  Bound 1e-3.
+    The grid that the data-term kernel meets at 192 x 160 x 256 (64 x 53 x
+    85) is of this kind."""
+    setting = _SEEDED_STAGE2[1]
+    ref, out = _both_adam_stages(_jax_stage2_inputs((37, 38, 40), setting.grid_sp_adam, 0.013),
+                                 setting)
+    assert out.shape == (2, 3, 12, 12, 13)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-3)
+
+
 def test_stage2_sweep_device_hd95_at_18():
     """Stage 2 with device HD95 at 18^3 against the port's host loop (equal
     to 1e-5; measured 0) and the JAX package's host run, which its own

@@ -58,10 +58,12 @@ def four_ranks(tmp_path_factory):
     try:
         jcfg = jpipe.ConvexAdamConfig(**w.BASE)
         jax_fields = {}
-        for grid, n_pairs in (((1, 4), 1), ((2, 2), 2)):
-            vols, movs = w.pairs(n=n_pairs)
+        for key, grid, shape, n_pairs in (((1, 4), (1, 4), w.SHAPE, 1),
+                                          ((2, 2), (2, 2), w.SHAPE, 2),
+                                          ("tiny", (1, 4), w.TINY_SHAPE, 1)):
+            vols, movs = w.pairs(shape, n=n_pairs)
             mesh = jbatch.make_mesh(*grid)
-            jax_fields[grid] = np.asarray(jbatch.register_pairs_sharded(
+            jax_fields[key] = np.asarray(jbatch.register_pairs_sharded(
                 jnp.asarray(vols), jnp.asarray(movs), jcfg, mesh, shard_space=True))
         logs = []
         for p in procs:
@@ -94,7 +96,7 @@ def test_gather_rows_joins_uneven_slabs(four_ranks, dtype):
     rank holds the whole tensor, bfloat16 bit for bit."""
     ranks, _, _ = four_ranks
     for r in ranks:
-        assert torch.equal(r[("gather", str(dtype))], w.known(dtype))
+        assert torch.equal(r[("gather", str(dtype), "")], w.known(dtype))
 
 
 @pytest.mark.parametrize("lo,hi", w.EXCHANGE_HALOS)
@@ -108,10 +110,29 @@ def test_exchange_halo_takes_the_neighbours_rows(four_ranks, dtype, lo, hi):
     n = x.shape[1]
     for rank, r in enumerate(ranks):
         s, e = w.exchange_ranges()[rank]
-        got, first = r[("halo", str(dtype), lo, hi)]
+        got, first = r[("halo", str(dtype), lo, hi, "")]
         a, b = max(0, s - lo), min(n, e + hi)
         assert first == a
         assert torch.equal(got, x[:, a:b])
+
+
+@pytest.mark.parametrize("lo,hi", w.EXCHANGE_HALOS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_exchange_halo_and_gather_over_a_rank_of_no_rows(four_ranks, dtype, lo, hi):
+    """Slabs of 3, 5, 0 and 3 rows: a halo spans over the empty rank to the
+    next owner, the empty rank takes nothing and keeps its place (its first
+    row is its start), and the gather joins the whole tensor."""
+    ranks, _, _ = four_ranks
+    rows = w.EXCHANGE_ROWS_EMPTY
+    x = w.known(dtype, rows)
+    n = x.shape[1]
+    for rank, r in enumerate(ranks):
+        s, e = w.exchange_ranges(rows)[rank]
+        got, first = r[("halo", str(dtype), lo, hi, "empty")]
+        a, b = (s, e) if s == e else (max(0, s - lo), min(n, e + hi))
+        assert first == a
+        assert torch.equal(got, x[:, a:b])
+        assert torch.equal(r[("gather", str(dtype), "empty")], x)
 
 
 def test_exchange_halo_and_gather_on_one_rank():
@@ -167,6 +188,20 @@ def test_slab_plan_units():
     assert spatial.slab_plan(20, 4, 4, 0).rows() == [(0, 8), (8, 12), (12, 16), (16, 20)]
 
 
+def test_slab_plan_gives_ranks_past_the_last_unit_no_rows():
+    """Fewer units than ranks: one unit a rank, the last owner also taking
+    the rows past its unit, the ranks after it none (at every grid), and
+    rank 0 the whole volume where no unit fits."""
+    plan = spatial.slab_plan(12, 4, 4, 3)
+    assert plan.rows() == [(0, 4), (4, 8), (8, 12), (12, 12)]
+    assert plan.rows(4) == [(0, 1), (1, 2), (2, 3), (3, 3)]
+    assert plan.rows(2) == [(0, 2), (2, 4), (4, 6), (6, 6)]
+    assert plan.own() == (12, 12) and spatial.slab_plan(12, 4, 4, 2).own() == (8, 12)
+    assert spatial.slab_plan(14, 4, 4, 0).rows() == [(0, 4), (4, 8), (8, 14), (14, 14)]
+    assert spatial.slab_plan(6, 4, 4, 0).rows() == [(0, 6), (6, 6), (6, 6), (6, 6)]
+    assert spatial.slab_plan(3, 4, 2, 0).rows() == [(0, 3), (3, 3)]
+
+
 def test_plans_of_the_run(four_ranks):
     ranks, _, _ = four_ranks
     assert ranks[0]["plans"]["default"] == [(0, 12), (12, 24), (24, 36), (36, 48)]
@@ -199,7 +234,7 @@ def test_sharded_field_matches_jax_sharded(four_ranks, grid):
     virtual devices, within ``tests/test_torch_pipeline.py``'s envelope:
     max under 0.05 voxels, mean under 1e-3."""
     ranks, _, jax_fields = four_ranks
-    ref = jax_fields[grid]
+    ref = jax_fields[tuple(grid)]
     for r in ranks:
         got = r["fields"]["default"] if grid == (1, 4) else r["grid22"]
         assert got.shape == ref.shape
@@ -209,18 +244,26 @@ def test_sharded_field_matches_jax_sharded(four_ranks, grid):
 
 
 # ---------------------------------------------------------------------------
-# (d) too few slabs
+# (d) fewer slab units than ranks
 # ---------------------------------------------------------------------------
 
 def test_too_few_units_raise(four_ranks):
-    """12 rows hold three slabs of 4 rows: four ranks refuse, naming the
-    shape, before any exchange."""
-    ranks, _, _ = four_ranks
+    """12 rows hold three slabs of 4 rows: the first three ranks take one
+    each and the fourth none, and every rank's field equals the one-process
+    field to the bit, and the JAX package's ``register_pairs_sharded(
+    shard_space=True)`` on (pair 1, space 4) within max 0.05 / mean 1e-3
+    voxels (``test_sharded_field_matches_jax_sharded``'s envelope).  The
+    name is kept from when the port refused this case; the one-process
+    refusals stand (``tests/test_torch_parallel.py::
+    test_register_pairs_sharded_refuses_shard_space``)."""
+    ranks, _, jax_fields = four_ranks
+    ref = ranks[2]["tiny_ref"]
     for r in ranks:
-        assert r["too_short"] is not None and "12 rows" in r["too_short"]
-        assert "4 ranks" in r["too_short"]
-    with pytest.raises(ValueError, match="fewer than the 4 ranks"):
-        spatial.slab_plan(12, 4, 4, 0)
+        assert r["tiny_plan"] == [(0, 4), (4, 8), (8, 12), (12, 12)]
+        np.testing.assert_array_equal(r["tiny"][0], ref)
+        err = np.abs(r["tiny"] - jax_fields["tiny"])
+        assert err.max() < 0.05, err.max()
+        assert err.mean() < 1e-3, err.mean()
 
 
 # ---------------------------------------------------------------------------
@@ -278,3 +321,22 @@ def test_data_term_first_row(rng, stride):
         total += float(s)
     assert total == pytest.approx(float(ssq), rel=1e-6)
 
+
+
+def test_wrappers_of_an_empty_slab_launch_nothing():
+    """A slab of no rows is no launch and no call of a plain version: the
+    MIND, cost-volume, candidate-block and data-term wrappers return their
+    empty outputs (a zero sum for the data term) and count nothing."""
+    from convexadam_torch import kernels
+    from convexadam_torch.kernels import cost_volume, mind, warp
+
+    kernels.reset_launches()
+    m, v = mind.mind_ssd_stats(torch.zeros((0, 5, 6), dtype=torch.bfloat16), 1, 2)
+    assert m.shape == (12, 0, 5, 6) and m.dtype == torch.bfloat16 and v.shape == (0, 5, 6)
+    f = torch.zeros((3, 0, 5, 6))
+    assert cost_volume.cost_volume(f, torch.zeros((3, 2, 5, 6)), 2).shape == (125, 0, 5, 6)
+    assert cost_volume.cost_volume_block(f, f, 3, 1, 2).shape == (98, 0, 5, 6)
+    ssq, rows = warp.warp_ssd_loss_grad(torch.zeros((3, 8, 5, 6)), torch.zeros((3, 0, 5, 6)),
+                                        torch.zeros((3, 0)), (1.0, 1.0, 1.0), 0.5)
+    assert float(ssq) == 0.0 and rows.shape == (3, 0)
+    assert all(n == 0 for n in kernels.LAUNCHES.values())

@@ -165,12 +165,14 @@ def test_streamed_matches_jax_streamed(rng, metric, q):
 
 def test_dispatch_streams_above_the_threshold(rng, monkeypatch):
     """``convex_displacement`` takes the streamed path exactly when the
-    dense estimate K^3 n 4 2 exceeds ``stream_threshold``; the default
+    dense estimate exceeds ``stream_threshold``: the K^3 n float32 volume
+    and the larger of a temporary of its size and the coupled argmin's two
+    (3, K^3, n) temporaries (n voxels, one chunk here); the default
     threshold is the one derived for the 80 GB card."""
     f, m = _pair(rng, (4, 6, 5, 7))
     q = 2
     est = tconvex.dense_estimate(q, (6, 5, 7))
-    assert est == 125 * 210 * 4 * 2
+    assert est == 125 * 210 * 4 + 2 * 3 * 125 * 210 * 4
     assert tconvex.COST_VOLUME_STREAM_THRESHOLD == 64_000_000_000
     calls = []
     real = tconvex.correlate_coupled_streamed

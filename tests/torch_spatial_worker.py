@@ -5,9 +5,9 @@ root, with ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK`` and ``WORLD_SIZE`` (4)
 set: it joins a gloo process group on the CPU (60 s timeout, one thread a
 rank), runs the halo exchanges and gathers on known tensors, every config of
 :data:`CONFIGS` split over a (pair 1, space 4) grid, stage by stage, the
-(pair 2, space 2) grid, a 44-row volume and a volume too short for four
-slabs; rank ``k`` also computes the one-process references of the configs
-``k, k + 4, ...``.  Results go to ``OUT_DIR/rank<RANK>.pkl``.  It imports
+(pair 2, space 2) grid, a 44-row volume and a volume of three slab units
+(the last rank holds no rows); rank ``k`` also computes the one-process
+references of the configs ``k, k + 4, ...``.  Results go to ``OUT_DIR/rank<RANK>.pkl``.  It imports
 no JAX.
 """
 
@@ -23,6 +23,7 @@ from scipy.ndimage import uniform_filter
 
 SHAPE = (48, 32, 32)
 SHORT_SHAPE = (44, 32, 32)
+TINY_SHAPE = (12, 32, 32)  # three units of 4 rows over four ranks
 SHIFT = (2, -1, 1)
 BASE = dict(grid_sp=4, disp_hw=2, selected_niter=10, grid_sp_adam=2)
 # (name, overrides of BASE): satellite configs of the spatial path
@@ -40,6 +41,8 @@ CONFIGS = (
 # row) and the (lo, hi) halos taken, one spanning several ranks
 EXCHANGE_ROWS = (3, 4, 1, 3)
 EXCHANGE_HALOS = ((1, 2), (0, 0), (5, 5), (2, 0))
+# a rank of no rows between two that hold some: halos span over it
+EXCHANGE_ROWS_EMPTY = (3, 5, 0, 3)
 
 
 def config(name: str):
@@ -60,14 +63,14 @@ def pairs(shape=SHAPE, n: int = 1):
     return vols, np.roll(vols, SHIFT, axis=(1, 2, 3))
 
 
-def exchange_ranges():
-    starts = np.cumsum((0,) + EXCHANGE_ROWS)
+def exchange_ranges(rows=EXCHANGE_ROWS):
+    starts = np.cumsum((0,) + tuple(rows))
     return [(int(a), int(b)) for a, b in zip(starts[:-1], starts[1:])]
 
 
-def known(dtype=torch.float32) -> torch.Tensor:
+def known(dtype=torch.float32, rows=EXCHANGE_ROWS) -> torch.Tensor:
     """(2, rows, 3, 2): each value its own flat index."""
-    n = sum(EXCHANGE_ROWS)
+    n = sum(rows)
     return torch.arange(2 * n * 6, dtype=torch.float32).reshape(2, n, 3, 2).to(dtype)
 
 
@@ -124,13 +127,15 @@ def main(out_dir: str) -> int:
     group = mesh.group("space")
 
     # (a) the exchanges on known tensors
-    ranges = exchange_ranges()
-    for dtype in (torch.float32, torch.bfloat16):
-        x = known(dtype)
-        mine = x[:, ranges[rank][0]:ranges[rank][1]]
-        res[("gather", str(dtype))] = spatial.gather_rows(mine, ranges, group)
-        for lo, hi in EXCHANGE_HALOS:
-            res[("halo", str(dtype), lo, hi)] = spatial.exchange_halo(mine, lo, hi, ranges, group)
+    for rows, tag in ((EXCHANGE_ROWS, ""), (EXCHANGE_ROWS_EMPTY, "empty")):
+        ranges = exchange_ranges(rows)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = known(dtype, rows)
+            mine = x[:, ranges[rank][0]:ranges[rank][1]]
+            res[("gather", str(dtype), tag)] = spatial.gather_rows(mine, ranges, group)
+            for lo, hi in EXCHANGE_HALOS:
+                res[("halo", str(dtype), lo, hi, tag)] = spatial.exchange_halo(mine, lo, hi, ranges,
+                                                                               group)
 
     # (b) every config stage by stage over (pair 1, space 4); this rank's
     # share of the one-process references
@@ -168,13 +173,13 @@ def main(out_dir: str) -> int:
         res["short_ref"] = one_process_stages(torch.from_numpy(v44[0]), torch.from_numpy(m44[0]),
                                               cfg)["final"]
 
-    # (d) three units of 4 rows over four ranks
-    tiny_f, tiny_m = pairs((12, 32, 32))
-    try:
-        register_pairs_sharded(tiny_f, tiny_m, cfg, mesh, shard_space=True)
-        res["too_short"] = None
-    except ValueError as e:
-        res["too_short"] = str(e)
+    # (d) three units of 4 rows over four ranks: the last holds none
+    tiny_f, tiny_m = pairs(TINY_SHAPE)
+    res["tiny"] = register_pairs_sharded(tiny_f, tiny_m, cfg, mesh, shard_space=True).numpy()
+    res["tiny_plan"] = spatial.slab_plan(TINY_SHAPE[0], spatial.slab_unit(cfg), n, rank).rows()
+    if rank == 2:
+        res["tiny_ref"] = one_process_stages(torch.from_numpy(tiny_f[0]),
+                                             torch.from_numpy(tiny_m[0]), cfg)["final"]
     res["traffic"] = dict(spatial.TRAFFIC)
     dist.barrier()
     dist.destroy_process_group()
