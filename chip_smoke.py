@@ -152,6 +152,21 @@ Phases, each fatal on failure:
      steps of the (2, 5) class (14 x 96 x 80 x 128, q = 5), the data term on
      the grid_sp_adam 1 grid 14 x 192 x 160 x 256 bf16, the batched pruned
      search at the sweep's label buckets, each timed;
+  5f. ``selfconfig.protocol.run_full_protocol`` on its sweep fixture (10
+     subjects at 192 x 160 x 256, 13 organs, predictions = ground truth),
+     the reference's 8 pairs, the first 3 seeded stage-1 settings and the
+     first 2 stage-2 settings: launches per (setting, pair) of each stage
+     (2 cost volumes and 15 IC steps; pass A's, then 120 data terms; one
+     batched pruned search per label bucket per case, two launches for the
+     4-organ K = 36864 bucket), both winners above the identity's Dice;
+     then stopped by a fault injected into the engine after stage-1 setting
+     2, resumed and stopped after stage-2 setting 1, resumed to the end:
+     arrays, ranks and winners equal to the uninterrupted run's to the bit,
+     each resume launching only for the unfinished settings; then the
+     batched pruned search at the fixture's 7 label buckets on the first
+     pair's labels warped by the stage-1 winner, against its plain version
+     (tolerance 0, the same tiles, each bucket's launches as
+     ``pruned_launch_count`` says: the two-launch bucket's second part);
   6. the file-level path, from NIfTI files written under ``chiprun_out/phase6``
      (removed afterwards), every kernel count set to 0 just before each run:
   6a. ``cli.register.main`` with ``--use_mask True`` on a masked MIND pair at
@@ -442,6 +457,18 @@ ADAM_ITERS = 120  # the sweep's Adam iterations (settings.STAGE2_SNAPSHOT_ITERS'
 PAIRED_SHIFTS = (HEADLINE_SHIFT, (-4, 3, 5))
 PAIRED_KEYPOINTS = 20
 SWEEP_CHECKPOINT = OUT_DIR / "sweep_stage1"
+# phase 5f, the whole protocol (`run_full_protocol`) at full width and
+# pair depth, its settings cut: the sweep fixture of
+# `selfconfig/protocol.py` (10 subjects, 13 organs) at this shape, the
+# reference's 8 pairs, the first seeded
+# stage-1 settings (classes (3, 3), (2, 2), (4, 4)) and stage-2
+# settings (grid_sp_adam 2, 3); a crash injected once this many settings of
+# stage 1, then of stage 2, have finished (at the second pair of the next)
+PROTOCOL_SHAPE = ABDOMEN_SHAPE
+PROTOCOL_SETTINGS = (3, 2)
+PROTOCOL_CRASH = (2, 1)
+PROTOCOL_CRASH_PAIR = 2
+PROTOCOL_DIR = OUT_DIR / "protocol5f"
 # phase 6, the file-level path: inputs written as NIfTI under FILE_DIR with a
 # CT-like affine (0.8 x 0.8 x 1.5 mm), the masked MIND pair at the Abdomen
 # shape, the translation case (128 x 128 x 96 voxels of 1.5 x 1.5 x 2.0 mm,
@@ -808,12 +835,14 @@ def _err_at(a, b, lo, hi) -> float:
     return float((a[lo:hi] - b[lo:hi]).abs().max()) if hi > lo else 0.0
 
 
-def pruned_bucket_rows(torch, bufs, caps, groups, what="batched", plain_reps=20):
+def pruned_bucket_rows(torch, bufs, caps, groups, what="batched", plain_reps=20, timed=True):
     """Every search of each label bucket ``(labels, K)`` of ``groups`` in one
     batched call, as the HD95 engine builds them from ``bufs`` and ``caps``,
     against the plain version: tolerance 0 at meaningful entries, the same
-    tiles visited; then timed.  Returns one row a bucket."""
+    tiles visited; then, with ``timed``, timed.  Returns one row a bucket,
+    with the kernel launches of its call (``launches``)."""
     from convexadam_torch.core.edt import pruned_searches
+    from convexadam_torch.kernels import LAUNCHES
     from convexadam_torch.kernels import edt as ke
 
     rows = []
@@ -822,7 +851,10 @@ def pruned_bucket_rows(torch, bufs, caps, groups, what="batched", plain_reps=20)
         args = (src, searches, lo, hi, nt, K, K)
         kern = (lambda a=args: ke.nearest_sq_pruned_batched(*a, with_tiles=True))
         plain = (lambda a=args: ke.nearest_sq_pruned_batched_plain(*a, with_tiles=True))
-        ko, po = kern(), plain()
+        before = LAUNCHES["nearest_sq_pruned"]
+        ko = kern()
+        launches = LAUNCHES["nearest_sq_pruned"] - before
+        po = plain()
         torch.cuda.synchronize()
         cname = f"{what} K={K}"
         check(torch.equal(ko[1], po[1]), f"nearest_sq_pruned {cname}: kernel and plain visit "
@@ -834,19 +866,23 @@ def pruned_bucket_rows(torch, bufs, caps, groups, what="batched", plain_reps=20)
         S = len(searches)
         tiles = int(ko[1].sum())
         cells = search_cells("nearest_sq_pruned", K, K, 0, 0, tiles=tiles)
-        gi, gj = K // ke.PRUNED_BLOCK, K // ke.PRUNED_TILE
-        nbytes = S * (4 * (3 * K + 3 * K + K) + 8 * gi * gj + 4 * gi)
-        times = timed_turns(torch, kern, GLOBALS["nearest_sq_pruned"])
         row = {"case": cname, "name": "nearest_sq_pruned", "K": [K, K], "searches": S,
-               "labels": list(labs), "max_abs_err": err, "cells": cells, "tiles": tiles,
-               "ms": times["call_ms"], "device_ms": times["device_ms"],
-               "device_launches": times["device_launches"],
-               "plain_ms": cuda_ms(torch, plain, min(3, plain_reps), plain_reps)}
-        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, CELL_FLOPS * cells)
-        print(f"nearest_sq_pruned {cname}: {S} searches, max_abs_err {err:.1e} (tol 0), "
-              f"{cells} cells, {tiles} tiles, {times['device_launches']:.0f} launches a call",
-              flush=True)
-        print_times(f"nearest_sq_pruned {cname}", times, row["plain_ms"], row["bound_ms"])
+               "labels": list(labs), "launches": launches, "max_abs_err": err, "cells": cells,
+               "tiles": tiles}
+        said = ""
+        if timed:
+            gi, gj = K // ke.PRUNED_BLOCK, K // ke.PRUNED_TILE
+            nbytes = S * (4 * (3 * K + 3 * K + K) + 8 * gi * gj + 4 * gi)
+            times = timed_turns(torch, kern, GLOBALS["nearest_sq_pruned"])
+            row.update(ms=times["call_ms"], device_ms=times["device_ms"],
+                       device_launches=times["device_launches"],
+                       plain_ms=cuda_ms(torch, plain, min(3, plain_reps), plain_reps))
+            row["bound_ms"], row["bound_by"] = bound_ms(nbytes, CELL_FLOPS * cells)
+            said = f", {times['device_launches']:.0f} launches a call"
+        print(f"nearest_sq_pruned {cname}: {S} searches in {launches} launch(es), "
+              f"max_abs_err {err:.1e} (tol 0), {cells} cells, {tiles} tiles{said}", flush=True)
+        if timed:
+            print_times(f"nearest_sq_pruned {cname}", times, row["plain_ms"], row["bound_ms"])
         rows.append(row)
     return rows
 
@@ -2673,6 +2709,210 @@ def sweep_kernel_phase(torch, dev, segs, settings, field25, records, results):
         by_name[name]["at_sweep_shape"] = reading
     results["sweep_kernels"] = out
 
+
+class _InjectedCrash(RuntimeError):
+    """The fault phase 5f injects into the engine."""
+
+
+@contextlib.contextmanager
+def _patched(patches):
+    """``(module, name, value)`` patches, undone on the way out."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    try:
+        for mod, name, value in patches:
+            setattr(mod, name, value)
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+
+
+def _crash_at(fn, call: int):
+    """``fn`` that raises :class:`_InjectedCrash` at its ``call``-th call
+    (from 1) instead of running."""
+    count = [0]
+
+    def wrapped(*args, **kwargs):
+        count[0] += 1
+        if count[0] == call:
+            raise _InjectedCrash(f"injected at call {call} of {fn.__name__}")
+        return fn(*args, **kwargs)
+
+    return wrapped
+
+
+def protocol_phase(torch, dev, smi, records, results):
+    """Phase 5f: ``run_full_protocol`` on the sweep fixture of
+    ``selfconfig/protocol.py`` (10 subjects at :data:`PROTOCOL_SHAPE`, 13
+    organs, predictions equal to the ground truth) over the reference's 8
+    pairs, the first seeded settings of each stage (:data:`PROTOCOL_SETTINGS`):
+    launches per (setting, pair) of each stage (2 cost volumes and 15 IC
+    steps in stage 1; pass A's, then 120 data terms in stage 2; one batched
+    pruned search per label bucket per case, which takes two launches where
+    its order tables outgrow one, ``pruned_launch_count``), both winners
+    above the identity's Dice.  Then the run again under a checkpoint, stopped by a fault
+    injected into the engine once :data:`PROTOCOL_CRASH` settings of stage 1
+    have finished, resumed and stopped again in stage 2 the same way, and
+    resumed to its end: the arrays, ranks and winners of both stages equal
+    the uninterrupted run's to the bit, and each resume launches kernels only
+    for the settings that had not finished.  Last, the batched pruned search
+    at the fixture's label buckets, as the engine builds them on the first
+    pair's labels warped by the stage-1 winner, against its plain version
+    (:func:`pruned_bucket_rows`), each bucket's launches those of
+    :func:`pruned_launch_count`; the readings go to the kernel's record as
+    ``at_protocol_buckets``.  Returns each protocol run's launches."""
+    from convexadam_torch.core.metrics import dice_coeff
+    from convexadam_torch.kernels import LAUNCHES, reset_launches
+    from convexadam_torch.kernels.edt import pruned_launch_count
+    from convexadam_torch.selfconfig import engine, protocol
+    from convexadam_torch.selfconfig.engine import (
+        _HD95Scorer,
+        _suggest_label_groups,
+        convex_field_semantic,
+        evaluate_field_semantic,
+    )
+
+    t_phase = time.perf_counter()
+    segs, L = protocol.make_sweep_fixture(*PROTOCOL_SHAPE)
+    pairs = protocol.REF_PAIRS
+    P, (n1, n2), (c1, c2) = len(pairs), PROTOCOL_SETTINGS, PROTOCOL_CRASH
+    groups, kg = _suggest_label_groups(segs, L)
+    # a case's pruned launches: one batched call a bucket, of 4 searches a
+    # label, cut where its order tables outgrow a launch's
+    B = sum(pruned_launch_count(4 * len(labs), k, k) for labs, k in groups)
+    fixture_s = time.perf_counter() - t_phase
+    shutil.rmtree(PROTOCOL_DIR, ignore_errors=True)
+
+    def run(tag, resume=False, patches=(), crash=False):
+        """One ``run_full_protocol`` call, its launches split where stage 2
+        starts; with ``crash``, the injected fault must stop it."""
+        marks = {}
+        stage2 = protocol.run_stage2_sweep
+
+        def marked(*args, **kwargs):
+            torch.cuda.synchronize()
+            marks["stage1"] = dict(LAUNCHES)
+            return stage2(*args, **kwargs)
+
+        res = None
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with _patched([(protocol, "run_stage2_sweep", marked), *patches]):
+            try:
+                res = protocol.run_full_protocol(segs, segs, pairs, L, n1=n1, n2=n2,
+                                                 checkpoint=PROTOCOL_DIR / tag, resume=resume,
+                                                 device=dev)
+            except _InjectedCrash as e:
+                print(f"5f {tag}: stopped by the fault ({e})", flush=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check((res is None) == crash, f"5f {tag}: {'no' if crash else 'a'} stop")
+        total = dict(LAUNCHES)
+        first = marks.get("stage1", total)
+        return res, first, {k: total[k] - first[k] for k in total}, wall
+
+    def expected(s1, s2, pass_a):
+        return (sweep_expected(cost_volume=2 * s1 * P, sample_trilinear_ic=IC_ITERS * s1 * P,
+                               nearest_sq_pruned=B * s1 * P),
+                sweep_expected(cost_volume=2 * P * pass_a, sample_trilinear_ic=IC_ITERS * P * pass_a,
+                               warp_ssd_loss_grad=ADAM_ITERS * s2 * P,
+                               nearest_sq_pruned=B * 16 * s2 * P))
+
+    def launch_checks(what, got, want, res):
+        at_least = ("nearest_sq_pruned",) if res.rescored else ()
+        _launch_checks(what, got, want, at_least)
+
+    ref, l1, l2, wall = run("whole")
+    w1, w2 = expected(n1, n2, 1)
+    launch_checks("5f stage 1", l1, w1, ref.stage1)
+    launch_checks("5f stage 2", l2, w2, ref.stage2)
+    for name, r in (("stage 1", ref.stage1), ("stage 2", ref.stage2)):
+        check(bool(np.isfinite(r.dice).all()) and bool(np.isfinite(r.hd95).all())
+              and bool(np.isfinite(r.jstd).all()), f"5f {name}: a metric not finite")
+    ident = float(np.mean([dice_coeff(torch.from_numpy(segs[f]), torch.from_numpy(segs[m]),
+                                      L + 1).mean() for f, m in pairs]))
+    for name, r in (("stage 1", ref.stage1), ("stage 2", ref.stage2)):
+        check(r.dice[r.best, 0] > ident, f"5f {name}: winner's Dice {r.dice[r.best, 0]:.4f} not "
+              f"above the identity's {ident:.4f}")
+
+    # stopped in stage 1, resumed and stopped in stage 2, resumed to the end
+    crash1 = (engine, "convex_field_semantic",
+              _crash_at(engine.convex_field_semantic, c1 * P + PROTOCOL_CRASH_PAIR))
+    crash2 = (engine, "_stage2_variants",
+              _crash_at(engine._stage2_variants, c2 * P + PROTOCOL_CRASH_PAIR))
+    _, _, _, wall_a = run("stopped", patches=[crash1], crash=True)
+    _, r1_b, _, wall_b = run("stopped", resume=True, patches=[crash2], crash=True)
+    launch_checks("5f resume 1, stage 1", r1_b, expected(n1 - c1, 0, 0)[0], ref.stage1)
+    res, r1_c, r2_c, wall_c = run("stopped", resume=True)
+    w1, w2 = expected(0, n2 - c2, 1)
+    launch_checks("5f resume 2, stage 1", r1_c, w1, res.stage1)
+    launch_checks("5f resume 2, stage 2", r2_c, w2, res.stage2)
+    for name, got, want in (("stage 1", res.stage1, ref.stage1), ("stage 2", res.stage2, ref.stage2)):
+        for k in ("dice", "jstd", "hd95", "rank"):
+            check(np.array_equal(getattr(got, k), getattr(want, k)), f"5f resumed {name}: {k} differs")
+        check(got.best == want.best, f"5f resumed {name}: winner {got.best}, not {want.best}")
+    rec = [r["resumed_settings"] for r in res.records[:2]]
+    check(rec == [n1, c2], f"5f resumed settings {rec}, expected {[n1, c2]}")
+    shutil.rmtree(PROTOCOL_DIR)
+
+    # the batched pruned search at the fixture's buckets (the 4-organ one in
+    # two launches), on the first pair's labels warped by the stage-1 winner
+    t_pruned = time.perf_counter()
+    best1 = protocol.stage1_settings(n1)[ref.stage1.best]
+    f, m = pairs[0]
+    sf, sm = (torch.from_numpy(segs[k]).to(dev) for k in (f, m))
+    scorer = _HD95Scorer(L, groups, kg, dev)
+    with torch.no_grad():
+        field = convex_field_semantic(sf, sm, best1.nn_mult, L + 1, best1.grid_sp,
+                                      best1.disp_hw, device=dev)
+        _, _, _, seg_w = evaluate_field_semantic(field, sf, sm, L, device=dev)
+        _, bufs = scorer.buffers(sf, scorer.prep(sf), seg_w)
+    pruned = pruned_bucket_rows(torch, bufs, scorer.caps, groups, "protocol bucket",
+                                timed=False)
+    for row, (labs, k) in zip(pruned, groups):
+        _launch_checks(f"5f nearest_sq_pruned {row['case']}",
+                       {"nearest_sq_pruned": row["launches"]},
+                       {"nearest_sq_pruned": pruned_launch_count(4 * len(labs), k, k)})
+    records_by_name = {r["name"]: r for r in records}
+    records_by_name["nearest_sq_pruned"]["at_protocol_buckets"] = pruned
+    pruned_s = time.perf_counter() - t_pruned
+    del field, seg_w, bufs, sf, sm
+
+    r1, r2, total = ref.records
+    seconds = time.perf_counter() - t_phase
+    out = {
+        "shape": list(PROTOCOL_SHAPE), "subjects": int(segs.shape[0]), "labels": L,
+        "pairs": [list(p) for p in pairs], "label_buckets": [[list(l), k] for l, k in groups],
+        "pruned_launches_per_case": B,
+        "stage1_settings": [list(dataclasses.astuple(s)) for s in protocol.stage1_settings(n1)],
+        "stage2_settings": [list(dataclasses.astuple(s)) for s in protocol.stage2_settings(n2)],
+        "records": ref.records, "identity_dice": ident,
+        "stage1_dice": ref.stage1.dice.tolist(), "stage1_times_s": ref.stage1.times.tolist(),
+        "stage2_times_s": ref.stage2.times.tolist(),
+        "stage2_best_dice": float(ref.stage2.dice[ref.stage2.best, 0]),
+        "launches_stage1": l1, "launches_stage2": l2,
+        "resume": {"crash_after": [c1, c2], "wall_s": [wall_a, wall_b, wall_c],
+                   "launches_resume1_stage1": r1_b, "launches_resume2_stage1": r1_c,
+                   "launches_resume2_stage2": r2_c, "resumed_settings": rec, "identical": True},
+        "pruned_buckets": pruned, "pruned_buckets_s": pruned_s,
+        "wall_s": wall, "fixture_s": fixture_s, "phase_s": seconds, "card": smi,
+    }
+    print(f"5f protocol on {segs.shape[0]} subjects at {PROTOCOL_SHAPE}, {P} pairs, {L} organs in "
+          f"{len(groups)} buckets ({B} pruned launches a case): stage 1 {n1} settings {r1['minutes'] * 60:.2f} s, "
+          f"{r1['sec_per_setting_pair']:.4f} s a setting·pair, peak {r1['peak_allocated_gb']} GB, "
+          f"winner {r1['best']} Dice {ref.stage1.dice[ref.stage1.best, 0]:.4f} (identity "
+          f"{ident:.4f}), rescored {r1['rescored']} ({r1['rescore_sec']:.2f} s); stage 2 {n2} "
+          f"settings {r2['minutes'] * 60:.2f} s, {r2['sec_per_setting_pair']:.4f} s a "
+          f"setting·pair, peak {r2['peak_allocated_gb']} GB, variant {ref.stage2.best} Dice "
+          f"{out['stage2_best_dice']:.4f}, rescored {r2['rescored']} ({r2['rescore_sec']:.2f} s); "
+          f"stopped twice and resumed: equal to the bit; the pruned search at the {len(groups)} "
+          f"buckets ({[r['launches'] for r in pruned]} launches) equal to its plain version; "
+          f"phase {seconds:.2f} s [{smi}]", flush=True)
+    results["sweep_protocol"] = out
+    return {"protocol": {k: l1[k] + l2[k] for k in l1},
+            "protocol_resumes": {k: r1_b[k] + r1_c[k] + r2_c[k] for k in r1_b}}
+
 # ---------------------------------------------------------------------------
 # phase 6: the file-level path, from files on disk
 # ---------------------------------------------------------------------------
@@ -3571,8 +3811,6 @@ def _recording(torch, calls):
     import importlib
     import inspect
 
-    saved = []
-
     def recorder(name, fn):
         sig = inspect.signature(fn)
 
@@ -3585,15 +3823,12 @@ def _recording(torch, calls):
 
         return wrapped
 
+    patches = []
     for mod_name, name in CAPTURE_SITES:
         mod = importlib.import_module(mod_name)
-        saved.append((mod, name, getattr(mod, name)))
-        setattr(mod, name, recorder(name, getattr(mod, name)))
-    try:
+        patches.append((mod, name, recorder(name, getattr(mod, name))))
+    with _patched(patches):
         yield calls
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
 
 
 def _captured_kernel(name, a) -> str:
@@ -4635,6 +4870,9 @@ def main() -> int:
     resume_l = sweep_resume_phase(torch, dev, segs, s1_settings, s1, results)
     sweep_kernel_phase(torch, dev, segs, s1_settings, field25, records, results)
     del field25
+    # 5f. `run_full_protocol` over the reference's 8 pairs, stopped
+    # and resumed in each stage
+    protocol_l = protocol_phase(torch, dev, smi, records, results)
 
     # 6. the file-level path: the CLIs, the translation, the task driver and
     # test-set inference, from files on disk
@@ -4678,7 +4916,9 @@ def main() -> int:
         rec["launches_parallel"] = {k: v[name] for k, v in parallel_launches.items()}
         rec["launches_sweep"] = {"stage1": sweep_l1[name], "stage2": sweep_l2[name],
                                  "paired_stage1": paired_l1[name], "paired_stage2": paired_l2[name],
-                                 "stage1_resume": resume_l[name]}
+                                 "stage1_resume": resume_l[name],
+                                 "protocol": protocol_l["protocol"][name],
+                                 "protocol_resumes": protocol_l["protocol_resumes"][name]}
         if name == "mind_ssd_stats_general":
             rec["launches"] = general_launches[name]
             rec["launches_run"] = (f"192^3 registration at (mind_r, mind_d) = {GENERAL_MIND} "
@@ -4715,10 +4955,10 @@ def main() -> int:
                                      if not isinstance(v, list)}}))
     for key in ("semantic", "multi_output", "autodiff"):
         print(json.dumps({key: results[key]}))
-    for key in ("sweep_stage1", "sweep_stage2", "sweep_paired"):
+    for key in ("sweep_stage1", "sweep_stage2", "sweep_paired", "sweep_protocol"):
         print(json.dumps({key: {k: v for k, v in results[key].items()
                                 if k not in ("composed", "launches", "launches_stage1",
-                                             "launches_stage2")}}))
+                                             "launches_stage2", "resume")}}))
     print(json.dumps({"phase6": {k: v for k, v in results.items() if k.startswith("file_")}}))
     print(json.dumps({"phase7": results["challenges"]}))
     print(json.dumps({"phase8": results["segmentation"]}))

@@ -235,6 +235,30 @@ class _PrunedPlan(NamedTuple):
     launches: list        # (first part, end part) of each launch
 
 
+def _pruned_split(n_searches: int, kq: int, kt: int):
+    """How a batched pruned call of ``n_searches`` searches of ``kq``
+    queries over ``kt`` targets is cut: ``(parts, rows, launches)``, each
+    search's rows in ``parts`` parts of ``rows`` (the order table of one
+    part holds at most :data:`PRUNED_TABLE_ENTRIES`), and the ``[a, e)``
+    ranges of the ``n_searches * parts`` parts that each launch takes (at
+    most that many entries, and 65535 parts, a launch)."""
+    gj, nb = kt // PRUNED_TILE, kq // PRUNED_BLOCK
+    parts = next((c for c in range(1, nb + 1)
+                  if nb % c == 0 and (nb // c) * gj <= PRUNED_TABLE_ENTRIES), nb)
+    rows = kq // parts
+    per = max(1, min(65535, PRUNED_TABLE_ENTRIES // ((rows // PRUNED_BLOCK) * gj)))
+    n = n_searches * parts
+    return parts, rows, [(a, min(a + per, n)) for a in range(0, n, per)]
+
+
+def pruned_launch_count(n_searches: int, kq: int, kt: int) -> int:
+    """Kernel launches of one :func:`nearest_sq_pruned_batched` call of
+    ``n_searches`` searches on the card: one, unless their order tables
+    outgrow :data:`PRUNED_TABLE_ENTRIES` (at ``kq = kt = 36864`` a launch
+    takes 12 searches)."""
+    return len(_pruned_split(n_searches, kq, kt)[2])
+
+
 def _pruned_plan(sources, searches, q_lo, q_hi, n_target, kq: int, kt: int) -> _PrunedPlan:
     b, tile = PRUNED_BLOCK, PRUNED_TILE
     if not 1 <= len(sources) <= 4:
@@ -254,11 +278,7 @@ def _pruned_plan(sources, searches, q_lo, q_hi, n_target, kq: int, kt: int) -> _
                              f"{tile}-aligned blocks of its sources")
     dev = sources[0].device
     S = len(searches)
-    gj, nb = kt // tile, kq // b
-    # row parts: the order table of one part holds at most PRUNED_TABLE_ENTRIES
-    parts = next((c for c in range(1, nb + 1)
-                  if nb % c == 0 and (nb // c) * gj <= PRUNED_TABLE_ENTRIES), nb)
-    rows = kq // parts
+    parts, rows, launches = _pruned_split(S, kq, kt)
     lo = _counts(q_lo, S, 0, dev)
     hi = torch.clamp(_counts(q_hi, S, kq, dev), max=kq)
     nt = torch.clamp(_counts(n_target, S, kt, dev), max=kt)
@@ -273,9 +293,6 @@ def _pruned_plan(sources, searches, q_lo, q_hi, n_target, kq: int, kt: int) -> _
     ], 1).contiguous()
     # every tile boundary of ``points`` is one of its own source too
     points = torch.cat(sources, 1) if len(sources) > 1 else sources[0]
-    per = max(1, min(65535, PRUNED_TABLE_ENTRIES // ((rows // b) * gj)))
-    n = S * parts
-    launches = [(a, min(a + per, n)) for a in range(0, n, per)]
     return _PrunedPlan(table, static[:, 4:], points,
                        (*_block_boxes(points, b), *_block_boxes(points, tile)),
                        rows, parts, kt, launches)

@@ -4,6 +4,8 @@ Adam settings scored by rank aggregation (``engine.py``, ``paired.py``,
 ``settings.py``, ``rank.py``, ``checkpoint.py``), test-set inference with
 the chosen settings (``infer.py``), and the Learn2Reg task driver and its
 per-case evaluator (``l2r.py``).
+``protocol.py`` runs the whole protocol over both stages, with its fixture
+and log table.
 """
 
 from convexadam_torch.selfconfig.settings import (  # noqa: F401

@@ -412,6 +412,9 @@ class SweepResult:
     # for settings restored from a checkpoint): "dice" (S, P[, 4, 4], L),
     # "sdlogj", "neg_jac_frac" and "hd95" (S, P[, 4, 4]); semantic sweeps only
     cases: dict = dataclasses.field(default_factory=dict)
+    # settings restored from a checkpoint rather than run (0 when none was
+    # given, or when it held another shape and was ignored)
+    resumed: int = 0
 
 
 def _robust30_label_sets(
@@ -538,7 +541,9 @@ def run_stage1_sweep(
 
     With ``checkpoint_path`` the metric arrays are saved after every batch
     of ``setting_batch`` settings; with ``resume`` completed settings are
-    skipped.  With a ``mesh`` the (setting, pair) cells spread over the
+    skipped, and a sweep with none left prepares nothing (no HD95 sides, no
+    kernel build; stage 2 no pass A) and only ranks the restored arrays.
+    With a ``mesh`` the (setting, pair) cells spread over the
     ranks (module docstring); ``dice``, ``jstd``, ``hd95``, ``rank`` and
     ``best`` equal the single-process run's to the bit on every rank.
     ``times[s]`` is the setting's seconds over its pairs, read after the
@@ -549,21 +554,25 @@ def run_stage1_sweep(
     pairs = list(pairs)
     P, L = len(pairs), num_labels
     fan = _Fanout(mesh, P, setting_batch)
-    robust30 = _robust30_label_sets(segs, pairs, num_labels)
-    scoring = _Scoring(np.asarray(preds, np.int32), np.asarray(segs, np.int32), pairs,
-                       num_labels, compute_hd95, hd95_mode, dev, own=fan.pairs)
     S = len(settings)
     arrays = dict(dice=np.zeros((S, 2)), jstd=np.zeros((S, 2)), hd95=np.zeros(S),
                   times=np.zeros(S))
     dice, jstd, hd, times = arrays["dice"], arrays["jstd"], arrays["hd95"], arrays["times"]
     ck, completed = _restore(checkpoint_path, resume, arrays)
+    n_resumed = len(completed)
+    todo = [s for s in range(S) if s not in completed]
     keys = ("dice", "sdlogj", "neg_jac_frac", "hd95")
     cases = dict(dice=np.full((S, P, L), np.nan, np.float32),
                  sdlogj=np.full((S, P), np.nan, np.float32),
                  neg_jac_frac=np.full((S, P), np.nan, np.float32),
                  hd95=np.full((S, P), np.nan))
-    _load_kernels(dev)
-    for batch in fan.batches([s for s in range(S) if s not in completed]):
+    scoring = None  # a sweep restored whole from its checkpoint prepares nothing
+    if todo:
+        robust30 = _robust30_label_sets(segs, pairs, num_labels)
+        scoring = _Scoring(np.asarray(preds, np.int32), np.asarray(segs, np.int32), pairs,
+                           num_labels, compute_hd95, hd95_mode, dev, own=fan.pairs)
+        _load_kernels(dev)
+    for batch in fan.batches(todo):
         cells, secs = [], {}
         for s in fan.settings(batch):
             st = settings[s]
@@ -606,12 +615,13 @@ def run_stage1_sweep(
     rank1 = rank_product(ranks)
     rescored, rescore_sec = _audit(fan, scoring)
     return SweepResult(dice, jstd, hd, times, rank1, int(rank1.argmax()),
-                       rescored, rescore_sec, cases)
+                       rescored, rescore_sec, cases, n_resumed)
 
 
-def _audit(fan: _Fanout, scoring: _Scoring) -> "tuple[int, float]":
-    """The cap-overflow audit summed over the ranks."""
-    parts = fan.gather((scoring.rescored, scoring.rescore_sec))
+def _audit(fan: _Fanout, scoring: "_Scoring | None") -> "tuple[int, float]":
+    """The cap-overflow audit summed over the ranks (none where nothing
+    ran)."""
+    parts = fan.gather((0, 0.0) if scoring is None else (scoring.rescored, scoring.rescore_sec))
     return sum(p[0] for p in parts), sum(p[1] for p in parts)
 
 
@@ -706,33 +716,36 @@ def run_stage2_sweep(
     pairs = list(pairs)
     P, L = len(pairs), num_labels
     fan = _Fanout(mesh, P, setting_batch)
-    robust30 = _robust30_label_sets(segs, pairs, num_labels)
-    scoring = _Scoring(np.asarray(preds, np.int32), np.asarray(segs, np.int32), pairs,
-                       num_labels, compute_hd95, hd95_mode, dev, own=fan.pairs)
-    _load_kernels(dev)
-    pf = [scoring.preds[f] for f in scoring.fi]
-    pm = [scoring.preds[m] for m in scoring.mi]
-    # pass A: the coarse convex fields, and each pair's data-term scale
-    with record_function("sweep.convex"):
-        disps_lr = {
-            i: convex_field_semantic(pf[i], pm[i], convex_setting.nn_mult, num_labels + 1,
-                                     convex_setting.grid_sp, convex_setting.disp_hw, coarse=True,
-                                     device=dev)
-            for i in fan.pairs
-        }
-    scales = {i: _cost_scale(pf[i], pm[i], num_labels) for i in fan.pairs}
-
     S = len(adam_settings)
     arrays = dict(dice=np.zeros((S, 4, 4, 2)), jstd=np.zeros((S, 4, 4, 2)),
                   hd95=np.zeros((S, 4, 4)), times=np.zeros(S))
     dice, jstd, hd, times = arrays["dice"], arrays["jstd"], arrays["hd95"], arrays["times"]
     ck, completed = _restore(checkpoint_path, resume, arrays)
+    n_resumed = len(completed)
+    todo = [s for s in range(S) if s not in completed]
     keys = ("dice", "sdlogj", "neg_jac_frac", "hd95")
     cases = dict(dice=np.full((S, P, 4, 4, L), np.nan, np.float32),
                  sdlogj=np.full((S, P, 4, 4), np.nan, np.float32),
                  neg_jac_frac=np.full((S, P, 4, 4), np.nan, np.float32),
                  hd95=np.full((S, P, 4, 4), np.nan))
-    for batch in fan.batches([s for s in range(S) if s not in completed]):
+    scoring = None  # a sweep restored whole from its checkpoint prepares nothing
+    if todo:
+        robust30 = _robust30_label_sets(segs, pairs, num_labels)
+        scoring = _Scoring(np.asarray(preds, np.int32), np.asarray(segs, np.int32), pairs,
+                           num_labels, compute_hd95, hd95_mode, dev, own=fan.pairs)
+        _load_kernels(dev)
+        pf = [scoring.preds[f] for f in scoring.fi]
+        pm = [scoring.preds[m] for m in scoring.mi]
+        # pass A: the coarse convex fields, and each pair's data-term scale
+        with record_function("sweep.convex"):
+            disps_lr = {
+                i: convex_field_semantic(pf[i], pm[i], convex_setting.nn_mult, num_labels + 1,
+                                         convex_setting.grid_sp, convex_setting.disp_hw,
+                                         coarse=True, device=dev)
+                for i in fan.pairs
+            }
+        scales = {i: _cost_scale(pf[i], pm[i], num_labels) for i in fan.pairs}
+    for batch in fan.batches(todo):
         cells, secs = [], {}
         for s in fan.settings(batch):
             st = adam_settings[s]
@@ -778,5 +791,5 @@ def run_stage2_sweep(
     rescored, rescore_sec = _audit(fan, scoring)
     return SweepResult(
         dice.reshape(S * 16, 2), jstd.reshape(S * 16, 2), flat_hd, times, rank2,
-        int(rank2.argmax()), rescored, rescore_sec, cases,
+        int(rank2.argmax()), rescored, rescore_sec, cases, n_resumed,
     )

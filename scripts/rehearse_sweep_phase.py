@@ -5,13 +5,14 @@ Run from the repository root, with no GPU:
 
     python3 scripts/rehearse_sweep_phase.py
 
-It runs phases 5a-5e with CPU tensors at shrunken shapes (four box-shaped
-organs in 40 x 36 x 48, MIND pairs at 48^3), so the kernel wrappers run
+It runs phases 5a-5f with CPU tensors at shrunken shapes (four box-shaped
+organs in 40 x 36 x 48, MIND pairs at 48^3, 5f's protocol fixture of 10
+subjects at 24 x 20 x 32), so the kernel wrappers run
 their plain versions and meet themselves: it checks the phases' control
 flow, shapes, checkpoint round trip and comparisons, not the kernels.  CUDA
 synchronisation, peak memory, the launch checks (CPU tensors launch
 nothing) and the timing helpers are stubbed, and HD95 takes the device
-engine as it does on the card.  About a minute and a half on 4 threads;
+engine as it does on the card.  About three and a half minutes on 4 threads;
 every time it prints is a host CPU time, not a card's.
 """
 
@@ -60,6 +61,7 @@ def main() -> int:
         "library_device_ms": None, "device_launches": 0, "readings": {}}
     cs.L2R_LABELS, cs.ABDOMEN_SHAPE, cs.HEADLINE_SHAPE = 4, (40, 36, 48), (48, 48, 48)
     cs.PAIRED_SHIFTS = ((2, -1, 1), (-1, 2, 1))
+    cs.PROTOCOL_SHAPE = (24, 20, 32)
     cs.sweep_subjects = _subjects
     resolve = teng._resolve_hd95_mode
     teng._resolve_hd95_mode = lambda mode, shape, dev: resolve(mode or "device", shape, dev)
@@ -73,6 +75,7 @@ def main() -> int:
     cs.sweep_paired_phase(torch, dev, adam[cs.SWEEP_ADAM_GRIDS.index(2)], card, results)
     cs.sweep_resume_phase(torch, dev, segs, settings, first, results)
     cs.sweep_kernel_phase(torch, dev, segs, settings, field25, records, results)
+    cs.protocol_phase(torch, dev, card, records, results)
     print("phase 5 rehearsed on the CPU: every check but the stubbed launch counts held")
     return 0
 
