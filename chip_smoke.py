@@ -248,7 +248,7 @@ Phases, each fatal on failure:
      0.1; peak memory;
   9. the multi-device layer (``convexadam_torch.parallel``):
   9a. ``register_pairs_batched`` on two 192^3 headline pairs, each field
-     equal to its lone call; ``device_usage``, ``stage_timer``,
+     equal to its lone call; ``device_usage``, ``utils/trace.py``'s ``span``,
      ``profile_trace`` and ``probe_device_count() == 1``; the sweep CLI with
      ``--mesh`` over an NCCL group of one rank equal to the CLI without it
      (two of 5a's classes);
@@ -4244,12 +4244,14 @@ def _free_port() -> int:
 def parallel_one_process_phase(torch, dev, vol_np, mov_np, results):
     """9a: ``register_pairs_batched`` on two 192^3 headline pairs, each
     field equal to its lone ``convex_adam_torch`` call to the bit;
-    ``device_usage``, ``stage_timer``, ``profile_trace`` (a non-empty trace
+    ``device_usage``, ``span`` (each lone call's host and stream time in a
+    record, under the profiler), ``profile_trace`` (a non-empty trace
     that shows the cost-volume kernel) and ``probe_device_count() == 1``;
     the sweep CLI with ``--mesh`` over an NCCL process group of one rank,
     its arrays equal to the CLI's without it.  Returns the batch's
     launches and its fields on the host."""
     import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
 
     import convexadam_torch.selfconfig as selfconfig
     from convexadam_torch.cli import sweep as cli_sweep
@@ -4258,8 +4260,9 @@ def parallel_one_process_phase(torch, dev, vol_np, mov_np, results):
     from convexadam_torch.parallel.batch import register_pairs_batched
     from convexadam_torch.parallel.distributed import init_distributed
     from convexadam_torch.pipeline.convex_adam import ConvexAdamConfig, convex_adam_torch
+    from convexadam_torch.utils import trace
     from convexadam_torch.utils.devices import probe_device_count
-    from convexadam_torch.utils.memory import device_usage, profile_trace, stage_timer
+    from convexadam_torch.utils.memory import device_usage, profile_trace
 
     t_phase = time.perf_counter()
     fixed = np.stack([vol_np, vol_np])
@@ -4269,15 +4272,18 @@ def parallel_one_process_phase(torch, dev, vol_np, mov_np, results):
     _launch_checks("9a batched pairs", launches,
                    sweep_expected(**{k: 2 * v for k, v in EXPECTED_LAUNCHES.items()}))
     batched_np = batched.cpu().numpy()
-    timings: dict = {}
-    for i in range(2):
-        with stage_timer("lone", timings):
-            lone = convex_adam_torch(torch.from_numpy(fixed[i]).to(dev),
-                                     torch.from_numpy(moving[i]).to(dev), ConvexAdamConfig())
-            torch.cuda.synchronize()
-        check(torch.equal(lone, batched[i]), f"9a: batched field {i} differs from its lone call "
-              f"by {max_err(lone, batched[i])}")
-    check(timings["lone"] > 0, "9a: stage_timer read nothing")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]), \
+            trace.recording() as rec:
+        trace.on_device(dev)
+        for i in range(2):
+            with trace.span("lone"):
+                lone = convex_adam_torch(torch.from_numpy(fixed[i]).to(dev),
+                                         torch.from_numpy(moving[i]).to(dev), ConvexAdamConfig())
+            check(torch.equal(lone, batched[i]), f"9a: batched field {i} differs from its lone "
+                  f"call by {max_err(lone, batched[i])}")
+    spans = [s for s in rec.spans if s.name == "lone"]
+    check(len(spans) == 2 and all(s.end_ns > s.start_ns and s.stream_ms > 0 for s in spans),
+          f"9a: the lone calls' spans read {spans}")
     usage = device_usage(dev)
     check(usage.startswith("device usage (current/peak): ") and usage.endswith(" GB"),
           f"9a: device_usage gave {usage!r}")
@@ -4331,7 +4337,8 @@ def parallel_one_process_phase(torch, dev, vol_np, mov_np, results):
     for key in ("dice", "jstd", "hd95", "rank"):
         check(np.array_equal(arrays["mesh"][0][key], arrays["plain"][0][key]),
               f"9a: sweep CLI --mesh {key} differs")
-    out = {"batched_s": secs, "pairs": 2, "equal_to_lone": True, "lone_s": timings["lone"],
+    out = {"batched_s": secs, "pairs": 2, "equal_to_lone": True,
+           "lone_s": sum(s.end_ns - s.start_ns for s in spans) / 1e9,
            "device_usage": usage, "trace_bytes": trace_bytes, "probe_device_count": n_cards,
            "cli_settings": [list(dataclasses.astuple(st)) for st in settings],
            "cli_plain_s": arrays["plain"][1], "cli_mesh_s": arrays["mesh"][1],

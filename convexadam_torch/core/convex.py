@@ -21,6 +21,7 @@ import torch.distributed as dist
 from convexadam_torch.core.cost_volume import correlate, displacement_mesh
 from convexadam_torch.core.smoothing import avg_pool3d, window_mean3d
 from convexadam_torch.kernels.cost_volume import cost_volume_block
+from convexadam_torch.utils import trace
 
 COUPLING_COEFFS = (0.003, 0.01, 0.03, 0.1, 0.3, 1.0)
 
@@ -149,31 +150,38 @@ def correlate_coupled_streamed(
     chunk = max(1, COUPLED_CHUNK_BYTES // (3 * K * K * 4))
 
     def block(kh):
-        costs = cost_volume_block(fix, mov, q, kh, 1, metric, mov_row0)
-        for _ in range(smooth_passes):
-            costs = window_mean3d(costs, 3, stride=1, padding=1)
+        with trace.span("convex.cost_volume"):
+            costs = cost_volume_block(fix, mov, q, kh, 1, metric, mov_row0)
+            for _ in range(smooth_passes):
+                costs = window_mean3d(costs, 3, stride=1, padding=1)
         return costs[:, lo:hi].reshape(K * K, n), local + kh
 
     def argmin_pass(s=None, c=None):
-        best = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
-        bidx = torch.full((n,), K**3, dtype=torch.int64, device=dev)
+        with trace.span("convex.coupled"):
+            best = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+            bidx = torch.full((n,), K**3, dtype=torch.int64, device=dev)
         for kh in range(K):
             costs, idx = block(kh)
-            mesh_b = mesh[:, idx]
-            for a in range(0, n, chunk):
-                b = min(a + chunk, n)
-                if s is None:
-                    val, arg = torch.min(costs[:, a:b], dim=0)
-                else:
-                    val, arg = torch.min(_coupled_cost(costs[:, a:b], mesh_b, s[:, a:b], c), dim=0)
-                best[a:b], bidx[a:b] = _first_min(best[a:b], bidx[a:b], val, idx[arg])
+            with trace.span("convex.coupled"):  # the block's fold into the running argmin
+                mesh_b = mesh[:, idx]
+                for a in range(0, n, chunk):
+                    b = min(a + chunk, n)
+                    if s is None:
+                        val, arg = torch.min(costs[:, a:b], dim=0)
+                    else:
+                        val, arg = torch.min(_coupled_cost(costs[:, a:b], mesh_b, s[:, a:b], c),
+                                             dim=0)
+                    best[a:b], bidx[a:b] = _first_min(best[a:b], bidx[a:b], val, idx[arg])
             del costs
         return bidx.reshape(shape)
 
-    disp_soft = smooth(_gather_disp(mesh, argmin_pass()))
+    am = argmin_pass()
+    with trace.span("convex.coupled"):
+        disp_soft = smooth(_gather_disp(mesh, am))
     for c in COUPLING_COEFFS:
         am = argmin_pass(disp_soft.reshape(3, -1), c)
-        disp_soft = smooth(_gather_disp(mesh, am))
+        with trace.span("convex.coupled"):
+            disp_soft = smooth(_gather_disp(mesh, am))
     return disp_soft
 
 
@@ -216,8 +224,12 @@ def convex_displacement(
     kw = dict(metric=metric, smooth_passes=smooth_passes, mov_row0=mov_row0, rows=rows)
     if dense_estimate(disp_hw, feat_fix.shape[1:]) > stream_threshold:
         return correlate_coupled_streamed(feat_fix, feat_mov, disp_hw, smooth=smooth, **kw)
-    ssd, am = correlate(feat_fix, feat_mov, disp_hw, **kw)
-    return coupled_convex(ssd, am, displacement_mesh(disp_hw, device=ssd.device), smooth)
+    with trace.span("convex.cost_volume"):
+        ssd, am = correlate(feat_fix, feat_mov, disp_hw, **kw)
+    # the mesh's pageable copy waits for the queue: outside ``convex.coupled``
+    mesh = displacement_mesh(disp_hw, device=ssd.device)
+    with trace.span("convex.coupled"):
+        return coupled_convex(ssd, am, mesh, smooth)
 
 
 def _candidate_costs(fix, mov, disp_hw, lo, hi, metric):

@@ -34,7 +34,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from convexadam_torch import _resolve_device
 from convexadam_torch.core.features import label_counts
@@ -45,6 +44,7 @@ from convexadam_torch.kernels.edt import (
     nearest_sq_dual,
     nearest_sq_pruned_batched,
 )
+from convexadam_torch.utils import trace
 
 #: Per-axis extent limit of the engine.  Label buffers move coordinates as one
 #: packed int32 (z<<20 | y<<10 | x), 10 bits per axis, and the searches'
@@ -653,10 +653,10 @@ def _hd95_bucketed(seg_fixed, seg_moving, num_labels: int, groups, global_surfac
         for lab in labs:
             caps_l[lab] = k
     caps = tuple(caps_l)
-    with record_function("hd95.surface_buffers"):
+    with trace.span("hd95.surface_buffers"):
         pre = surface_lists(seg_fixed, seg_moving, num_labels, global_surface)
         bufs = label_buffers(pre, num_labels, caps)
-    with record_function("hd95.searches"):
+    with trace.span("hd95.searches"):
         parts = [hd95_from_buffers(bufs, caps, k, missing_value, labs) for labs, k in groups]
     order = [lab for labs, _ in groups for lab in labs]
     inv = [0] * len(order)
@@ -685,7 +685,7 @@ def hd95_device_sized(
     ``device="cpu"``); extents are limited to :data:`MAX_PACKED_EXTENT` per
     axis.  Returns (num_labels,) float32."""
     dev = _resolve_device(device)
-    with record_function("hd95.host_caps"):
+    with trace.span("hd95.host_caps"):
         host_f = seg_fixed.cpu().numpy() if isinstance(seg_fixed, torch.Tensor) else seg_fixed
         host_m = seg_moving.cpu().numpy() if isinstance(seg_moving, torch.Tensor) else seg_moving
         groups, global_cap = suggest_hd95_caps(host_f, host_m, num_labels)

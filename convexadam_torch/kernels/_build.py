@@ -28,6 +28,8 @@ import subprocess
 
 import torch
 
+from convexadam_torch.utils import trace
+
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -79,6 +81,7 @@ def build_all(names=KERNEL_SOURCES) -> None:
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
+    trace.count("kernel_builds", len(procs))
     failed = []
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
@@ -100,6 +103,7 @@ def load(name: str) -> ctypes.CDLL:
             build_all((name,))
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
+        trace.count("kernel_loads")
     return lib
 
 

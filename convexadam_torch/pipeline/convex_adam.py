@@ -36,6 +36,7 @@ from convexadam_torch.core.convex import convex_displacement
 from convexadam_torch.core.features import mindssc, nnunet_norm, semantic_features
 from convexadam_torch.core.smoothing import avg_pool3d, box_smooth_repeated
 from convexadam_torch.core.warp import inverse_consistency, resize_trilinear
+from convexadam_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +107,9 @@ def _convex_stage(
     """
     g = cfg.grid_sp
     check_grids(cfg, full_shape)
-    return _convex_pooled(avg_pool3d(feat_fix, g, stride=g), avg_pool3d(feat_mov, g, stride=g),
-                          cfg, full_shape, for_adam_init, coarse)
+    with trace.span("convex.pool"):
+        fix_s, mov_s = avg_pool3d(feat_fix, g, stride=g), avg_pool3d(feat_mov, g, stride=g)
+    return _convex_pooled(fix_s, mov_s, cfg, full_shape, for_adam_init, coarse)
 
 
 def _convex_pooled(
@@ -127,17 +129,23 @@ def _convex_pooled(
     disp_soft = convex_displacement(fix_s, mov_s, cfg.disp_hw, **kw)
     if cfg.ic:
         h, w, d = disp_soft.shape[1:]
-        scale = torch.tensor(
-            [(h - 1) / 2.0, (w - 1) / 2.0, (d - 1) / 2.0], dtype=torch.float32,
-            device=disp_soft.device,
-        ).reshape(3, 1, 1, 1)
+        with trace.span("convex.ic"):
+            scale = torch.tensor(
+                [(h - 1) / 2.0, (w - 1) / 2.0, (d - 1) / 2.0], dtype=torch.float32,
+                device=disp_soft.device,
+            ).reshape(3, 1, 1, 1)
         disp_soft_r = convex_displacement(mov_s, fix_s, cfg.disp_hw, **kw)
-        disp_ice, _ = inverse_consistency(disp_soft / scale, disp_soft_r / scale, iters=15)
-        disp_lr = disp_ice * scale * g
-        return disp_lr if coarse else resize_trilinear(disp_lr, (H, W, D), align_corners=False)
+        with trace.span("convex.ic"):
+            disp_ice, _ = inverse_consistency(disp_soft / scale, disp_soft_r / scale, iters=15)
+            disp_lr = disp_ice * scale * g
+        if coarse:
+            return disp_lr
+        with trace.span("convex.upsample"):
+            return resize_trilinear(disp_lr, (H, W, D), align_corners=False)
     if for_adam_init or coarse:
         return disp_soft * g
-    return resize_trilinear(disp_soft * g, (H, W, D), align_corners=False)
+    with trace.span("convex.upsample"):
+        return resize_trilinear(disp_soft * g, (H, W, D), align_corners=False)
 
 
 def _adam_inputs(

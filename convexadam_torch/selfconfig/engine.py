@@ -33,13 +33,13 @@ is re-scored exactly right after its pair, outside the timed window.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 import warnings
 from typing import Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from convexadam_torch import _resolve_device
 from convexadam_torch.core.adam import adam_instance_optimisation
@@ -86,6 +86,7 @@ from convexadam_torch.selfconfig.settings import (
     Stage1Setting,
     Stage2Setting,
 )
+from convexadam_torch.utils import trace
 
 # ---------------------------------------------------------------------------
 # per-pair computations
@@ -117,10 +118,16 @@ def convex_field_semantic(
     cfg = ConvexAdamConfig(grid_sp=grid_sp, disp_hw=disp_hw, ic=True)
     check_grids(cfg, tuple(pf.shape))
     with torch.no_grad():
-        ff, fm = semantic_features(pf, pm, num_labels=num_labels, mult=1.0)
-        fix_s = avg_pool3d(ff.mul_(nn_mult), grid_sp, stride=grid_sp)
+        with trace.span("convex.features"):
+            ff, fm = semantic_features(pf, pm, num_labels=num_labels, mult=1.0)
+            ff.mul_(nn_mult)
+        with trace.span("convex.pool"):
+            fix_s = avg_pool3d(ff, grid_sp, stride=grid_sp)
         del ff
-        mov_s = avg_pool3d(fm.mul_(nn_mult), grid_sp, stride=grid_sp)
+        with trace.span("convex.features"):
+            fm.mul_(nn_mult)
+        with trace.span("convex.pool"):
+            mov_s = avg_pool3d(fm, grid_sp, stride=grid_sp)
         del fm
         return _convex_pooled(fix_s, mov_s, cfg, tuple(pf.shape), coarse=coarse)
 
@@ -140,7 +147,8 @@ def convex_field_mind(
     f, m = _on(img_fixed, dev, torch.float32), _on(img_moving, dev, torch.float32)
     cfg = ConvexAdamConfig(grid_sp=grid_sp, disp_hw=disp_hw, ic=True)
     with torch.no_grad():
-        ff, fm = mindssc(f, mind_r, mind_d), mindssc(m, mind_r, mind_d)
+        with trace.span("convex.features"):
+            ff, fm = mindssc(f, mind_r, mind_d), mindssc(m, mind_r, mind_d)
         return _convex_stage(ff, fm, cfg, tuple(f.shape))
 
 
@@ -258,10 +266,13 @@ class _HD95Scorer:
         return pre, bufs
 
     def __call__(self, seg_fixed: torch.Tensor, prepared, seg_warped: torch.Tensor):
-        pre, bufs = self.buffers(seg_fixed, prepared, seg_warped)
-        parts = [hd95_from_buffers(bufs, self.caps, k, labels=labs) for labs, k in self.groups]
-        per_label = torch.cat(parts)[self.inv]
-        return per_label, caps_overflow(pre, bufs, self.caps)
+        with trace.span("hd95.surface_buffers"):
+            pre, bufs = self.buffers(seg_fixed, prepared, seg_warped)
+        with trace.span("hd95.searches"):
+            parts = [hd95_from_buffers(bufs, self.caps, k, labels=labs) for labs, k in self.groups]
+            per_label = torch.cat(parts)[self.inv]
+        with trace.span("hd95.overflow"):
+            return per_label, caps_overflow(pre, bufs, self.caps)
 
 
 def _exact_hd95_rescore(
@@ -326,9 +337,30 @@ def _load_kernels(dev: torch.device) -> None:
     """Build (at first use) and load every kernel library before the first
     timed setting, so that no ``times[s]`` holds an ``nvcc`` build."""
     if dev.type == "cuda":
-        _build.build_all()
-        for name in _build.KERNEL_SOURCES:
-            _build.load(name)
+        with trace.span("sweep.prep.kernels"):
+            _build.build_all()
+            for name in _build.KERNEL_SOURCES:
+                _build.load(name)
+
+
+def _setting_sync(dev: torch.device) -> None:
+    """Wait for the card before a setting's clock starts (a wait that
+    torch's sync debug mode does not mark, so counted here)."""
+    if dev.type == "cuda":
+        _sync(dev)
+        trace.count("host_waits.setting_sync")
+
+
+def _recorded(sweep):
+    """Run ``sweep`` inside a :func:`trace.recording` and return its
+    ``SweepResult`` with the record's spans and counters (empty unless a
+    profiler recorded)."""
+    @functools.wraps(sweep)
+    def run(*args, **kwargs):
+        with trace.recording() as rec:
+            res = sweep(*args, **kwargs)
+        return dataclasses.replace(res, spans=rec.spans, counters=rec.counters)
+    return run
 
 
 class _Scoring:
@@ -343,39 +375,42 @@ class _Scoring:
         self.segs_np = segs_np
         self.fi = [p[0] for p in pairs]
         self.mi = [p[1] for p in pairs]
-        self.preds = torch.from_numpy(preds_np).to(dev)
-        self.segs = torch.from_numpy(segs_np).to(dev)
+        with trace.span("sweep.prep.upload"):
+            self.preds = torch.from_numpy(preds_np).to(dev)
+            self.segs = torch.from_numpy(segs_np).to(dev)
         self.mode = (
             _resolve_hd95_mode(hd95_mode, segs_np.shape[1:], dev) if compute_hd95 else None
         )
         self.rescored, self.rescore_sec = 0, 0.0  # the sweep's cap-overflow audit
         self.scorer = self.sides = None
         if self.mode == "device":
-            groups, kg = _suggest_label_groups(segs_np, num_labels)
-            self.scorer = _HD95Scorer(num_labels, groups, kg, dev)
+            with trace.span("sweep.prep.label_groups"):
+                groups, kg = _suggest_label_groups(segs_np, num_labels)
             own = range(len(self.fi)) if own is None else own
-            with torch.no_grad():
+            with trace.span("sweep.prep.hd95_sides"), torch.no_grad():
+                self.scorer = _HD95Scorer(num_labels, groups, kg, dev)
                 self.sides = {i: self.scorer.prep(self.segs[self.fi[i]]) for i in own}
 
-    def pair(self, i: int, fields):
-        """Score the fields (3, H, W, D) of pair ``i``.  Returns host arrays
-        (dice (V, L) f32, sdlogj (V,) f32, neg_frac (V,) f32, hd95 (V,) f64)
-        and the seconds to keep out of the timed window (the host HD95 loop,
-        or the re-scoring, which also goes to the overflow audit)."""
+    def pair(self, s: int, i: int, fields):
+        """Score the fields (3, H, W, D) of setting ``s`` and pair ``i``.
+        Returns host arrays (dice (V, L) f32, sdlogj (V,) f32, neg_frac (V,)
+        f32, hd95 (V,) f64) and the seconds to keep out of the timed window
+        (the host HD95 loop, or the re-scoring, which also goes to the
+        overflow audit)."""
         f, m, L = self.fi[i], self.mi[i], self.num_labels
         sf, sm = self.segs[f], self.segs[m]
         dice, js, nf, hd_l, over, warped = [], [], [], [], [], []
         with torch.no_grad():
             for disp in fields:
-                with record_function("sweep.evaluate"):
+                with trace.span("sweep.evaluate", (s, i)):
                     d, j, n, sw = evaluate_field_semantic(disp, sf, sm, L, device=self.dev)
                 dice.append(d), js.append(j), nf.append(n), warped.append(sw)
                 if self.mode == "device":
-                    with record_function("sweep.hd95"):
+                    with trace.span("sweep.hd95", (s, i)):
                         h, o = self.scorer(sf, self.sides[i], sw)
                     hd_l.append(h), over.append(o)
             # the pair's scalars to the host, after its last launch
-            with record_function("sweep.fetch"):
+            with trace.span("sweep.fetch", (s, i)):
                 out = [torch.stack(x).cpu().numpy() for x in (dice, js, nf)]
                 hd_case = np.full(len(warped), np.nan)  # no HD95 without compute_hd95
                 if self.mode == "device":
@@ -383,7 +418,8 @@ class _Scoring:
                     over_np = torch.stack(over).cpu().numpy()
         t0 = time.perf_counter()
         if self.mode == "device":
-            n_r, t_r = _rescore_overflows(hd_case, over_np, warped, self.segs_np[f], L)
+            with trace.span("sweep.rescore", (s, i)):
+                n_r, t_r = _rescore_overflows(hd_case, over_np, warped, self.segs_np[f], L)
             self.rescored += n_r
             self.rescore_sec += t_r
         elif self.mode == "host":
@@ -415,6 +451,10 @@ class SweepResult:
     # settings restored from a checkpoint rather than run (0 when none was
     # given, or when it held another shape and was ignored)
     resumed: int = 0
+    # this rank's record of the call (``utils/trace.py``): its spans and
+    # counters, empty unless a profiler recorded
+    spans: list = dataclasses.field(default_factory=list)
+    counters: dict = dataclasses.field(default_factory=dict)
 
 
 def _robust30_label_sets(
@@ -511,6 +551,7 @@ def _fill(cases: dict, times: np.ndarray, gathered: list, keys) -> None:
         times[s] = t
 
 
+@_recorded
 def run_stage1_sweep(
     preds: np.ndarray,
     segs: np.ndarray,
@@ -551,6 +592,7 @@ def run_stage1_sweep(
     with a mesh, the longest any rank spent on it.
     """
     dev = _sweep_device(device, mesh)
+    trace.on_device(dev)
     pairs = list(pairs)
     P, L = len(pairs), num_labels
     fan = _Fanout(mesh, P, setting_batch)
@@ -568,23 +610,21 @@ def run_stage1_sweep(
                  hd95=np.full((S, P), np.nan))
     scoring = None  # a sweep restored whole from its checkpoint prepares nothing
     if todo:
-        robust30 = _robust30_label_sets(segs, pairs, num_labels)
-        scoring = _Scoring(np.asarray(preds, np.int32), np.asarray(segs, np.int32), pairs,
-                           num_labels, compute_hd95, hd95_mode, dev, own=fan.pairs)
-        _load_kernels(dev)
+        robust30, scoring = _prepare(preds, segs, pairs, num_labels, compute_hd95, hd95_mode,
+                                     dev, fan)
     for batch in fan.batches(todo):
         cells, secs = [], {}
         for s in fan.settings(batch):
             st = settings[s]
-            _sync(dev)
+            _setting_sync(dev)
             t0, excluded = time.perf_counter(), 0.0
             for i in fan.pairs:
-                with record_function("sweep.convex"):
+                with trace.span("sweep.convex", (s, i)):
                     field = convex_field_semantic(
                         scoring.preds[scoring.fi[i]], scoring.preds[scoring.mi[i]], st.nn_mult,
                         num_labels + 1, st.grid_sp, st.disp_hw, device=dev,
                     )
-                out, t_ex = scoring.pair(i, [field])
+                out, t_ex = scoring.pair(s, i, [field])
                 del field
                 excluded += t_ex
                 cells.append((s, i, *(v[0] for v in out)))
@@ -616,6 +656,22 @@ def run_stage1_sweep(
     rescored, rescore_sec = _audit(fan, scoring)
     return SweepResult(dice, jstd, hd, times, rank1, int(rank1.argmax()),
                        rescored, rescore_sec, cases, n_resumed)
+
+
+def _prepare(preds, segs, pairs, num_labels, compute_hd95, hd95_mode, dev, fan):
+    """What both semantic stages prepare once a call: the :class:`_Scoring`
+    of this rank's pairs, the robust-30 label sets and the loaded kernels.
+    The robust-30 sets are host work after the scoring's last launches, so
+    the card's idle stretch while the host makes them begins inside their
+    span (a trace names an idle stretch by the host's range as it
+    begins)."""
+    with trace.span("sweep.prep"):
+        scoring = _Scoring(np.asarray(preds, np.int32), np.asarray(segs, np.int32), pairs,
+                           num_labels, compute_hd95, hd95_mode, dev, own=fan.pairs)
+        with trace.span("sweep.prep.robust30"):
+            robust30 = _robust30_label_sets(segs, pairs, num_labels)
+        _load_kernels(dev)
+    return robust30, scoring
 
 
 def _audit(fan: _Fanout, scoring: "_Scoring | None") -> "tuple[int, float]":
@@ -669,7 +725,7 @@ def _stage2_variants(
         patch_fix, patch_mov, init = _adam_inputs(ff, fm, disp_hr0, cfg)
     del ff, fm, disp_hr0
     # the caller may iterate under no_grad; the Adam loop needs autograd
-    with torch.enable_grad(), record_function("sweep.adam"):
+    with torch.enable_grad(), trace.span("sweep.adam"):
         _, snaps = adam_instance_optimisation(
             patch_fix, patch_mov, init, lambda_weight, niter=120,
             snapshot_iters=STAGE2_SNAPSHOT_ITERS, smoother=("bank", avg_n),
@@ -677,15 +733,16 @@ def _stage2_variants(
         )
     del patch_fix, patch_mov, init
     for snap in snaps:  # detached snapshots
-        with record_function("sweep.variants"):
+        with trace.span("sweep.variants"):
             disp_hr = _upsample_and_smooth(snap, shape, grid_sp_adam, 0)
         for kk in range(STAGE2_SMOOTH_LEVELS):
             if kk > 0:
-                with record_function("sweep.variants"):
+                with trace.span("sweep.variants"):
                     disp_hr = box_smooth_repeated(disp_hr, 3, 1)
             yield disp_hr
 
 
+@_recorded
 def run_stage2_sweep(
     preds: np.ndarray,
     segs: np.ndarray,
@@ -713,6 +770,7 @@ def run_stage2_sweep(
     ``compute_hd95`` defaults True like stage 1: the reference's rank always
     includes HD95 (adam_run_withconfig_shiftSpline.py:276)."""
     dev = _sweep_device(device, mesh)
+    trace.on_device(dev)
     pairs = list(pairs)
     P, L = len(pairs), num_labels
     fan = _Fanout(mesh, P, setting_batch)
@@ -730,14 +788,12 @@ def run_stage2_sweep(
                  hd95=np.full((S, P, 4, 4), np.nan))
     scoring = None  # a sweep restored whole from its checkpoint prepares nothing
     if todo:
-        robust30 = _robust30_label_sets(segs, pairs, num_labels)
-        scoring = _Scoring(np.asarray(preds, np.int32), np.asarray(segs, np.int32), pairs,
-                           num_labels, compute_hd95, hd95_mode, dev, own=fan.pairs)
-        _load_kernels(dev)
+        robust30, scoring = _prepare(preds, segs, pairs, num_labels, compute_hd95, hd95_mode,
+                                     dev, fan)
         pf = [scoring.preds[f] for f in scoring.fi]
         pm = [scoring.preds[m] for m in scoring.mi]
         # pass A: the coarse convex fields, and each pair's data-term scale
-        with record_function("sweep.convex"):
+        with trace.span("sweep.convex"):
             disps_lr = {
                 i: convex_field_semantic(pf[i], pm[i], convex_setting.nn_mult, num_labels + 1,
                                          convex_setting.grid_sp, convex_setting.disp_hw,
@@ -749,14 +805,14 @@ def run_stage2_sweep(
         cells, secs = [], {}
         for s in fan.settings(batch):
             st = adam_settings[s]
-            _sync(dev)
+            _setting_sync(dev)
             t0, excluded = time.perf_counter(), 0.0
             for i in fan.pairs:
                 fields = _stage2_variants(
                     pf[i], pm[i], disps_lr[i], convex_setting.nn_mult, st.lambda_weight,
                     st.grid_sp_adam, st.effective_avg_n, num_labels, scales[i], feat_dtype,
                 )
-                out, t_ex = scoring.pair(i, fields)
+                out, t_ex = scoring.pair(s, i, fields)
                 excluded += t_ex
                 cells.append((s, i, *(v.reshape((4, 4) + v.shape[1:]) for v in out)))
             secs[s] = time.perf_counter() - t0 - excluded

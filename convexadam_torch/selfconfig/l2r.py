@@ -25,7 +25,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from convexadam_torch import _resolve_device
 from convexadam_torch.core.edt import MAX_PACKED_EXTENT, hd95_device_sized
@@ -45,6 +44,7 @@ from convexadam_torch.pipeline.convex_adam import (
 )
 from convexadam_torch.pipeline.preprocess import mask_infill
 from convexadam_torch.selfconfig.rank import aggregate_ranks, noisy_metric_rank
+from convexadam_torch.utils import trace
 
 
 def _on(x, device: torch.device, dtype=None) -> torch.Tensor:
@@ -96,14 +96,14 @@ def evaluate_field(
     out: dict = {}
     # the ranges cost nothing without a profiler; they let
     # scripts/profile_torch_evaluation.py split this entry's time by stage
-    with record_function("evaluate_field.jacobian"):
+    with trace.span("evaluate_field.jacobian"):
         d = _on(disp, dev, torch.float32).permute(3, 0, 1, 2).contiguous()
         det = jacobian_determinant(d)
         logj = torch.log(torch.clamp(det + 3.0, 1e-9, 1e9))
         out["sdlogj"] = float(torch.std(logj.double(), correction=0))
         out["neg_jac_frac"] = float((det < 0).double().mean())
     if seg_fixed is not None and num_labels > 0:
-        with record_function("evaluate_field.warp_dice"):
+        with trace.span("evaluate_field.warp_dice"):
             seg_f = _on(seg_fixed, dev)
             warped = warp_with_displacement(
                 _on(seg_moving, dev, torch.float32)[None], d, mode="nearest"
@@ -113,7 +113,7 @@ def evaluate_field(
         k = max(1, int((num_labels + 1) * 0.3))
         out["dice30"] = float(np.sort(dice)[:k].mean())
         if compute_hd95:
-            with record_function("evaluate_field.hd95"):
+            with trace.span("evaluate_field.hd95"):
                 if beyond:
                     out["hd95"] = hd95(seg_f.numpy(), warped.numpy(), num_labels)
                 else:
@@ -121,7 +121,7 @@ def evaluate_field(
                         seg_f, warped, num_labels, device=dev
                     ).cpu().numpy()
     if kpts_fixed is not None:
-        with record_function("evaluate_field.tre"):
+        with trace.span("evaluate_field.tre"):
             tre = keypoint_tre(
                 d,
                 _on(kpts_fixed, dev, torch.float32),

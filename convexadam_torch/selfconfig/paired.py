@@ -34,8 +34,9 @@ from convexadam_torch.selfconfig.engine import (
     _Fanout,
     _fill,
     _load_kernels,
+    _recorded,
+    _setting_sync,
     _sweep_device,
-    _sync,
     convex_field_mind,
 )
 from convexadam_torch.selfconfig.settings import (
@@ -44,6 +45,7 @@ from convexadam_torch.selfconfig.settings import (
     Stage1PairedSetting,
     Stage2Setting,
 )
+from convexadam_torch.utils import trace
 
 
 def _robust30_keypoints(kf: np.ndarray, km: np.ndarray) -> np.ndarray:
@@ -86,18 +88,25 @@ def _field_metrics(disp, kf, km, mask, rmask, spacing) -> torch.Tensor:
 
 def _paired_batch(imgs_fixed, imgs_moving, kpts_fixed, kpts_moving, spacing, dev):
     """Shared setup of both paired sweeps: the volumes and the padded
-    keypoint batches on the device, and the spacing."""
+    keypoint batches on the device, and the spacing; the kernels loaded."""
     P = len(imgs_fixed)
-    robust30 = [
-        _robust30_keypoints(np.asarray(kpts_fixed[i]), np.asarray(kpts_moving[i]))
-        for i in range(P)
-    ]
-    kpts = _padded_keypoints(kpts_fixed, kpts_moving, robust30, dev)
-    imgs = [torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in (imgs_fixed, imgs_moving)]
-    sp = None if spacing is None else torch.as_tensor(np.asarray(spacing, np.float32)).to(dev)
+    with trace.span("sweep.prep"):
+        with trace.span("sweep.prep.robust30"):
+            robust30 = [
+                _robust30_keypoints(np.asarray(kpts_fixed[i]), np.asarray(kpts_moving[i]))
+                for i in range(P)
+            ]
+        with trace.span("sweep.prep.upload"):
+            kpts = _padded_keypoints(kpts_fixed, kpts_moving, robust30, dev)
+            imgs = [torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                    for a in (imgs_fixed, imgs_moving)]
+            sp = (None if spacing is None
+                  else torch.as_tensor(np.asarray(spacing, np.float32)).to(dev))
+        _load_kernels(dev)
     return P, imgs, kpts, sp
 
 
+@_recorded
 def run_stage1_paired_sweep(
     imgs_fixed: np.ndarray,
     imgs_moving: np.ndarray,
@@ -119,6 +128,7 @@ def run_stage1_paired_sweep(
     unless ``device="cpu"``; a ``mesh`` and ``setting_batch`` spread the
     cells over ranks as in ``engine.run_stage1_sweep``."""
     dev = _sweep_device(device, mesh)
+    trace.on_device(dev)
     S = len(settings)
     tre = np.zeros((S, 2))
     jstd = np.zeros((S, 2))
@@ -128,20 +138,23 @@ def run_stage1_paired_sweep(
     )
     fan = _Fanout(mesh, P, setting_batch)
     mets = {"m": np.zeros((S, P, 4), np.float32)}
-    _load_kernels(dev)
     for batch in fan.batches(list(range(S))):
         cells, secs = [], {}
         for s in fan.settings(batch):
             st = settings[s]
-            _sync(dev)
+            _setting_sync(dev)
             t0 = time.perf_counter()
             local = []
             for i in fan.pairs:
-                disp = convex_field_mind(imgs_f[i], imgs_m[i], st.mind_r, st.mind_d, st.grid_sp,
-                                         st.disp_hw, device=dev)
-                local.append(_field_metrics(disp, kf[i], km[i], mask[i], rmask[i], sp))
+                with trace.span("sweep.convex", (s, i)):
+                    disp = convex_field_mind(imgs_f[i], imgs_m[i], st.mind_r, st.mind_d,
+                                             st.grid_sp, st.disp_hw, device=dev)
+                with trace.span("sweep.evaluate", (s, i)):
+                    local.append(_field_metrics(disp, kf[i], km[i], mask[i], rmask[i], sp))
             if local:  # four scalars a pair reach the host
-                cells += [(s, i, m) for i, m in zip(fan.pairs, torch.stack(local).cpu().numpy())]
+                with trace.span("sweep.fetch", (s, None)):
+                    m = torch.stack(local).cpu().numpy()
+                cells += [(s, i, m_i) for i, m_i in zip(fan.pairs, m)]
             secs[s] = time.perf_counter() - t0
         _fill(mets, times, fan.gather((cells, secs)), ("m",))
         for s in batch:
@@ -156,6 +169,7 @@ def run_stage1_paired_sweep(
     return SweepResult(tre, jstd, np.zeros(S), times, rank1, int(rank1.argmax()))
 
 
+@_recorded
 def run_stage2_paired_sweep(
     imgs_fixed: np.ndarray,
     imgs_moving: np.ndarray,
@@ -178,13 +192,13 @@ def run_stage2_paired_sweep(
     the rank's own pairs) and feed its convex field
     (:func:`convex_field_mind`'s stages) and every setting's Adam."""
     dev = _sweep_device(device, mesh)
+    trace.on_device(dev)
     P, (imgs_f, imgs_m), (kf, km, mask, rmask), sp = _paired_batch(
         imgs_fixed, imgs_moving, kpts_fixed, kpts_moving, spacing, dev
     )
     fan = _Fanout(mesh, P, setting_batch)
     H, W, D = imgs_f.shape[1:]
     r, d = convex_setting.mind_r, convex_setting.mind_d
-    _load_kernels(dev)
     # pass A: the MIND features and the full-resolution convex fields
     cfg = ConvexAdamConfig(grid_sp=convex_setting.grid_sp, disp_hw=convex_setting.disp_hw)
     with torch.no_grad():
@@ -200,7 +214,7 @@ def run_stage2_paired_sweep(
         cells, secs = [], {}
         for s in fan.settings(batch):
             st = adam_settings[s]
-            _sync(dev)
+            _setting_sync(dev)
             t0 = time.perf_counter()
             g = st.grid_sp_adam
             mets = []

@@ -1,13 +1,13 @@
 """Device memory reporting (the reference's ``gpu_usage``,
-convex_adam_utils.py:138-139), a profiler trace and stage timers.
+convex_adam_utils.py:138-139) and a profiler trace.
 
-Counterpart of ``convexadam_tpu/utils/memory.py``.
+Counterpart of ``convexadam_tpu/utils/memory.py``, whose stage timers the
+port's spans replace (``utils/trace.py``: on while this trace records).
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 
 import torch
 
@@ -39,20 +39,3 @@ def profile_trace(log_dir):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
-
-
-@contextlib.contextmanager
-def stage_timer(name: str, timings: "dict | None" = None, verbose: bool = False):
-    """Host wall clock of a pipeline stage, added to ``timings[name]`` (the
-    reference brackets stages with cuda.synchronize + time.time,
-    convex_adam_nnUNet.py:57-58,146-149).  It does not synchronise: CUDA
-    calls return before the card finishes, so callers wait for their
-    results inside the block (``torch.cuda.synchronize()``, or a copy to the
-    host)."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if timings is not None:
-        timings[name] = timings.get(name, 0.0) + dt
-    if verbose:
-        print(f"{name}: {dt:.3f}s")

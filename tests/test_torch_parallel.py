@@ -32,6 +32,7 @@ from convexadam_torch.parallel import batch as tbatch
 from convexadam_torch.parallel import distributed as tdist
 from convexadam_torch.utils import devices as tdevices
 from convexadam_torch.utils import memory as tmemory
+from convexadam_torch.utils import trace as ttrace
 from convexadam_tpu.core import convex as jconvex
 from convexadam_tpu.geometry.io import save_volume_nib_order
 from tests import torch_parallel_worker as w
@@ -298,18 +299,22 @@ def test_setting_batch_sets_the_checkpoint_batches(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 def test_stage_timer_and_profile_trace(tmp_path):
-    """``stage_timer`` adds each block's host seconds under its name;
-    ``profile_trace`` writes a non-empty Chrome trace."""
-    timings: dict = {}
-    with tmemory.stage_timer("a", timings):
-        time.sleep(0.01)
-    with tmemory.stage_timer("a", timings):
-        pass
-    assert 0.01 <= timings["a"] < 5.0
-    with tmemory.profile_trace(tmp_path / "trace"):
-        torch.ones(64).sum()
+    """The port's stage timer is ``utils/trace.py``'s span, on while
+    ``profile_trace`` records: each block's host seconds go to the record
+    under its name, and its range to the non-empty Chrome trace."""
+    with tmemory.profile_trace(tmp_path / "trace"), ttrace.recording() as rec:
+        with ttrace.span("a"):
+            time.sleep(0.01)
+        with ttrace.span("a"):
+            torch.ones(64).sum()
+    assert [s.name for s in rec.spans] == ["a", "a"]
+    assert 0.01 <= (rec.spans[0].end_ns - rec.spans[0].start_ns) / 1e9 < 5.0
     trace = tmp_path / "trace" / "trace.json"
-    assert trace.stat().st_size > 0 and "traceEvents" in trace.read_text()
+    assert trace.stat().st_size > 0 and '"a"' in trace.read_text()
+    with ttrace.recording() as rec:  # no profiler: no span
+        with ttrace.span("a"):
+            pass
+    assert rec.spans == []
 
 
 def test_device_usage_and_probe(monkeypatch):
