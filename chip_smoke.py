@@ -9,10 +9,10 @@ Phases, each fatal on failure:
   1. card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``;
   2. build: the CUDA kernels of ``convexadam_torch/csrc`` (one nvcc per source),
      with the registers and spills ``ptxas`` reports for the kernels of
-     ``warp.cu``, ``mind.cu``, ``cost_volume.cu`` and ``edt.cu`` (the backward
-     kernel must fit 64 registers; the data term's, the forward sampler's,
-     every MIND kernel, every cost-volume kernel and the three searches must
-     not spill);
+     ``warp.cu``, ``mind.cu``, ``cost_volume.cu``, ``edt.cu`` and
+     ``convex.cu`` (the backward kernel must fit 64 registers; the data
+     term's, the forward sampler's, every MIND kernel, every cost-volume
+     kernel, the three searches and the coupled argmin fold must not spill);
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the main path's shapes and dtypes (and a ragged shape for the MIND and
      sampling kernels; the sampler with float32 and bfloat16 volumes), with
@@ -58,6 +58,18 @@ Phases, each fatal on failure:
      41 x 29 grid that neither stride divides, rows to the bit;
      both forms on lattice rows from ``row0`` (9d's slabs) of the ragged
      grids, equal to the plain version and to the whole lattice's rows;
+  3g. the coupled argmin fold against its plain version to the bit at every
+     (grid_sp, disp_hw) class of the benchmark's two cells (K^3 125 to 3375,
+     n 62016 to 1204224), task 1's q = 8 and a voxel count that 4, 32 and
+     256 do not divide, at each of the six couplings, with integer costs
+     (ties in every voxel), one kernel launch a call; in the streamed path's
+     shuffled kh blocks, in shuffled rank slices and from row-strided views
+     (aligned, and one float off), equal to the whole fold; with NaNs
+     planted, equal to ``torch.argmin`` of the coupled cost on the card; the
+     dense, streamed, tensor-parallel and plain-fold convex fields of the
+     headline label pair at the (3, 3) class equal after each coupling;
+     every class timed (call, device, bound = K^3 n 4 bytes at 3.35 TB/s,
+     plain), the lung's (2, 5) class the record;
   3c. the sampler on the inverse-consistency fields (to the bit, and to
      1e-5 against ``F.grid_sample``), and the fused
      inverse-consistency steps (15 per call, 2 x 3 x 32^3 and a ragged 37 x
@@ -88,7 +100,8 @@ Phases, each fatal on failure:
   4. main path: ``convex_adam`` with the default config on the 192^3 headline
      pair (seed 0, shift (5, -4, 3)): the shift must be recovered and every
      kernel launched (mind / cost volume / inverse-consistency steps / data
-     term 2 / 2 / 15 / 80 per registration, no plain sampler launch); the golden 48^3
+     term 2 / 2 / 15 / 80 per registration, 12 coupled argmin folds, no
+     plain sampler launch); the golden 48^3
      fixture must stay inside the JAX package's f32 and bf16 envelopes;
   4g. the same registration at ``mind_r=4, mind_d=1``: two launches of
      ``mind_general_kernel`` (counted and seen by the profiler), none of a
@@ -324,9 +337,11 @@ PROFILER_SESSIONS = 10
 HEADLINE_SHAPE = (192, 192, 192)
 HEADLINE_SHIFT = (5, -4, 3)
 IC_ITERS = 15  # the pipeline's inverse-consistency steps
+FOLDS = 6  # coupled argmin folds a dense convex direction: one a coupling round
 EXPECTED_LAUNCHES = {
     "mind_ssd_stats": 2, "cost_volume": 2, "sample_trilinear_ic": IC_ITERS,
     "warp_ssd_loss_grad": 80, "sample_trilinear": 0, "sample_trilinear_bwd": 0,
+    "coupled_argmin": 2 * FOLDS,
 }
 MIND_PAIRS = [(r, d) for r in (1, 2, 3) for d in (1, 2, 3)]  # the search's MIND radii, dilations
 # pairs outside {1, 2, 3}^2, which run the general kernel: every pair whose
@@ -376,6 +391,7 @@ SEMANTIC_LABELS = L2R_LABELS + 1  # the one-hot channels: 13 organs and the back
 EXPECTED_SEMANTIC_LAUNCHES = {
     "mind_ssd_stats": 0, "cost_volume": 2, "sample_trilinear_ic": IC_ITERS,
     "warp_ssd_loss_grad": 80, "sample_trilinear": 0, "sample_trilinear_bwd": 0,
+    "coupled_argmin": 2 * FOLDS,
 }
 EXPECTED_AUTODIFF_LAUNCHES = {
     "sample_trilinear": 80, "sample_trilinear_bwd": 80, "warp_ssd_loss_grad": 0,
@@ -400,6 +416,8 @@ REPLACES = {
     "cost_volume_general": "convexadam_tpu/ops/cost_volume_pallas.py:96",
     "warp_ssd_loss_grad_strided": "convexadam_tpu/ops/warp_pallas.py:268",
     "mind_ssd_stats_general": "convexadam_tpu/ops/mind_pallas.py:196",
+    # no Pallas kernel: the JAX package leaves its coupled argmin to XLA
+    "coupled_argmin": "convexadam_tpu/core/convex.py:coupled_convex (XLA)",
 }
 SOURCES = {
     "mind_ssd_stats": "convexadam_torch/csrc/mind.cu",
@@ -416,6 +434,7 @@ SOURCES = {
     "cost_volume_general": "convexadam_torch/csrc/cost_volume.cu",
     "warp_ssd_loss_grad_strided": "convexadam_torch/csrc/warp.cu",
     "mind_ssd_stats_general": "convexadam_torch/csrc/mind.cu",
+    "coupled_argmin": "convexadam_torch/csrc/convex.cu",
 }
 # the __global__ functions each wrapper launches, as the profiler names them
 GLOBALS = {
@@ -433,6 +452,7 @@ GLOBALS = {
     "cost_volume_general": ("cost_volume_general_kernel",),
     "warp_ssd_loss_grad_strided": ("warp_ssd_kernel", "sum_partials_kernel"),
     "mind_ssd_stats_general": ("mind_general_kernel",),
+    "coupled_argmin": ("coupled_argmin_fold_kernel",),
 }
 # phase 5, the sweep at the Abdomen shape, its depth cut to two pairs, the
 # first seeded stage-1 setting of each of the 22 (grid_sp, disp_hw) classes
@@ -531,14 +551,33 @@ TASK3_SCALE = 24  # box width of the smoothing that sets the structures' size
 CURIOUS_CASE = 1
 STREAM_CLASS = (2, 7)  # (grid_sp, disp_hw)
 STREAM_NATURAL_SHAPE = (256, 256, 320)
+# phase 3g, the coupled argmin fold: (coarse voxels n, half-width q) of every
+# (grid_sp, disp_hw) class of the benchmark's two cells (Abdomen CT-CT at
+# 192x160x256: n = 983040 / 288320 / 122880 / 62016 at grid_sp 2-5; NLST at
+# 224x192x224: 1204224 / 350464 / 150528 / 73568), task 1's q = 8, and a
+# voxel count that 4, 32 and 256 do not divide; the lung's (2, 5) class
+# gives the record
+FOLD_CLASSES = ((983040, 2), (983040, 5), (288320, 2), (288320, 3), (122880, 4), (122880, 6),
+                (62016, 2), (62016, 4), (1204224, 2), (1204224, 5), (350464, 5), (350464, 7),
+                (150528, 2), (150528, 3), (150528, 4), (73568, 4), (92160, 8), (150531, 5))
+FOLD_RECORD = (1204224, 5)
+# classes also folded in the streamed path's kh blocks and in a tensor-parallel
+# rank's slices, in shuffled order, and from row-strided views
+FOLD_BLOCKED = ((350464, 7), (62016, 4), (92160, 8), (150531, 5))
+FOLD_NAN = (150528, 3)  # NaNs planted: the fold against torch.argmin on the card
+FOLD_FIELD_CLASS = (3, 3)  # (grid_sp, disp_hw): dense, streamed, tp, plain fields
 # phase 7g: the wrappers whose calls it records, by the module each recipe
 # calls them through, and how many calls of each it records in each recipe
 CAPTURE_SITES = (("convexadam_torch.core.features", "mind_ssd_stats"),
                  ("convexadam_torch.core.cost_volume", "cost_volume"),
                  ("convexadam_torch.core.convex", "cost_volume_block"),
                  ("convexadam_torch.core.warp", "inverse_consistency_steps"),
-                 ("convexadam_torch.core.warp", "warp_ssd_loss_grad"))
+                 ("convexadam_torch.core.warp", "warp_ssd_loss_grad"),
+                 ("convexadam_torch.core.convex", "coupled_argmin_fold"))
 CAPTURE_CALLS = 3
+# a fold call holds a whole cost volume or a rank's slice of it (6.6 GB at
+# 9b's (2, 7) class), so one a run is recorded
+CAPTURE_LIMITS = {"coupled_argmin_fold": 1}
 # phase 8, the segmentation front end: the packaged anatomy checkpoint on its
 # held-out case (a bent tube, tests/regen_unet_anatomies.py, whose numpy
 # generators are copied below), then the entry from raw images at the
@@ -606,7 +645,8 @@ def cuda_ms(torch, fn, warmup: int = 3, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_times(torch, fn, kernels=None, warmup: int = 3, reps: int = 20) -> dict:
+def device_times(torch, fn, kernels=None, warmup: int = 3, reps: int = 20,
+                 launches=None) -> dict:
     """Device time of ``fn`` per call from ``torch.profiler`` over ``reps``
     calls after warm-up: ``device_ms``, the summed CUDA time of the kernels
     whose names contain one of ``kernels`` (every device event where
@@ -617,7 +657,11 @@ def device_times(torch, fn, kernels=None, warmup: int = 3, reps: int = 20) -> di
     at once, up to :data:`PROFILER_SESSIONS`: the profiler can miss a short
     kernel, and late in this script it can see no device event at all for
     several sessions in a row; a kernel that does not run misses every
-    session."""
+    session.  Where ``fn`` is known to launch the selected kernels
+    ``launches`` times a call, a session that saw fewer is profiled again
+    too, and ``device_ms`` is the time per launch seen times ``launches``,
+    so that an event the profiler dropped does not read as a faster
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -629,7 +673,7 @@ def device_times(torch, fn, kernels=None, warmup: int = 3, reps: int = 20) -> di
                 fn()
             torch.cuda.synchronize()
         own = every = 0.0
-        launches = 0
+        count = 0
         seen = []
         for e in prof.key_averages():
             # device events only: CPU ops and user annotations carry the
@@ -640,19 +684,22 @@ def device_times(torch, fn, kernels=None, warmup: int = 3, reps: int = 20) -> di
             seen.append(e.key)
             if kernels is None or any(k in e.key for k in kernels):
                 own += e.self_device_time_total
-                launches += e.count
-        if own > 0 or session == PROFILER_SESSIONS - 1:
+                count += e.count
+        short = launches is not None and count < launches * reps
+        if (own > 0 and not short) or session == PROFILER_SESSIONS - 1:
             break
-        print(f"  the profiler saw no {kernels or 'device event'} (saw {seen}); profiling again",
-              flush=True)
+        print(f"  the profiler saw {count} of {kernels or 'device event'} in {reps} calls (saw "
+              f"{seen}); profiling again", flush=True)
     check(own > 0, f"the profiler saw no device time of {kernels or 'the call'} (saw {seen})")
-    return {"device_ms": own / 1e3 / reps, "device_all_ms": every / 1e3 / reps,
-            "device_launches": launches / reps, "device_kernels": sorted(set(seen))}
+    per_call = own / reps if launches is None else own / count * launches
+    return {"device_ms": per_call / 1e3, "device_all_ms": every / 1e3 / reps,
+            "device_launches": count / reps, "device_kernels": sorted(set(seen))}
 
 
-def timed_turns(torch, kern, kernels, lib=None) -> dict:
+def timed_turns(torch, kern, kernels, lib=None, launches=None) -> dict:
     """``call_ms`` (:func:`cuda_ms`) and ``device_ms`` (:func:`device_times`
-    of the ``kernels`` it launches) of a wrapper call ``kern`` and of the
+    of the ``kernels`` it launches, ``launches`` times a call where known) of
+    a wrapper call ``kern`` and of the
     library call ``lib`` that computes the same function (every device
     kernel it runs), taken in turns: kernel, library, library, kernel (two
     kernel readings where there is no library call).  Each figure is the
@@ -662,13 +709,15 @@ def timed_turns(torch, kern, kernels, lib=None) -> dict:
     for who in order:
         fn = kern if who == "kernel" else lib
         readings[who].append({"call_ms": cuda_ms(torch, fn),
-                              **device_times(torch, fn, kernels if who == "kernel" else None)})
+                              **(device_times(torch, fn, kernels, launches=launches)
+                                 if who == "kernel" else device_times(torch, fn))})
     out = {"readings": readings}
     for who, prefix in (("kernel", ""), ("library", "library_")):
         for key in ("call_ms", "device_ms", "device_all_ms"):
             vals = [r[key] for r in readings[who]]
             out[prefix + key] = float(np.mean(vals)) if vals else None
     out["device_launches"] = readings["kernel"][0]["device_launches"]
+    out["device_launches_least"] = min(r["device_launches"] for r in readings["kernel"])
     return out
 
 
@@ -1269,17 +1318,18 @@ def ptxas_entry(usage, *parts) -> dict:
 
 NO_SPILL_KERNELS = ("warp_ssd_kernel", "mind_kernel", "mind_general_kernel",
                     "sample_trilinear_kernel", "cost_volume",
-                    "nearest_sq_kernel", "nearest_sq_dual_kernel", "nearest_sq_pruned_kernel")
+                    "nearest_sq_kernel", "nearest_sq_dual_kernel", "nearest_sq_pruned_kernel",
+                    "coupled_argmin_fold_kernel")
 
 
 def ptxas_report(_build) -> dict:
-    """Print ptxas's registers and spills for the kernels of ``warp.cu``,
-    ``mind.cu``, ``cost_volume.cu`` and ``edt.cu`` and check them: the
-    backward sampler fits 64 registers; the data term, the forward sampler,
-    every MIND kernel, every cost-volume kernel and the three searches do
-    not spill.  Returns every source's report."""
+    """Print ptxas's registers and spills for the kernels of every source
+    and check them: the backward sampler fits 64 registers; the data term,
+    the forward sampler, every MIND kernel, every cost-volume kernel, the
+    three searches and the coupled argmin fold do not spill.  Returns every
+    source's report."""
     usage = {name: _build.resource_usage(name) for name in _build.KERNEL_SOURCES}
-    for src in ("warp", "mind", "cost_volume", "edt"):
+    for src in _build.KERNEL_SOURCES:
         for mangled, use in usage[src].items():
             print(f"ptxas {src}.cu {mangled}: {use}", flush=True)
             if "sample_trilinear_bwd_kernel" in mangled:
@@ -1358,6 +1408,163 @@ def cost_volume_phase(torch, fix_s, mov_s, q):
                 record = rec
         detail.append(row)
     return record, detail
+
+
+def fold_work(k: int, n: int) -> "tuple[float, float]":
+    """Bytes and separately rounded operations of one fold of ``k``
+    candidates over ``n`` voxels: each cost read once (s, best and bidx, 20
+    bytes a voxel, left out: under 4% at K^3 >= 125); three subtractions,
+    four multiplications, three additions and a compare a (candidate,
+    voxel)."""
+    return 4.0 * k * n, 11.0 * k * n
+
+
+def fold_inputs(torch, dev, n, q, seed):
+    """Integer costs in 0..7 (ties in every voxel), the mesh of half-width
+    ``q``, a field of half-voxel steps within it."""
+    from convexadam_torch.core.cost_volume import displacement_mesh
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k = (2 * q + 1) ** 3
+    costs = torch.randint(0, 8, (k, n), generator=gen, device=dev).float()
+    s = torch.randint(-2 * q, 2 * q + 1, (3, n), generator=gen, device=dev).float() / 2
+    return costs, displacement_mesh(q, device=dev), s
+
+
+def _fold(torch, fn, costs, mesh, s, c, blocks=None):
+    """``fn`` over the candidate index blocks ``blocks`` (all at once by
+    default) from ``(inf, K^3)``: each block's rows as a view of a buffer
+    of rows padded to whole float4s."""
+    k, n = costs.shape
+    dev = costs.device
+    best = torch.full((n,), float("inf"), device=dev)
+    bidx = torch.full((n,), k, dtype=torch.int64, device=dev)
+    for idx in blocks or [torch.arange(k, device=dev)]:
+        if blocks is None:
+            rows = costs
+        else:
+            rows = costs.new_empty((len(idx), -(-n // 4) * 4 + 4))[:, :n]
+            rows.copy_(costs[idx])
+        fn(rows, mesh[:, idx], idx, s, c, best, bidx)
+    return best, bidx
+
+
+def _same_fold(torch, a, b) -> bool:
+    return torch.equal(a[1], b[1]) and torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+
+
+def coupled_argmin_phase(torch, dev, segs):
+    """Phase 3g: ``coupled_argmin_fold`` against its plain version to the
+    bit at every :data:`FOLD_CLASSES` class and coupling, one launch of
+    ``coupled_argmin_fold_kernel`` a call; at :data:`FOLD_BLOCKED` also in
+    the streamed path's kh blocks, in a tensor-parallel rank's slices (both
+    shuffled) and from row-strided views (aligned and one float off), each
+    equal to the whole fold; NaNs planted at :data:`FOLD_NAN` against
+    ``torch.argmin`` of the coupled cost on the card; then the dense,
+    streamed, tensor-parallel and plain convex fields of the abdomen
+    subjects 0 and 1 at :data:`FOLD_FIELD_CLASS`, equal after each of the
+    six couplings.  Every class is timed (Call, Device, Bound, Plain).
+    Returns the record of the :data:`FOLD_RECORD` class and every class's
+    numbers."""
+    from convexadam_torch.core import convex
+    from convexadam_torch.kernels import LAUNCHES
+    from convexadam_torch.kernels.convex import (
+        coupled_argmin_fold,
+        coupled_argmin_fold_plain,
+        coupled_cost,
+        launch_plan,
+        sm_count,
+    )
+
+    rng = np.random.default_rng(21)
+    record, detail = None, []
+    for n, q in FOLD_CLASSES:
+        costs, mesh, s = fold_inputs(torch, dev, n, q, seed=n + q)
+        k = costs.shape[0]
+        name = f"coupled_argmin_fold {k}x{n}"
+        before = LAUNCHES["coupled_argmin"]
+        for c in convex.COUPLING_COEFFS:
+            got = _fold(torch, coupled_argmin_fold, costs, mesh, s, c)
+            want = _fold(torch, coupled_argmin_fold_plain, costs, mesh, s, c)
+            check(_same_fold(torch, got, want), f"{name} c={c}: differs from its plain version")
+        check(LAUNCHES["coupled_argmin"] - before == len(convex.COUPLING_COEFFS),
+              f"{name}: {LAUNCHES['coupled_argmin'] - before} launches")
+        row = {"k": k, "n": n, "q": q, "plan": list(launch_plan(n, k, n % 4 == 0, sm_count(dev))),
+               "max_abs_err": 0.0}
+        if (n, q) in FOLD_BLOCKED:
+            K = 2 * q + 1
+            whole = _fold(torch, coupled_argmin_fold, costs, mesh, s, 0.3)
+            kh_blocks = [torch.arange(K * K, device=dev) * K + kh for kh in rng.permutation(K)]
+            cuts = [0, k // 5, k // 2, k - 7, k]
+            slices = [torch.arange(a, b, device=dev) for a, b in zip(cuts, cuts[1:])][::-1]
+            for what, blocks in (("streamed blocks", kh_blocks), ("rank slices", slices)):
+                for fn in (coupled_argmin_fold, coupled_argmin_fold_plain):
+                    check(_same_fold(torch, _fold(torch, fn, costs, mesh, s, 0.3, blocks), whole),
+                          f"{name} {what} ({fn.__name__}): differ from the whole fold")
+            for off in (4, 1):  # float4 loads with a row stride; scalar loads
+                buf = costs.new_empty((k, n + 8))
+                view = buf[:, off:off + n]
+                view.copy_(costs)
+                got = _fold(torch, coupled_argmin_fold, view, mesh, s, 0.3)
+                check(_same_fold(torch, got, whole), f"{name} view at +{off}: differs")
+            del buf, view
+            row["blocked"] = True
+        if (n, q) == FOLD_NAN:
+            flat = costs.view(-1)
+            flat[torch.from_numpy(rng.choice(flat.numel(), 1000, replace=False)).to(dev)] = \
+                float("nan")
+            for c in convex.COUPLING_COEFFS:
+                got = _fold(torch, coupled_argmin_fold, costs, mesh, s, c)
+                want = _fold(torch, coupled_argmin_fold_plain, costs, mesh, s, c)
+                am = torch.argmin(coupled_cost(costs, mesh, s, c), dim=0)
+                check(_same_fold(torch, got, want) and torch.equal(got[1], am),
+                      f"{name} with NaNs c={c}: differs from argmin or the plain fold")
+                check(bool(torch.isnan(got[0]).any()), f"{name}: no NaN won")
+            costs, mesh, s = fold_inputs(torch, dev, n, q, seed=n + q)
+            row["nan_checked"] = True
+        best = torch.full((n,), float("inf"), device=dev)
+        bidx = torch.full((n,), k, dtype=torch.int64, device=dev)
+        idx = torch.arange(k, device=dev)
+
+        def kern():
+            return coupled_argmin_fold(costs, mesh, idx, s, 1.0, best, bidx)
+
+        t = timed_turns(torch, kern, GLOBALS["coupled_argmin"], launches=1)
+        check(t["device_launches_least"] == 1,
+              f"{name}: {t['device_launches_least']} kernel launches a call")
+        p_ms = cuda_ms(torch, lambda: coupled_argmin_fold_plain(costs, mesh, idx, s, 1.0, best,
+                                                                bidx), 1, 3)
+        rec = kernel_record("coupled_argmin", [k, n], "float32", 0.0, 0.0, t, p_ms,
+                            *fold_work(k, n), rate=PEAK_F32_UNFUSED)
+        print_times(f"{name} plan {row['plan']}", t, p_ms, rec["bound_ms"])
+        row.update({key: rec[key] for key in ("call_ms", "device_ms", "plain_ms", "bound_ms",
+                                              "bound_by")})
+        row["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        detail.append(row)
+        if (n, q) == FOLD_RECORD:
+            record = rec
+        del costs, mesh, s, best, bidx
+    # whole fields after each coupling: dense, streamed, tensor-parallel (one
+    # rank), and the dense path with the plain fold
+    g, q = FOLD_FIELD_CLASS
+    fix_s, mov_s = class_features(torch, dev, segs[0], segs[1], g)
+    fields = {}
+    for rounds in range(1, len(convex.COUPLING_COEFFS) + 1):
+        coeffs = convex.COUPLING_COEFFS[:rounds]
+        with torch.no_grad(), _patched([(convex, "COUPLING_COEFFS", coeffs)]):
+            dense = convex.convex_displacement(fix_s, mov_s, q)
+            others = {"streamed": convex.convex_displacement(fix_s, mov_s, q, stream_threshold=0),
+                      "tp": convex.convex_displacement_tp(fix_s, mov_s, q)}
+            with _patched([(convex, "coupled_argmin_fold", coupled_argmin_fold_plain)]):
+                others["plain"] = convex.convex_displacement(fix_s, mov_s, q)
+        for what, field in others.items():
+            check(torch.equal(dense, field), f"3g fields after {rounds} couplings: {what} "
+                  f"differs from dense by {max_err(dense, field)}")
+        fields[rounds] = sorted(others)
+    print(f"3g: {len(FOLD_CLASSES)} classes equal to the plain fold; fields at {FOLD_FIELD_CLASS} "
+          f"{tuple(fix_s.shape)} equal after each of {len(fields)} couplings", flush=True)
+    return record, {"classes": detail, "field_class": list(FOLD_FIELD_CLASS),
+                    "field_shape": list(fix_s.shape), "fields_equal": fields}
 
 
 def kernel_instance(q, metric):
@@ -2295,7 +2502,7 @@ def _stage1_run(torch, dev, segs, settings, groups, what, checkpoint=None):
     peak = torch.cuda.max_memory_allocated() / 1e9
     n = S * P
     _launch_checks(what, launches, sweep_expected(
-        cost_volume=2 * n, sample_trilinear_ic=IC_ITERS * n,
+        cost_volume=2 * n, sample_trilinear_ic=IC_ITERS * n, coupled_argmin=2 * FOLDS * n,
         nearest_sq_pruned=len(groups) * n), at_least=("nearest_sq_pruned",) if res.rescored else ())
     check(res.dice.shape == (S, 2) and bool(np.isfinite(res.dice).all())
           and bool(np.isfinite(res.hd95).all()) and bool((res.times > 0).all()),
@@ -2354,7 +2561,7 @@ def sweep_stage1_phase(torch, dev, segs, smi, results):
                 segs[f], segs[m], st.nn_mult, L2R_LABELS + 1, st.grid_sp, st.disp_hw, device=dev))
             where = f"stage 1 {st}, pair {(f, m)}"
             _launch_checks(f"{where}, convex stage (dense)", l_c, sweep_expected(
-                cost_volume=2, sample_trilinear_ic=IC_ITERS))
+                cost_volume=2, sample_trilinear_ic=IC_ITERS, coupled_argmin=2 * FOLDS))
             over.append(peak_c - start_c)
             check(over[-1] <= est + SWEEP_PEAK_MARGIN_GB,
                   f"{where}: convex stage peak {over[-1]:.3f} GB above the {start_c:.3f} GB held "
@@ -2449,8 +2656,8 @@ def sweep_stage2_phase(torch, dev, segs, winner, smi, results):
     launches = dict(LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
     _launch_checks("stage-2 sweep", launches, sweep_expected(
-        cost_volume=2 * P, sample_trilinear_ic=IC_ITERS * P, warp_ssd_loss_grad=ADAM_ITERS * S * P,
-        nearest_sq_pruned=len(groups) * 16 * S * P),
+        cost_volume=2 * P, sample_trilinear_ic=IC_ITERS * P, coupled_argmin=2 * FOLDS * P,
+        warp_ssd_loss_grad=ADAM_ITERS * S * P, nearest_sq_pruned=len(groups) * 16 * S * P),
         at_least=("nearest_sq_pruned",) if res.rescored else ())
     check(res.dice.shape == (S * 16, 2) and bool(np.isfinite(res.dice).all())
           and bool(np.isfinite(res.hd95).all()) and bool(np.isfinite(res.jstd).all()),
@@ -2549,7 +2756,8 @@ def sweep_paired_phase(torch, dev, adam, smi, results):
     r1 = run_stage1_paired_sweep(np.stack(vols), np.stack(movs), kfs, kms, settings, device=dev)
     l1 = dict(LAUNCHES)
     _launch_checks("paired stage 1", l1, sweep_expected(
-        mind_ssd_stats=2 * S * P, cost_volume=2 * S * P, sample_trilinear_ic=IC_ITERS * S * P))
+        mind_ssd_stats=2 * S * P, cost_volume=2 * S * P, sample_trilinear_ic=IC_ITERS * S * P,
+        coupled_argmin=2 * FOLDS * S * P))
     check(r1.dice[r1.best, 0] < tre0,
           f"paired stage 1: winner TRE {r1.dice[r1.best, 0]:.4f} not below the initial {tre0:.4f}")
     torch.cuda.synchronize()
@@ -2559,7 +2767,7 @@ def sweep_paired_phase(torch, dev, adam, smi, results):
     l2 = dict(LAUNCHES)
     _launch_checks("paired stage 2", l2, sweep_expected(
         mind_ssd_stats=2 * P, cost_volume=2 * P, sample_trilinear_ic=IC_ITERS * P,
-        warp_ssd_loss_grad=ADAM_ITERS * P))
+        coupled_argmin=2 * FOLDS * P, warp_ssd_loss_grad=ADAM_ITERS * P))
     check(bool(np.isfinite(r2.dice).all()) and r2.dice[r2.best, 0] < tre0,
           f"paired stage 2: winner TRE {r2.dice[r2.best, 0]:.4f} not below the initial {tre0:.4f}")
     out = {"shape": list(HEADLINE_SHAPE), "shifts": [list(s) for s in PAIRED_SHIFTS],
@@ -2814,8 +3022,9 @@ def protocol_phase(torch, dev, smi, records, results):
 
     def expected(s1, s2, pass_a):
         return (sweep_expected(cost_volume=2 * s1 * P, sample_trilinear_ic=IC_ITERS * s1 * P,
-                               nearest_sq_pruned=B * s1 * P),
+                               coupled_argmin=2 * FOLDS * s1 * P, nearest_sq_pruned=B * s1 * P),
                 sweep_expected(cost_volume=2 * P * pass_a, sample_trilinear_ic=IC_ITERS * P * pass_a,
+                               coupled_argmin=2 * FOLDS * P * pass_a,
                                warp_ssd_loss_grad=ADAM_ITERS * s2 * P,
                                nearest_sq_pruned=B * 16 * s2 * P))
 
@@ -3188,7 +3397,8 @@ def l2r_grid_phase(torch, dev, root, segs, results):
         fields, arm_launches, _ = _counted(torch, register_arm)
         _launch_checks(f"6d {arm} arm, one case", arm_launches, sweep_expected(
             mind_ssd_stats=2 if arm == "MIND" else 0, cost_volume=2,
-            sample_trilinear_ic=IC_ITERS, warp_ssd_loss_grad=max(L2R_GRID_ITERS)))
+            sample_trilinear_ic=IC_ITERS, coupled_argmin=2 * FOLDS,
+            warp_ssd_loss_grad=max(L2R_GRID_ITERS)))
         arms[arm] = arm_launches
         for a, it in enumerate(L2R_GRID_ITERS):
             for b, smooth in enumerate((0, 3, 5)):
@@ -3213,7 +3423,7 @@ def l2r_grid_phase(torch, dev, root, segs, results):
     check(len(results_grid) == 2 * n_var, f"6d: {len(results_grid)} variants")
     _launch_checks("6d run_validation_grid", launches, sweep_expected(
         mind_ssd_stats=2, cost_volume=4, sample_trilinear_ic=2 * IC_ITERS,
-        warp_ssd_loss_grad=2 * max(L2R_GRID_ITERS), nearest_sq_pruned=buckets))
+        coupled_argmin=4 * FOLDS, warp_ssd_loss_grad=2 * max(L2R_GRID_ITERS), nearest_sq_pruned=buckets))
 
     t_w = time.perf_counter()
     winner, agg = select_winner(results_grid)
@@ -3228,7 +3438,7 @@ def l2r_grid_phase(torch, dev, root, segs, results):
     arm_w, it_w = winner.split(";")[0], int(winner.split(";")[4])
     _launch_checks("6d run_testset", test_launches, sweep_expected(
         mind_ssd_stats=2 if arm_w == "MIND" else 0, cost_volume=2,
-        sample_trilinear_ic=IC_ITERS, warp_ssd_loss_grad=it_w))
+        sample_trilinear_ic=IC_ITERS, coupled_argmin=2 * FOLDS, warp_ssd_loss_grad=it_w))
     check(len(written) == 1 and written[0].exists(), f"6d: test set wrote {written}")
     test_field = np.asarray(_read_nib(written[0])[0], np.float32)
     check(test_field.shape == ABDOMEN_SHAPE + (3,) and bool(np.isfinite(test_field).all()),
@@ -3322,7 +3532,8 @@ def sweep_infer_phase(torch, dev, root, results):
             "--adam_s2", str(INFER_ADAM_S2), "--device", str(dev)]
     _, launches, secs = _counted(torch, lambda: sweep_cli.main(args))
     _launch_checks("6f cli.sweep infer", launches, sweep_expected(
-        cost_volume=2, sample_trilinear_ic=IC_ITERS, warp_ssd_loss_grad=iters))
+        cost_volume=2, sample_trilinear_ic=IC_ITERS, coupled_argmin=2 * FOLDS,
+        warp_ssd_loss_grad=iters))
     field = np.asarray(_read_nib(out_dir / "disp_1_2.nii.gz")[0], np.float32)
     seg_f = torch.from_numpy(np.asarray(_read_nib(pattern % 1)[0], np.int32)).to(dev)
     seg_m = torch.from_numpy(np.asarray(_read_nib(pattern % 2)[0], np.int32)).to(dev)
@@ -3417,7 +3628,7 @@ def task1_phase(torch, dev, results, recipes):
     cfg = ch.TASK1_CONFIG
     _launch_checks("7a task 1", launches, sweep_expected(
         mind_ssd_stats=2, cost_volume_general=2, sample_trilinear_ic=IC_ITERS,
-        warp_ssd_loss_grad=cfg.selected_niter))
+        coupled_argmin=2 * FOLDS, warp_ssd_loss_grad=cfg.selected_niter))
     check(dense.shape == TASK1_SHAPE + (3,) and bool(np.isfinite(dense).all()), "7a: bad field")
     disp = convex_adam(vol, mov, cfg, device=dev)
     composed = ch._tps_densify(disp, mask, 4096, 4, True, 0, dev)
@@ -3485,7 +3696,8 @@ def task2_phase(torch, dev, results, recipes):
     out, launches, secs, peak, _ = _run7(torch, recipes["7b_task2"])
     cfg = ch.TASK2_CONFIG
     _launch_checks("7b task 2", launches, sweep_expected(
-        mind_ssd_stats=2, cost_volume=1, warp_ssd_loss_grad=cfg.selected_niter))
+        mind_ssd_stats=2, cost_volume=1, coupled_argmin=FOLDS,
+        warp_ssd_loss_grad=cfg.selected_niter))
     ref = convex_adam(mask_infill(vol, mask_f, device=dev), mask_infill(mov, mask_m, device=dev),
                       cfg, device=dev)
     check(_bits_equal(out["disp"], ref), "7b: task2_case differs from convex_adam(mask_infill) "
@@ -3554,7 +3766,7 @@ def task3_phase(torch, dev, results, recipes):
                                                   device=dev))
         out, launches, secs, peak, _ = _run7(torch, recipes[key])
         _launch_checks(key, launches, sweep_expected(
-            cost_volume_sad=1, warp_ssd_loss_grad=cfg.selected_niter))
+            cost_volume_sad=1, coupled_argmin=FOLDS, warp_ssd_loss_grad=cfg.selected_niter))
         with torch.no_grad():
             ff, fm = semantic_features(
                 sf, sm, TASK3_LABELS, mult=10.0, dtype=cfg.compute_dtype(dev),
@@ -3652,7 +3864,7 @@ def curious_phase(torch, dev, results, recipes):
     recipes["7d_curious"] = lambda: ch.curious_case(us, t1, flair, seg_us, seg_mri, device=dev)
     res, launches, secs, peak, _ = _run7(torch, recipes["7d_curious"])
     _launch_checks("7d CuRIOUS", launches, sweep_expected(
-        mind_ssd_stats=3, cost_volume=2, sample_trilinear_ic=5))
+        mind_ssd_stats=3, cost_volume=2, sample_trilinear_ic=5, coupled_argmin=2 * FOLDS))
     tre0, tre_def, tre_rigid = (float(np.nanmean(res[k])) for k in ("tre0", "tre_def",
                                                                     "tre_rigid"))
     check(abs(tre0 - float(tre0_true.mean())) < 0.2,
@@ -3709,8 +3921,11 @@ def streamed_phase(torch, dev, results, recipes, keep=None):
                 torch, lambda: convex.convex_displacement(a, b, q))
             streamed, l_s, s_s, p_s, start_s = _run7(
                 torch, lambda: convex.convex_displacement(a, b, q, stream_threshold=0))
-        _launch_checks(f"7e dense {direction}", l_d, sweep_expected(cost_volume=1))
-        _launch_checks(f"7e streamed {direction}", l_s, sweep_expected(cost_volume_block=7 * K))
+        _launch_checks(f"7e dense {direction}", l_d, sweep_expected(cost_volume=1,
+                                                                    coupled_argmin=FOLDS))
+        # one fold a kh block and coupling round
+        _launch_checks(f"7e streamed {direction}", l_s, sweep_expected(
+            cost_volume_block=7 * K, coupled_argmin=FOLDS * K))
         equal = torch.equal(dense, streamed)
         check(equal, f"7e {direction}: streamed differs from dense by {max_err(dense, streamed)}")
         ratio = (p_d - start_d) / (est / 1e9)
@@ -3740,7 +3955,8 @@ def streamed_phase(torch, dev, results, recipes, keep=None):
 
     recipes["7e_natural"] = natural
     field, l_n, s_n, p_n, start_n = _run7(torch, natural)
-    _launch_checks("7e natural dispatch", l_n, sweep_expected(cost_volume_block=7 * K))
+    _launch_checks("7e natural dispatch", l_n, sweep_expected(cost_volume_block=7 * K,
+                                                              coupled_argmin=FOLDS * K))
     check(tuple(field.shape) == (3,) + tuple(fix_s.shape[1:]) and bool(torch.isfinite(field).all()),
           "7e natural dispatch: bad field")
     print(f"7e natural dispatch {STREAM_CLASS} {STREAM_NATURAL_SHAPE} ({est_n / 1e9:.2f} GB "
@@ -3775,7 +3991,7 @@ def strided_phase(torch, dev, vol_np, mov_np, single, results, recipes):
         out, l_s, secs, peak, _ = _run7(torch, recipes[key])
         _launch_checks(f"7f stride {stride}", l_s, sweep_expected(
             mind_ssd_stats=2, cost_volume=2, sample_trilinear_ic=IC_ITERS,
-            warp_ssd_loss_grad_strided=cfg.selected_niter))
+            coupled_argmin=2 * FOLDS, warp_ssd_loss_grad_strided=cfg.selected_niter))
         check(bool(np.isfinite(out).all()), f"7f stride {stride}: non-finite field")
         p95 = float(np.percentile(np.abs(out[box] - single[box]), 95))
         frac = _frac_within(out[box], HEADLINE_SHIFT)
@@ -3805,7 +4021,8 @@ def _cloned(torch, x):
 @contextlib.contextmanager
 def _recording(torch, calls):
     """Within the block, the first :data:`CAPTURE_CALLS` calls of each
-    wrapper of :data:`CAPTURE_SITES` are appended to ``calls`` as (wrapper,
+    wrapper of :data:`CAPTURE_SITES` (:data:`CAPTURE_LIMITS` of those it
+    names) are appended to ``calls`` as (wrapper,
     arguments by name), the tensors copied (a recipe may update its field in
     place); each call then goes on to the wrapper."""
     import importlib
@@ -3815,7 +4032,7 @@ def _recording(torch, calls):
         sig = inspect.signature(fn)
 
         def wrapped(*args, **kwargs):
-            if sum(c[0] == name for c in calls) < CAPTURE_CALLS:
+            if sum(c[0] == name for c in calls) < CAPTURE_LIMITS.get(name, CAPTURE_CALLS):
                 bound = sig.bind(*args, **kwargs)
                 bound.apply_defaults()
                 calls.append((name, _cloned(torch, dict(bound.arguments))))
@@ -3849,6 +4066,8 @@ def _captured_kernel(name, a) -> str:
         return "sample_trilinear_ic"
     if name == "warp_ssd_loss_grad":
         return "warp_ssd_loss_grad_strided" if a["stride"] > 1 else "warp_ssd_loss_grad"
+    if name == "coupled_argmin_fold":
+        return "coupled_argmin"
     return name
 
 
@@ -3861,6 +4080,7 @@ def _shape_of(a) -> dict:
 def _kernel_pairs() -> dict:
     """Each wrapper of :data:`CAPTURE_SITES` by name, with its plain
     version."""
+    from convexadam_torch.kernels.convex import coupled_argmin_fold, coupled_argmin_fold_plain
     from convexadam_torch.kernels.cost_volume import cost_volume_block_plain, cost_volume_plain
     from convexadam_torch.kernels.cost_volume import cost_volume, cost_volume_block
     from convexadam_torch.kernels.mind import mind_ssd_stats, mind_ssd_stats_plain
@@ -3876,7 +4096,8 @@ def _kernel_pairs() -> dict:
             "cost_volume_block": (cost_volume_block, cost_volume_block_plain),
             "inverse_consistency_steps": (inverse_consistency_steps,
                                           inverse_consistency_steps_plain),
-            "warp_ssd_loss_grad": (warp_ssd_loss_grad, warp_ssd_loss_grad_plain)}
+            "warp_ssd_loss_grad": (warp_ssd_loss_grad, warp_ssd_loss_grad_plain),
+            "coupled_argmin_fold": (coupled_argmin_fold, coupled_argmin_fold_plain)}
 
 
 def hold_call(torch, name, a) -> dict:
@@ -3884,7 +4105,11 @@ def hold_call(torch, name, a) -> dict:
     kernel and its plain version: the row of its ``max_abs_err`` (the data
     term's ``sum(res^2)`` apart, as ``ssq_rel_err``) and argument shapes."""
     kern, plain = _kernel_pairs()[name]
-    ko, po = kern(**a), plain(**a)
+    if name == "coupled_argmin_fold":  # each side folds into its own copy of the running minimum
+        ko, po = (fn(**dict(a, best=a["best"].clone(), bidx=a["bidx"].clone()))
+                  for fn in (kern, plain))
+    else:
+        ko, po = kern(**a), plain(**a)
     torch.cuda.synchronize()
     ko, po = (ko, po) if isinstance(ko, tuple) else ((ko,), (po,))
     row = {"wrapper": name, "args": _shape_of(a)}
@@ -3917,13 +4142,17 @@ def hold_recorded_calls(torch, key, calls, launches) -> dict:
         check(_held(row), f"{key} {kname} {row['args']}: max err {row['max_abs_err']}, "
               f"sum(res^2) rel {row.get('ssq_rel_err')}")
         if kname not in readings:
-            t = timed_turns(torch, lambda: kern(**a), GLOBALS[kname])
+            t = timed_turns(torch, lambda: kern(**a), GLOBALS[kname],
+                            launches=1 if kname == "coupled_argmin" else None)
             row.update(call_ms=t["call_ms"], device_ms=t["device_ms"],
                        plain_ms=cuda_ms(torch, lambda: plain(**a), 1, 3))
             if name == "mind_ssd_stats":
                 x = a["x"]
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     *mind_work(tuple(x.shape), x.element_size(), a["radius"]))
+            if name == "coupled_argmin_fold":
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    *fold_work(*a["costs"].shape), PEAK_F32_UNFUSED)
         print(f"{key} {kname} {row['args']}: max_abs_err {row['max_abs_err']} (tol 0)"
               + (f", sum(res^2) rel {row['ssq_rel_err']:.2e}" if "ssq_rel_err" in row else "")
               + (f", {row['device_ms']:.4f} ms device, {row['plain_ms']:.4f} ms plain"
@@ -4170,7 +4399,8 @@ def segmentation_entry_phase(torch, dev, records, results):
     field, launches, secs = _counted(torch, entry)
     peak = torch.cuda.max_memory_allocated() / 1e9
     _launch_checks("8b semantic from images", launches, sweep_expected(
-        cost_volume=2, sample_trilinear_ic=IC_ITERS, warp_ssd_loss_grad=80))
+        cost_volume=2, sample_trilinear_ic=IC_ITERS, coupled_argmin=2 * FOLDS,
+        warp_ssd_loss_grad=80))
     check(field.shape == ABDOMEN_SHAPE + (3,) and bool(np.isfinite(field).all()),
           "8b: bad field")
     # the same stages composed outside the entry, each timed
@@ -4570,7 +4800,7 @@ def space_phase(torch, vol_np, mov_np, fields, peak_gb, results, backend="gloo")
         n_iter = SPACE_TINY_CONFIG["selected_niter"]
         _launch_checks(what, t["launches"], sweep_expected(
             mind_ssd_stats=2 * holds, cost_volume=2 * holds, sample_trilinear_ic=IC_ITERS,
-            warp_ssd_loss_grad=n_iter * holds))
+            coupled_argmin=2 * FOLDS * holds, warp_ssd_loss_grad=n_iter * holds))
         launches[f"9d_space_tiny_rank{rank}"] = t["launches"]
         tiny_out.append({"rank": rank, "rows": list(t["rows"]), "equal": t["equal"],
                          "launches": {k: v for k, v in t["launches"].items() if v}})
@@ -4642,9 +4872,9 @@ def parallel_ranks_phase(torch, s1, dense, results):
     deadline; a rank that fails or outlives the deadline fails the phase.
     9b: each rank's (2, 7) field, both directions, equal to 7e's dense field
     ``dense`` to the bit and to the field gathered from the other rank
-    (gloo on CUDA tensors), its candidate-block call equal to the plain
-    version's to the bit, with each rank's seconds, peak and candidate-block
-    launches; 9c: both ranks' ``dice``, ``jstd``, ``hd95``, ``rank`` and
+    (gloo on CUDA tensors), its candidate-block call and its first fold (6
+    launches a direction) equal to their plain versions to the bit, with
+    each rank's seconds, peak and candidate-block launches; 9c: both ranks' ``dice``, ``jstd``, ``hd95``, ``rank`` and
     ``best`` equal to 5a's result ``s1`` to the bit.  Returns each rank's
     launches by run."""
     torch.cuda.empty_cache()
@@ -4661,12 +4891,17 @@ def parallel_ranks_phase(torch, s1, dense, results):
                   f"the ranks differ")
             check(d["launches"]["cost_volume_block"] == 1,
                   f"9b rank {rank} {direction}: {d['launches']['cost_volume_block']} block launches")
-            held = d["held"]
-            check(len(held) == 1 and held[0]["wrapper"] == "cost_volume_block" and _held(held[0]),
-                  f"9b rank {rank} {direction}: candidate-block calls held {held}")
+            check(d["launches"]["coupled_argmin"] == FOLDS,
+                  f"9b rank {rank} {direction}: {d['launches']['coupled_argmin']} fold launches")
+            # the candidate block and the first coupling's fold over the rank's slice
+            held = {h["wrapper"]: h for h in d["held"]}
+            check(len(d["held"]) == 2 and set(held) == {"cost_volume_block", "coupled_argmin_fold"}
+                  and all(_held(h) for h in d["held"]),
+                  f"9b rank {rank} {direction}: calls held {d['held']}")
             row[direction] = {k: d[k] for k in ("seconds", "peak_gb", "start_gb")}
             row[direction]["cost_volume_block_launches"] = d["launches"]["cost_volume_block"]
-            row[direction]["cost_volume_block_held"] = held[0]
+            row[direction]["cost_volume_block_held"] = held["cost_volume_block"]
+            row[direction]["coupled_argmin_held"] = held["coupled_argmin_fold"]
         launches[f"9b_tp_rank{rank}"] = {k: sum(d["launches"][k] for d in r["tp"].values())
                                          for k in r["tp"]["forward"]["launches"]}
         tp_out.append(row)
@@ -4676,7 +4911,8 @@ def parallel_ranks_phase(torch, s1, dense, results):
                   f"9c rank {rank}: {key} differs from phase 5a's")
         check(got.best == s1.best, f"9c rank {rank}: winner {got.best}, phase 5a's {s1.best}")
         l9c = r["sweep"]["launches"]
-        check(l9c["cost_volume"] > 0 and l9c["sample_trilinear_ic"] > 0,
+        check(l9c["cost_volume"] > 0 and l9c["sample_trilinear_ic"] > 0
+              and l9c["coupled_argmin"] == FOLDS * l9c["cost_volume"],
               f"9c rank {rank}: launches {l9c}")
         launches[f"9c_sweep_rank{rank}"] = l9c
         sweep_out.append({"coords": r["sweep"]["coords"], "seconds": r["sweep"]["seconds"],
@@ -4688,8 +4924,9 @@ def parallel_ranks_phase(torch, s1, dense, results):
                   f"{d['peak_gb']:.2f} GB ({d['start_gb']:.2f} held before), "
                   f"{d['cost_volume_block_launches']} candidate-block launch; equal to 7e's "
                   f"dense field and to the gathered fields; the block call {blk['args']} "
-                  f"max_abs_err {blk['max_abs_err']} (tol 0) against its plain version",
-                  flush=True)
+                  f"max_abs_err {blk['max_abs_err']} (tol 0) and the fold "
+                  f"{d['coupled_argmin_held']['max_abs_err']} (tol 0) against their plain "
+                  f"versions", flush=True)
         print(f"9c rank {rank} at (setting, pair) {r['sweep']['coords']}: stage-1 sweep "
               f"{r['sweep']['seconds']:.4f} s, times {np.round(got.times, 4).tolist()}; "
               f"dice/jstd/hd95/rank/best equal to 5a's; launches {sweep_out[-1]['launches']}",
@@ -4771,6 +5008,11 @@ def main() -> int:
     variant_records["cost_volume_block"].update(ptxas_entry(ptx, "cost_volume_kernel",
                                                             f"ILi{STREAM_CLASS[1]}ELb0E"))
     records += list(variant_records.values())
+
+    # 3g. the coupled argmin fold at every class of the benchmark's cells
+    rec, results["coupled_argmin"] = coupled_argmin_phase(torch, dev, (seg_f, seg_m))
+    rec.update(ptxas_entry(results["ptxas"]["convex"], "coupled_argmin_fold_kernel", "ILi4E"))
+    records.append(rec)
 
     # 3c. trilinear sampler on inverse consistency's 2 x 3 x 32^3 fields (as
     # float32 and as bfloat16 volumes), and ragged; then the fused steps

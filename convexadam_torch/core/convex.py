@@ -10,7 +10,9 @@ holds the whole (K^3, h, w, d) cost volume; the streamed form makes it again
 in blocks of K^2 candidates for the initial argmin and for each coupling,
 keeping only a running (best, argmin).  The tensor-parallel form spreads the
 candidates over the ranks of a process group and finds each voxel's first
-minimum with two collective minima a round.
+minimum with two collective minima a round.  In all three, each coupling
+round's argmin is :func:`~convexadam_torch.kernels.convex.coupled_argmin_fold`
+(one kernel launch on the card) over the candidates the form holds.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.distributed as dist
 
 from convexadam_torch.core.cost_volume import correlate, displacement_mesh
 from convexadam_torch.core.smoothing import avg_pool3d, window_mean3d
+from convexadam_torch.kernels.convex import COUPLED_CHUNK_BYTES, coupled_argmin_fold, first_min
 from convexadam_torch.kernels.cost_volume import cost_volume_block
 from convexadam_torch.utils import trace
 
@@ -37,39 +40,17 @@ COUPLING_COEFFS = (0.003, 0.01, 0.03, 0.1, 0.3, 1.0)
 # GB at these sizes), under 70 GB of the 80 (PERF.md section 5).
 COST_VOLUME_STREAM_THRESHOLD = 64_000_000_000
 
-# bytes of one (3, K^3, chunk) float32 temporary of the coupled argmin: at
-# the sweep's largest dense setting (K^3 = 1331, 983,040 coarse voxels) the
-# unchunked difference and its square took 15.7 GB each
-COUPLED_CHUNK_BYTES = 1 << 30
-
 
 def _gather_disp(disp_mesh: torch.Tensor, argmin: torch.Tensor) -> torch.Tensor:
     """disp_mesh (3, K^3) at argmin (h, w, d) → field (3, h, w, d)."""
     return disp_mesh[:, argmin.reshape(-1)].reshape((3,) + tuple(argmin.shape))
 
 
-def _coupled_cost(costs, mesh, s, c):
-    """``costs + c * ((sq0 + sq1) + sq2)`` of candidates ``costs`` (k,
-    chunk) at displacements ``mesh`` (3, k) against the smoothed field
-    ``s`` (3, chunk): the one form both the dense and the streamed path
-    compare, so their fields agree to the bit."""
-    diff = mesh[:, :, None] - s[:, None, :]  # (3, k, chunk)
-    sq = diff * diff
-    del diff
-    return costs + c * (sq[0] + sq[1] + sq[2])
-
-
-def _coupled_argmin(ssd_flat, disp_mesh, s, c, chunk):
-    """Per coarse voxel the first displacement minimising
-    :func:`_coupled_cost`, ``chunk`` voxels at a time: the (3, K^3, chunk)
-    temporaries stay bounded, and no voxel's arithmetic depends on the
-    chunking."""
-    n = ssd_flat.shape[1]
-    out = torch.empty(n, dtype=torch.int64, device=ssd_flat.device)
-    for a in range(0, n, chunk):
-        b = min(a + chunk, n)
-        out[a:b] = torch.argmin(_coupled_cost(ssd_flat[:, a:b], disp_mesh, s[:, a:b], c), dim=0)
-    return out
+def _running_min(n: int, k3: int, dev) -> "tuple[torch.Tensor, torch.Tensor]":
+    """A running first minimum that holds no candidate yet: ``(inf, K^3)``
+    a voxel."""
+    return (torch.full((n,), float("inf"), dtype=torch.float32, device=dev),
+            torch.full((n,), k3, dtype=torch.int64, device=dev))
 
 
 def box3(field: torch.Tensor) -> torch.Tensor:
@@ -84,30 +65,22 @@ def coupled_convex(
     """Solve the coupled convex problem in its exact form.
 
     ``ssd`` (K^3, h, w, d), ``ssd_argmin`` (h, w, d), ``disp_mesh``
-    (3, K^3).  Returns ``disp_soft`` (3, h, w, d) in coarse voxels.  The
-    coupled argmin runs over chunks of voxels whose (3, K^3, chunk) float32
-    difference takes at most :data:`COUPLED_CHUNK_BYTES`.  ``smooth`` is the
-    box pass of each picked field (a slab of a volume split along h passes
-    one that takes its neighbours' rows).
+    (3, K^3).  Returns ``disp_soft`` (3, h, w, d) in coarse voxels.  Each
+    round's coupled argmin is one :func:`coupled_argmin_fold` over all K^3
+    candidates from ``(inf, K^3)``.  ``smooth`` is the box pass of each
+    picked field (a slab of a volume split along h passes one that takes
+    its neighbours' rows).
     """
     shape = ssd.shape[1:]
-    ssd_flat = ssd.reshape(ssd.shape[0], -1)
-    chunk = max(1, COUPLED_CHUNK_BYTES // (3 * ssd.shape[0] * 4))
+    k3 = ssd.shape[0]
+    ssd_flat = ssd.reshape(k3, -1)
+    idx = torch.arange(k3, device=ssd.device)
     disp_soft = smooth(_gather_disp(disp_mesh, ssd_argmin))
     for c in COUPLING_COEFFS:
-        s = disp_soft.reshape(3, -1)
-        argmin = _coupled_argmin(ssd_flat, disp_mesh, s, c, chunk).reshape(shape)
-        disp_soft = smooth(_gather_disp(disp_mesh, argmin))
+        best, bidx = _running_min(ssd_flat.shape[1], k3, ssd.device)
+        coupled_argmin_fold(ssd_flat, disp_mesh, idx, disp_soft.reshape(3, -1), c, best, bidx)
+        disp_soft = smooth(_gather_disp(disp_mesh, bidx.reshape(shape)))
     return disp_soft
-
-
-def _first_min(best, bidx, val, idx):
-    """Fold candidates ``val`` with global indices ``idx`` into the running
-    ``(best, bidx)``: a smaller value wins, an equal one only with a smaller
-    index, so the result is ``argmin``'s first minimum over every candidate
-    whatever order the blocks come in."""
-    better = (val < best) | ((val == best) & (idx < bidx))
-    return torch.where(better, val, best), torch.where(better, idx, bidx)
 
 
 def correlate_coupled_streamed(
@@ -128,10 +101,12 @@ def correlate_coupled_streamed(
     as they do inside the whole volume), made again for the initial argmin
     and for each of the six couplings: a running (best, argmin) is all that
     is kept, so peak memory is one block's costs and its temporaries, and
-    the cost volume is computed 7 times.  Each coupled cost is the dense
-    form's (:func:`_coupled_cost`), and :func:`_first_min` keeps
-    the first minimum, so the field equals :func:`coupled_convex` on the
-    dense volume to the bit.  ``mov_row0``, ``rows`` and ``smooth`` are
+    the cost volume is computed 7 times.  The initial argmin folds each
+    block's first minimum (``torch.min``) by
+    :func:`~convexadam_torch.kernels.convex.first_min`; each coupling folds
+    each block by :func:`coupled_argmin_fold`, the dense form's coupled cost
+    and order, so the field equals :func:`coupled_convex` on the dense
+    volume to the bit.  ``mov_row0``, ``rows`` and ``smooth`` are
     :func:`convex_displacement`'s.
 
     Returns ``disp_soft`` (3, h, w, d) in coarse voxels.
@@ -158,20 +133,17 @@ def correlate_coupled_streamed(
 
     def argmin_pass(s=None, c=None):
         with trace.span("convex.coupled"):
-            best = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
-            bidx = torch.full((n,), K**3, dtype=torch.int64, device=dev)
+            best, bidx = _running_min(n, K**3, dev)
         for kh in range(K):
             costs, idx = block(kh)
             with trace.span("convex.coupled"):  # the block's fold into the running argmin
-                mesh_b = mesh[:, idx]
-                for a in range(0, n, chunk):
-                    b = min(a + chunk, n)
-                    if s is None:
+                if s is not None:
+                    coupled_argmin_fold(costs, mesh[:, idx], idx, s, c, best, bidx)
+                else:
+                    for a in range(0, n, chunk):
+                        b = min(a + chunk, n)
                         val, arg = torch.min(costs[:, a:b], dim=0)
-                    else:
-                        val, arg = torch.min(_coupled_cost(costs[:, a:b], mesh_b, s[:, a:b], c),
-                                             dim=0)
-                    best[a:b], bidx[a:b] = _first_min(best[a:b], bidx[a:b], val, idx[arg])
+                        best[a:b], bidx[a:b] = first_min(best[a:b], bidx[a:b], val, idx[arg])
             del costs
         return bidx.reshape(shape)
 
@@ -189,8 +161,9 @@ def dense_estimate(disp_hw: int, coarse_shape) -> int:
     """Bytes the dense path is reckoned to hold: the float32 (K^3, h, w, d)
     volume, and the larger of one smoothing temporary of its size and the
     coupled argmin's two (3, K^3, chunk) float32 temporaries (the
-    difference and its square, :func:`_coupled_cost`; they outweigh the
-    volume below about 2 GB)."""
+    difference and its square of its plain version,
+    :func:`~convexadam_torch.kernels.convex.coupled_cost`; they outweigh
+    the volume below about 2 GB)."""
     n = 1
     for s in coarse_shape:
         n *= int(s)
@@ -269,8 +242,9 @@ def convex_displacement_tp(
     package pads): a padded copy of candidate K^3 - 1 changes neither a
     minimum nor its first index, so each rank evaluates only its distinct
     candidates, and a rank whose slice is all padding evaluates K^3 - 1.
-    The costs, their box passes and each round's coupled cost are the dense
-    path's (:func:`correlate`, :func:`_coupled_cost`); per round two
+    The costs, their box passes and each round's coupled argmin are the
+    dense path's (:func:`correlate`, :func:`coupled_argmin_fold` over the
+    rank's slice); per round two
     collective minima recover every voxel's global first minimum, the value
     first, then the smallest index among the ranks that hold it.  The field
     therefore equals :func:`convex_displacement`'s to the bit, on every rank.
@@ -298,14 +272,16 @@ def convex_displacement_tp(
     chunk = max(1, COUPLED_CHUNK_BYTES // (3 * (hi - lo) * 4))
 
     def global_argmin(s=None, c=None):
-        val = torch.empty(n, dtype=torch.float32, device=dev)
-        idx = torch.empty(n, dtype=torch.int64, device=dev)
-        for a in range(0, n, chunk):
-            b = min(a + chunk, n)
-            block = costs[:, a:b] if s is None else _coupled_cost(costs[:, a:b], mesh_l,
-                                                                    s[:, a:b], c)
-            v, i = torch.min(block, dim=0)
-            val[a:b], idx[a:b] = v, ks[i]
+        if s is None:
+            val = torch.empty(n, dtype=torch.float32, device=dev)
+            idx = torch.empty(n, dtype=torch.int64, device=dev)
+            for a in range(0, n, chunk):
+                b = min(a + chunk, n)
+                v, i = torch.min(costs[:, a:b], dim=0)
+                val[a:b], idx[a:b] = v, ks[i]
+        else:
+            val, idx = _running_min(n, K3, dev)
+            coupled_argmin_fold(costs, mesh_l, ks, s, c, val, idx)
         if n_ranks == 1:
             return idx.reshape(shape)
         gmin = val.clone()

@@ -87,8 +87,7 @@ def main() -> int:
     cs.TASK3_LABELS, cs.TASK3_SCALE = 12, 8
     cs.ABDOMEN_SHAPE, cs.L2R_LABELS, cs.SEMANTIC_LABELS = (40, 36, 48), 4, 5
     cs.STREAM_NATURAL_SHAPE = (48, 48, 56)
-    k3 = (2 * cs.STREAM_CLASS[1] + 1) ** 3
-    threshold = k3 * 20 * 18 * 24 * 8  # the subjects' grid, dense
+    threshold = convex.dense_estimate(cs.STREAM_CLASS[1], (20, 18, 24))  # the subjects' grid, dense
     convex.COST_VOLUME_STREAM_THRESHOLD = threshold
     # convex_displacement's default was bound when the module loaded
     code = convex.convex_displacement.__code__

@@ -27,6 +27,7 @@ import convexadam_torch.selfconfig.engine as teng
 from convexadam_torch.core import convex as tconvex
 from convexadam_torch.core.cost_volume import displacement_mesh
 from convexadam_torch.core.smoothing import avg_pool3d
+from convexadam_torch.kernels import convex as tfold
 from convexadam_torch.selfconfig import checkpoint as tck
 from convexadam_torch.selfconfig import rank as trank
 from convexadam_torch.selfconfig import settings as tset
@@ -150,7 +151,8 @@ def test_coupled_convex_chunks_equal_the_unchunked_form(rng, monkeypatch, chunk_
     mesh = displacement_mesh(q)
     am = torch.argmin(ssd_t, dim=0)
     if chunk_voxels is not None:
-        monkeypatch.setattr(tconvex, "COUPLED_CHUNK_BYTES", 3 * K3 * 4 * chunk_voxels)
+        # the plain coupled argmin, which CPU tensors take, chunks by its own module's bytes
+        monkeypatch.setattr(tfold, "COUPLED_CHUNK_BYTES", 3 * K3 * 4 * chunk_voxels)
     got = tconvex.coupled_convex(ssd_t, am, mesh)
     assert torch.equal(got, _coupled_unchunked(ssd_t, am, mesh))
 

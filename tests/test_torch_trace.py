@@ -12,6 +12,8 @@ on the CPU, at tiny sizes.
   ``sweep.*`` span but ``sweep.prep`` encloses another ``sweep.*`` one.
 * Every result is bit-equal with tracing on and off, and two traced runs
   count alike.
+* Each case's coupled argmin counts 12 plain folds here (6 rounds, two
+  directions) and 12 kernel launches on a card.
 * Host waits: a sync warning counts under the innermost open span, other
   warnings pass on, and nothing counts without a profiler.  Torch's sync
   debug mode warns on a card only, so the sweeps' own waits are checked
@@ -177,6 +179,15 @@ def test_the_record_holds_each_layer_of_each_case(runs):
     assert all(s.stream_ms is None for s in spans)  # no card
 
 
+def test_coupled_argmin_counts_its_plain_folds(runs):
+    """Off the card every coupled argmin takes the plain fold: 6 rounds in
+    each of the two directions inverse consistency runs, 12 a case."""
+    kind, _, on, _, _ = runs
+    settings = SEMANTIC if kind == "semantic" else PAIRED
+    assert on.counters["coupled_argmin.plain"] == 12 * len(settings) * len(PAIRS)
+    assert "coupled_argmin.kernel" not in on.counters
+
+
 def test_parents_enclose_their_children_and_hand_down_their_case(runs):
     _, _, on, _, _ = runs
     for k, s in enumerate(on.spans):
@@ -310,6 +321,18 @@ def test_semantic_counters_read_the_sites():
     if res.rescored == 0:
         assert sum(waits.values()) == S + 34 * S * P + 5 * P + 2, waits
     assert res.counters["kernel_builds"] == 0 and "kernel_loads" not in res.counters
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", ["semantic", "paired"])
+def test_coupled_argmin_counts_its_kernel_launches(kind):
+    """On the card every coupled argmin is one kernel launch, 12 a case
+    (6 rounds, 2 directions), and none takes the plain fold."""
+    dev = _card()
+    _, res = _card_waits(lambda: (_semantic if kind == "semantic" else _paired)(dev))
+    settings = SEMANTIC if kind == "semantic" else PAIRED
+    assert res.counters["coupled_argmin.kernel"] == 12 * len(settings) * len(PAIRS)
+    assert "coupled_argmin.plain" not in res.counters
 
 
 def test_a_span_outside_a_sweep_opens_its_range_only():
