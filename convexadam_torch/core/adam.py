@@ -25,6 +25,7 @@ from convexadam_torch.core.smoothing import (
     kovesi_widths,
 )
 from convexadam_torch.core.warp import warp_ssd_mean_loss, warp_ssd_mean_loss_unfused
+from convexadam_torch.utils import trace
 
 # stage-2 "shift-spline" smoother bank: two Gaussians and six Kovesi
 # box-cascade splines, indexed by ``avg_n``
@@ -186,4 +187,6 @@ def adam_instance_optimisation(
         return _grad_step_fused(w, fix_flat, mov, lambda_weight, smooth_fn, cost_scale,
                                 sample_stride)
 
-    return _adam_loop(grad_fn, disp_init, niter, snapshot_iters)
+    with trace.span("adam.loop"):
+        trace.count("adam.steps", niter)
+        return _adam_loop(grad_fn, disp_init, niter, snapshot_iters)

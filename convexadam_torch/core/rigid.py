@@ -25,6 +25,7 @@ import functools
 import torch
 
 from convexadam_torch.core.warp import identity_grid_normalized, resize_trilinear
+from convexadam_torch.utils import trace
 
 
 def _f32_matmuls(fn):
@@ -184,7 +185,9 @@ def thin_plate_dense(
     H, W, D = shape
     sub = (H // step, W // step, D // step)
     x2 = identity_grid_normalized(sub, align_corners=True, device=x1.device).reshape(-1, 3)
-    theta = tps_fit(x1, y1, lambd)
-    y2 = tps_eval(x2, x1, theta).reshape(*sub, 3).permute(3, 0, 1, 2)
-    y2 = resize_trilinear(y2, (H, W, D), align_corners=True)
-    return y2.permute(1, 2, 3, 0)
+    with trace.span("tps.fit"):
+        theta = tps_fit(x1, y1, lambd)
+    with trace.span("tps.eval"):
+        y2 = tps_eval(x2, x1, theta).reshape(*sub, 3).permute(3, 0, 1, 2)
+        y2 = resize_trilinear(y2, (H, W, D), align_corners=True)
+        return y2.permute(1, 2, 3, 0)

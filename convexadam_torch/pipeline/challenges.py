@@ -6,7 +6,8 @@ root scripts):
 * **Task 1 (Abdomen MR-CT)**: register, densify the masked field with a
   thin-plate spline, and resample the physical displacement field back into
   the original (uncropped, unresampled) image space
-  (l2r_2021_convexAdam_task1_docker.py:38-105, 283-413).
+  (l2r_2021_convexAdam_task1_docker.py:38-105, 283-413);
+  :func:`task1_validation` runs and scores it over labelled pairs.
 * **Task 2 (lung CT exhale-inhale)**: EDT lung-mask infill, one cost-volume
   box pass, no inverse consistency, Adam at grid 2, a half-resolution
   submission field (l2r_2021_convexAdam_task2_docker.py:194-332).
@@ -50,6 +51,8 @@ from convexadam_torch.pipeline.convex_adam import (
     convex_adam_torch,
 )
 from convexadam_torch.pipeline.preprocess import mask_infill
+from convexadam_torch.selfconfig.l2r import evaluate_field
+from convexadam_torch.utils import trace
 
 
 def _vol(x, dev, dtype=torch.float32) -> torch.Tensor:
@@ -103,6 +106,7 @@ def _tps_densify(disp: np.ndarray, fixed_mask, num_samples: int, tps_step: int, 
     pts_norm = lattice[mask3.reshape(-1)]
     rng = np.random.default_rng(seed)
     pts_norm = pts_norm[rng.permutation(len(pts_norm))[:num_samples]]
+    trace.count("tps.control_points", len(pts_norm))
 
     with torch.no_grad():
         field = torch.from_numpy(np.ascontiguousarray(disp)).to(dev).permute(3, 0, 1, 2)
@@ -115,7 +119,8 @@ def _tps_densify(disp: np.ndarray, fixed_mask, num_samples: int, tps_step: int, 
         dense = thin_plate_dense(x1, y1, (H, W, D), tps_step, 0.0)  # (H, W, D, 3) normalized
         dense_vox = dense.permute(3, 0, 1, 2) * scale.reshape(3, 1, 1, 1)
         if smooth:
-            dense_vox = box_smooth_repeated(dense_vox, 3, 3)
+            with trace.span("tps.smooth"):
+                dense_vox = box_smooth_repeated(dense_vox, 3, 3)
         return dense_vox.permute(1, 2, 3, 0).cpu().numpy().astype(np.float32, copy=False)
 
 
@@ -137,8 +142,10 @@ def register_tps_densified(
     (l2r_2021_convexAdam_task1_docker.py:289-391).  Returns (H, W, D, 3)
     float32 voxels."""
     dev = _resolve_device(device)
-    disp = convex_adam(img_fixed, img_moving, cfg or TASK1_CONFIG, device=dev)
-    return _tps_densify(disp, fixed_mask, num_samples, tps_step, smooth, seed, dev)
+    with trace.span("task1.register"):
+        disp = convex_adam(img_fixed, img_moving, cfg or TASK1_CONFIG, device=dev)
+    with trace.span("task1.densify"):
+        return _tps_densify(disp, fixed_mask, num_samples, tps_step, smooth, seed, dev)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,6 +236,63 @@ def task1_field_to_original(
         half = (H0 // 2, W0 // 2, D0 // 2)
         disp_half = resize_trilinear(disp_out, half, align_corners=False)
         return disp_half.cpu().numpy().astype(np.float32, copy=False)
+
+
+@dataclasses.dataclass
+class Task1Validation:
+    """What :func:`task1_validation` returns: per pair the scores of
+    :func:`~convexadam_torch.selfconfig.l2r.evaluate_field` (``dice``,
+    ``dice30``, ``hd95``, ``sdlogj``, ``neg_jac_frac``), the
+    half-resolution original-space field (3, H0 / 2, W0 / 2, D0 / 2), the
+    densified field (H, W, D, 3) that was scored and mapped (kept so that
+    a caller can rescore or remap it with another implementation), and the
+    call's record (``utils/trace.py``): its spans and counters, empty
+    unless a profiler recorded."""
+
+    scores: list
+    fields: list
+    densified: list
+    spans: list = dataclasses.field(default_factory=list)
+    counters: dict = dataclasses.field(default_factory=dict)
+
+
+def task1_validation(
+    imgs_fixed,
+    imgs_moving,
+    fixed_masks,
+    segs_fixed,
+    segs_moving,
+    metas: "list[Task1CaseMeta]",
+    num_labels: int,
+    cfg: "ConvexAdamConfig | None" = None,
+    device: "str | torch.device | None" = None,
+) -> Task1Validation:
+    """Task 1 over its labelled pairs, as a participant validates the
+    recipe: for pair ``i`` (row ``i`` of each stack (P, H, W, D), the
+    volumes preprocessed to ``metas[i].ref_spacing``),
+    :func:`register_tps_densified` (``cfg``, the recipe's spline), the
+    densified field mapped to the original fixed grid of ``metas[i]`` by
+    :func:`task1_field_to_original`, and the densified field scored against
+    the pair's labels 1..``num_labels`` by
+    :func:`~convexadam_torch.selfconfig.l2r.evaluate_field`.  The fields
+    are those of the three functions called alone.  Runs on ``cuda`` unless
+    ``device="cpu"``."""
+    dev = _resolve_device(device)
+    scores, fields, densified = [], [], []
+    with trace.recording() as rec:
+        trace.on_device(dev)
+        for i, meta in enumerate(metas):
+            with trace.span("task1.pair", (None, i)):
+                dense = register_tps_densified(imgs_fixed[i], imgs_moving[i], fixed_masks[i],
+                                               cfg=cfg, device=dev)
+                sp = np.asarray(meta.ref_spacing, np.float32)
+                with trace.span("task1.original"):
+                    fields.append(task1_field_to_original(dense, sp, sp, meta, device=dev))
+                with trace.span("task1.evaluate"):
+                    scores.append(evaluate_field(dense, segs_fixed[i], segs_moving[i],
+                                                 num_labels, device=dev))
+                densified.append(dense)
+    return Task1Validation(scores, fields, densified, rec.spans, rec.counters)
 
 
 # ---------------------------------------------------------------------------

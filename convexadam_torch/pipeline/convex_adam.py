@@ -160,12 +160,14 @@ def _adam_inputs(
     H, W, D = feat_fix.shape[1:]
     g2 = cfg.grid_sp_adam
     check_grids(cfg, (H, W, D), convex=False, adam=True)
-    patch_fix = avg_pool3d(feat_fix.float(), g2, stride=g2)
-    # the moving features stay in the compute dtype (bf16 halves the data
-    # term's gather traffic); the kernel accumulates in float32 either way
-    patch_mov = avg_pool3d(feat_mov.float(), g2, stride=g2).to(cfg.compute_dtype(feat_fix.device))
-    disp_lr = resize_trilinear(disp_hr, (H // g2, W // g2, D // g2), align_corners=False)
-    return patch_fix, patch_mov, disp_lr / g2
+    with trace.span("adam.inputs"):
+        patch_fix = avg_pool3d(feat_fix.float(), g2, stride=g2)
+        # the moving features stay in the compute dtype (bf16 halves the data
+        # term's gather traffic); the kernel accumulates in float32 either way
+        patch_mov = avg_pool3d(feat_mov.float(), g2, stride=g2).to(
+            cfg.compute_dtype(feat_fix.device))
+        disp_lr = resize_trilinear(disp_hr, (H // g2, W // g2, D // g2), align_corners=False)
+        return patch_fix, patch_mov, disp_lr / g2
 
 
 def _upsample_and_smooth(field: torch.Tensor, shape, g2: int, k: int) -> torch.Tensor:
@@ -198,10 +200,10 @@ def _adam_stage(
         sample_stride=cfg.adam_sample_stride,
     )
     g2, k = cfg.grid_sp_adam, cfg.selected_smooth
-    final = _upsample_and_smooth(fitted, shape, g2, k)
-    snaps_hr = torch.stack([_upsample_and_smooth(s, shape, g2, k) for s in snaps]) if len(snaps) else (
-        torch.zeros((0, 3) + shape, dtype=torch.float32, device=final.device)
-    )
+    with trace.span("adam.upsample"):
+        final = _upsample_and_smooth(fitted, shape, g2, k)
+        snaps_hr = torch.stack([_upsample_and_smooth(s, shape, g2, k) for s in snaps]) if len(
+            snaps) else torch.zeros((0, 3) + shape, dtype=torch.float32, device=final.device)
     return final, snaps_hr
 
 
@@ -229,7 +231,7 @@ def convex_adam_torch(
     Returns the displacement field (H, W, D, 3) in voxels (dH, dW, dD).
     """
     dt = cfg.compute_dtype(img_fixed.device)
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("convex.features"):
         feat_fix = mindssc(img_fixed.float(), cfg.mind_r, cfg.mind_d, dtype=dt)
         feat_mov = mindssc(img_moving.float(), cfg.mind_r, cfg.mind_d, dtype=dt)
     return convex_adam_features(feat_fix, feat_mov, cfg)

@@ -1,4 +1,4 @@
-"""Spans and counters of the sweeps' layers, on while a ``torch.profiler``
+"""Spans and counters of the port's layers, on while a ``torch.profiler``
 records.
 
 :func:`span` brackets a stretch of work by name; :func:`count` adds to
@@ -8,7 +8,9 @@ while the autograd profiler records (``torch.profiler.profile``,
 a shared null context, and a counter one check: no range, event, clock read
 or wait.  While on, a span opens a ``record_function`` range of its name
 and, inside a :func:`recording` (each sweep call opens one and returns it
-on its ``SweepResult``), appends a :class:`Span` to the record: its name,
+on its ``SweepResult``; ``pipeline/challenges.py:task1_validation`` opens
+one a call and returns it on its ``Task1Validation``), appends a
+:class:`Span` to the record: its name,
 the index of the span that encloses it (-1 at the top), its case
 ``(setting, pair)`` (inherited from the enclosing span when not given), its
 host start and end, and its stream time.  Counters count inside a record
@@ -42,7 +44,13 @@ ranges ``sweep.convex``, ``sweep.evaluate``, ``sweep.hd95`` and
 ``sweep.fetch`` by name.  So spans inside those ranges take other prefixes
 (``convex.*``, ``hd95.*``), which leave those readings as they are, and
 ``sweep.`` names stand only outside them (``sweep.prep.*``,
-``sweep.rescore``), where they name work no range held before.
+``sweep.rescore``), where they name work no range held before.  The
+registration's own layers keep off the prefix too: ``adam.*`` (the Adam
+stage's inputs, loop and upsample; the loop also inside ``sweep.adam`` in
+stage 2),
+``tps.*`` (the spline's fit, evaluation and smoothing) and ``task1.*``
+(task 1's pair, registration, densification, original-space map and
+scores), with the counters ``adam.steps`` and ``tps.control_points``.
 """
 
 from __future__ import annotations
@@ -77,8 +85,8 @@ class Span:
 
 
 class Record:
-    """The spans (in the order they opened) and counters of one sweep
-    call."""
+    """The spans (in the order they opened) and counters of one call of a
+    sweep or of ``task1_validation``."""
 
     def __init__(self):
         self.spans: "list[Span]" = []
@@ -182,7 +190,7 @@ def on_device(device: torch.device) -> None:
 
 @contextlib.contextmanager
 def recording():
-    """Open a record for one sweep call; spans and counters of the block
+    """Open a record for one call; spans and counters of the block
     go to it (to the innermost record when they nest), and its stream times
     are read when the block ends."""
     rec = Record()

@@ -1,0 +1,17 @@
+"""``evaluate_ms``: the card's milliseconds a pair of the program's
+``task1.evaluate`` spans (task 1's scoring of the densified field:
+``evaluate_field``'s Jacobian, warped labels and Dice, and HD95 with its
+host-sized surface buffers), each the stream time between the span's two
+CUDA events, read from the record the call returns (``spans``,
+``utils/trace.py``), summed over the window's calls.  Nothing where a call
+returned no such span, or one without a stream time (off the card)."""
+
+
+def read(ctx):
+    total = 0.0
+    for _, _, res in ctx.calls:
+        spans = [s for s in getattr(res, "spans", None) or () if s.name == "task1.evaluate"]
+        if not spans or any(s.stream_ms is None for s in spans):
+            return None
+        total += sum(s.stream_ms for s in spans)
+    return total / ctx.cases if ctx.cases else None
