@@ -70,6 +70,13 @@ Phases, each fatal on failure:
      headline label pair at the (3, 3) class equal after each coupling;
      every class timed (call, device, bound = K^3 n 4 bytes at 3.35 TB/s,
      plain), the lung's (2, 5) class the record;
+  3h. the cost volume's box passes (``box_mean3``) against ``F.avg_pool3d``
+     applied once and twice, to the bit, at every (grid_sp, disp_hw) class
+     of the benchmark's four cells (C 125 to 4913, 38 x 32 x 51 to 112 x 96
+     x 112) and of phases 4, 4b, 4f and 5a (``BOX_CLASSES``), integer costs with infs and NaNs planted and normal ones, one
+     kernel launch a call; two passes of every class timed (call, device,
+     bound = max(2 V 4 bytes at 3.35 TB/s, 54 V adds at 33.5 T/s), plain),
+     the lung's (2, 5) class the record;
   3c. the sampler on the inverse-consistency fields (to the bit, and to
      1e-5 against ``F.grid_sample``), and the fused
      inverse-consistency steps (15 per call, 2 x 3 x 32^3 and a ragged 37 x
@@ -270,8 +277,8 @@ Phases, each fatal on failure:
      ``convex_displacement_tp`` at the (2, 7) class on 7e's features, both
      directions, every rank's field equal to 7e's dense field and to the
      fields gathered from the ranks to the bit, one candidate-block launch
-     a rank and direction, held to its plain version to the bit; each
-     rank's seconds and peak;
+     and one box launch a rank and direction, each held to its plain version
+     to the bit, as is the first fold; each rank's seconds and peak;
   9c. the same ranks: 5a's ``run_stage1_sweep`` on a (setting 2, pair 1)
      grid, ``dice``, ``jstd``, ``hd95``, ``rank`` and ``best`` equal to
      5a's to the bit on both;
@@ -280,7 +287,7 @@ Phases, each fatal on failure:
      the 192^3 headline pair split along H over a (pair 1, space 4) grid and
      9a's two pairs over a (pair 2, space 2) grid: every rank's fields equal
      to phase 4's lone field (and 9a's second) to the bit, launches a rank
-     2 / 2 / 15 / 80, each rank's recorded cost-volume and data-term calls
+     2 / 2 / 15 / 80, each rank's recorded cost-volume, box and data-term calls
      (a slab's moving row offset and first lattice row) held to their plain
      versions; each rank's seconds, peak memory and halo bytes; then a
      12 x 32 x 32 pair (three slab units of 4 rows for four ranks, the last
@@ -341,7 +348,7 @@ FOLDS = 6  # coupled argmin folds a dense convex direction: one a coupling round
 EXPECTED_LAUNCHES = {
     "mind_ssd_stats": 2, "cost_volume": 2, "sample_trilinear_ic": IC_ITERS,
     "warp_ssd_loss_grad": 80, "sample_trilinear": 0, "sample_trilinear_bwd": 0,
-    "coupled_argmin": 2 * FOLDS,
+    "coupled_argmin": 2 * FOLDS, "box_mean3": 2,
 }
 MIND_PAIRS = [(r, d) for r in (1, 2, 3) for d in (1, 2, 3)]  # the search's MIND radii, dilations
 # pairs outside {1, 2, 3}^2, which run the general kernel: every pair whose
@@ -391,7 +398,7 @@ SEMANTIC_LABELS = L2R_LABELS + 1  # the one-hot channels: 13 organs and the back
 EXPECTED_SEMANTIC_LAUNCHES = {
     "mind_ssd_stats": 0, "cost_volume": 2, "sample_trilinear_ic": IC_ITERS,
     "warp_ssd_loss_grad": 80, "sample_trilinear": 0, "sample_trilinear_bwd": 0,
-    "coupled_argmin": 2 * FOLDS,
+    "coupled_argmin": 2 * FOLDS, "box_mean3": 2,
 }
 EXPECTED_AUTODIFF_LAUNCHES = {
     "sample_trilinear": 80, "sample_trilinear_bwd": 80, "warp_ssd_loss_grad": 0,
@@ -418,6 +425,8 @@ REPLACES = {
     "mind_ssd_stats_general": "convexadam_tpu/ops/mind_pallas.py:196",
     # no Pallas kernel: the JAX package leaves its coupled argmin to XLA
     "coupled_argmin": "convexadam_tpu/core/convex.py:coupled_convex (XLA)",
+    # no Pallas kernel: the JAX package smooths its cost volume with XLA
+    "box_mean3": "convexadam_tpu/core/cost_volume.py:correlate (XLA)",
 }
 SOURCES = {
     "mind_ssd_stats": "convexadam_torch/csrc/mind.cu",
@@ -435,6 +444,7 @@ SOURCES = {
     "warp_ssd_loss_grad_strided": "convexadam_torch/csrc/warp.cu",
     "mind_ssd_stats_general": "convexadam_torch/csrc/mind.cu",
     "coupled_argmin": "convexadam_torch/csrc/convex.cu",
+    "box_mean3": "convexadam_torch/csrc/box.cu",
 }
 # the __global__ functions each wrapper launches, as the profiler names them
 GLOBALS = {
@@ -453,7 +463,12 @@ GLOBALS = {
     "warp_ssd_loss_grad_strided": ("warp_ssd_kernel", "sum_partials_kernel"),
     "mind_ssd_stats_general": ("mind_general_kernel",),
     "coupled_argmin": ("coupled_argmin_fold_kernel",),
+    "box_mean3": ("box_mean3_kernel",),
 }
+# the cost volume's launches, each followed by one launch of its box passes
+# (one or two passes, box_mean3)
+COST_VOLUME_WRAPPERS = ("cost_volume", "cost_volume_sad", "cost_volume_general",
+                        "cost_volume_block")
 # phase 5, the sweep at the Abdomen shape, its depth cut to two pairs, the
 # first seeded stage-1 setting of each of the 22 (grid_sp, disp_hw) classes
 # the seeded sampler draws, and the first seeded stage-2 setting of each
@@ -566,18 +581,38 @@ FOLD_RECORD = (1204224, 5)
 FOLD_BLOCKED = ((350464, 7), (62016, 4), (92160, 8), (150531, 5))
 FOLD_NAN = (150528, 3)  # NaNs planted: the fold against torch.argmin on the card
 FOLD_FIELD_CLASS = (3, 3)  # (grid_sp, disp_hw): dense, streamed, tp, plain fields
+# phase 3h, the box passes: (channels, h, w, d) of every (grid_sp, disp_hw)
+# class of the benchmark's four cells (Abdomen CT-CT 192x160x256, its coarse
+# settings, NLST 224x192x224, task 1 192x160x192 at (4, 8)); the lung's
+# (2, 5) class gives the record
+BENCH_BOX_CLASSES = ((125, 96, 80, 128), (1331, 96, 80, 128), (125, 64, 53, 85),
+                     (343, 64, 53, 85), (125, 48, 40, 64), (729, 48, 40, 64),
+                     (2197, 48, 40, 64), (3375, 48, 40, 64), (125, 38, 32, 51),
+                     (729, 38, 32, 51), (2197, 38, 32, 51), (125, 112, 96, 112),
+                     (1331, 112, 96, 112), (1331, 74, 64, 74), (3375, 74, 64, 74),
+                     (125, 56, 48, 56), (343, 56, 48, 56), (729, 56, 48, 56),
+                     (729, 44, 38, 44), (4913, 48, 40, 48))
+# and the cost volumes of this script's own runs whose box calls no other
+# phase holds to their plain version: phase 4's 192^3 default (6, 4), 4b's
+# golden 48^3 at (4, 2), 4f's semantic default at the Abdomen shape, 5a's
+# (3, 7) class (7g, 5b, 8b, 9b and 9d hold their recorded box calls)
+BOX_CLASSES = BENCH_BOX_CLASSES + ((729, 32, 32, 32), (125, 12, 12, 12), (729, 32, 26, 42),
+                                   (3375, 64, 53, 85))
+BOX_RECORD = (1331, 112, 96, 112)
 # phase 7g: the wrappers whose calls it records, by the module each recipe
 # calls them through, and how many calls of each it records in each recipe
 CAPTURE_SITES = (("convexadam_torch.core.features", "mind_ssd_stats"),
                  ("convexadam_torch.core.cost_volume", "cost_volume"),
                  ("convexadam_torch.core.convex", "cost_volume_block"),
+                 ("convexadam_torch.core.cost_volume", "box_mean3"),
+                 ("convexadam_torch.core.convex", "box_mean3"),
                  ("convexadam_torch.core.warp", "inverse_consistency_steps"),
                  ("convexadam_torch.core.warp", "warp_ssd_loss_grad"),
                  ("convexadam_torch.core.convex", "coupled_argmin_fold"))
 CAPTURE_CALLS = 3
-# a fold call holds a whole cost volume or a rank's slice of it (6.6 GB at
-# 9b's (2, 7) class), so one a run is recorded
-CAPTURE_LIMITS = {"coupled_argmin_fold": 1}
+# a fold or box call holds a whole cost volume or a rank's slice of it (6.6 GB
+# at 9b's (2, 7) class), so one a run is recorded
+CAPTURE_LIMITS = {"coupled_argmin_fold": 1, "box_mean3": 1}
 # phase 8, the segmentation front end: the packaged anatomy checkpoint on its
 # held-out case (a bent tube, tests/regen_unet_anatomies.py, whose numpy
 # generators are copied below), then the entry from raw images at the
@@ -623,7 +658,7 @@ SPACE_GRIDS = ((1, 4), (2, 2))
 SPACE_TINY_SHAPE = (12, 32, 32)
 SPACE_TINY_CONFIG = dict(grid_sp=4, disp_hw=2, selected_niter=10, grid_sp_adam=2)
 SPACE_TINY_SHIFT = (2, -1, 1)
-SPACE_HELD = ("cost_volume", "warp_ssd_loss_grad")
+SPACE_HELD = ("cost_volume", "box_mean3", "warp_ssd_loss_grad")
 SPACE_DEADLINE_S = 300
 CLI_MESH_CLASSES = ((4, 4), (5, 2))  # 9a's CLI settings: phase 5a's two quickest classes
 
@@ -1567,6 +1602,77 @@ def coupled_argmin_phase(torch, dev, segs):
                     "field_shape": list(fix_s.shape), "fields_equal": fields}
 
 
+def box_work(c: int, h: int, w: int, d: int, passes: int) -> "tuple[float, float]":
+    """Bytes and separately rounded operations of ``passes`` box passes
+    over a (c, h, w, d) float32 volume: the volume read once and written
+    once; 27 additions an element a pass (the divisions left out)."""
+    v = float(c) * h * w * d
+    return 8.0 * v, 27.0 * passes * v
+
+
+def _same_bits(torch, a, b) -> bool:
+    """Equal to the bit where a number, NaN where the other is NaN (64
+    channels at a time)."""
+    for x, y in zip(a.reshape(len(a), -1).split(64), b.reshape(len(b), -1).split(64)):
+        nx, ny = torch.isnan(x), torch.isnan(y)
+        if not (torch.equal(nx, ny) and torch.equal(x[~nx].view(torch.int32),
+                                                     y[~ny].view(torch.int32))):
+            return False
+    return True
+
+
+def box_phase(torch, dev):
+    """Phase 3h: ``box_mean3`` against ``F.avg_pool3d`` applied as often
+    (``box_mean3_plain``), to the bit, after one and two passes at every
+    :data:`BOX_CLASSES` class, one launch of ``box_mean3_kernel`` a call:
+    integer costs (ties) with infs and NaNs planted, then normal costs.
+    Two passes of every class timed (Call, Device, Bound, Plain).  Returns
+    the record of the :data:`BOX_RECORD` class and every class's numbers."""
+    from convexadam_torch.kernels import LAUNCHES
+    from convexadam_torch.kernels.box import box_mean3, box_mean3_plain, launch_plan
+    from convexadam_torch.kernels.convex import sm_count
+
+    record, detail = None, []
+    for c, h, w, d in BOX_CLASSES:
+        name = f"box_mean3 {c}x{h}x{w}x{d}"
+        gen = torch.Generator(device=dev).manual_seed(c + h)
+        x = torch.randint(0, 4, (c, h, w, d), generator=gen, device=dev).float()
+        flat = x.view(-1)
+        n = flat.numel()
+        for value, every in ((float("inf"), 97), (float("-inf"), 211), (float("nan"), 151)):
+            flat[torch.randint(0, n, (n // every,), generator=gen, device=dev)] = value
+        for passes in (1, 2):
+            before = LAUNCHES["box_mean3"]
+            got = box_mean3(x, passes)
+            check(LAUNCHES["box_mean3"] - before == 1, f"{name}: {passes} passes, "
+                  f"{LAUNCHES['box_mean3'] - before} launches")
+            check(_same_bits(torch, got, box_mean3_plain(x, passes)),
+                  f"{name}: {passes} passes differ from F.avg_pool3d")
+            del got
+        x.normal_(generator=gen)
+        check(_same_bits(torch, box_mean3(x, 2), box_mean3_plain(x, 2)),
+              f"{name}: normal costs differ from F.avg_pool3d")
+        row = {"shape": [c, h, w, d], "plan": list(launch_plan(c, h, w, d, 2, sm_count(dev))),
+               "max_abs_err": 0.0}
+        t = timed_turns(torch, lambda: box_mean3(x, 2), GLOBALS["box_mean3"], launches=1)
+        check(t["device_launches_least"] == 1,
+              f"{name}: {t['device_launches_least']} kernel launches a call")
+        p_ms = cuda_ms(torch, lambda: box_mean3_plain(x, 2), 1, 3)
+        rec = kernel_record("box_mean3", [c, h, w, d], "float32", 0.0, 0.0, t, p_ms,
+                            *box_work(c, h, w, d, 2), rate=PEAK_F32_UNFUSED)
+        print_times(f"{name} plan {row['plan']}", t, p_ms, rec["bound_ms"])
+        row.update({key: rec[key] for key in ("call_ms", "device_ms", "plain_ms", "bound_ms",
+                                              "bound_by")})
+        row["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        detail.append(row)
+        if (c, h, w, d) == BOX_RECORD:
+            record = rec
+        del x
+    print(f"3h: {len(BOX_CLASSES)} classes equal to F.avg_pool3d after one and two passes",
+          flush=True)
+    return record, {"classes": detail}
+
+
 def kernel_instance(q, metric):
     """The profiler's name of the cost-volume kernel that computes half-width
     ``q`` with ``metric``, e.g. ``cost_volume_kernel<4, false>`` (SSD) or
@@ -2474,8 +2580,10 @@ def _launch_checks(what, launches, expected, at_least=()):
 
 
 def sweep_expected(**per_kernel):
-    """Expected launches of every kernel: 0 but for ``per_kernel``."""
+    """Expected launches of every kernel: 0 but for ``per_kernel``; the box
+    passes, where not given, one launch a cost volume of ``per_kernel``."""
     out = {name: 0 for name in GLOBALS}
+    out["box_mean3"] = sum(per_kernel.get(name, 0) for name in COST_VOLUME_WRAPPERS)
     out.update(per_kernel)
     return out
 
@@ -4080,6 +4188,7 @@ def _shape_of(a) -> dict:
 def _kernel_pairs() -> dict:
     """Each wrapper of :data:`CAPTURE_SITES` by name, with its plain
     version."""
+    from convexadam_torch.kernels.box import box_mean3, box_mean3_plain
     from convexadam_torch.kernels.convex import coupled_argmin_fold, coupled_argmin_fold_plain
     from convexadam_torch.kernels.cost_volume import cost_volume_block_plain, cost_volume_plain
     from convexadam_torch.kernels.cost_volume import cost_volume, cost_volume_block
@@ -4094,6 +4203,7 @@ def _kernel_pairs() -> dict:
     return {"mind_ssd_stats": (mind_ssd_stats, mind_ssd_stats_plain),
             "cost_volume": (cost_volume, cost_volume_plain),
             "cost_volume_block": (cost_volume_block, cost_volume_block_plain),
+            "box_mean3": (box_mean3, box_mean3_plain),
             "inverse_consistency_steps": (inverse_consistency_steps,
                                           inverse_consistency_steps_plain),
             "warp_ssd_loss_grad": (warp_ssd_loss_grad, warp_ssd_loss_grad_plain),
@@ -4740,8 +4850,8 @@ def space_phase(torch, vol_np, mov_np, fields, peak_gb, results, backend="gloo")
     (pair 1, space 4) grid, and two headline pairs (9a's) over a (pair 2,
     space 2) grid: every rank's fields equal to the one-process fields
     ``fields`` (phase 4's, 9a's second) to the bit, the default launches a
-    rank and pair (2 / 2 / 15 / 80), each rank's recorded cost-volume and
-    data-term calls (a slab's offsets) held to their plain versions; each
+    rank and pair (2 / 2 / 15 / 80), each rank's recorded cost-volume, box
+    and data-term calls (a slab's offsets) held to their plain versions; each
     rank's seconds, peak memory (phase 4's one-process peak ``peak_gb``
     beside them) and halo bytes; then the short case
     (:data:`SPACE_TINY_SHAPE`, three slab units for four ranks): every
@@ -4788,8 +4898,8 @@ def space_phase(torch, vol_np, mov_np, fields, peak_gb, results, backend="gloo")
                   f"{d['seconds']:.4f} s ({d['warmup_s']:.4f} s warm-up), peak "
                   f"{d['peak_gb']:.3f} GB ({d['start_gb']:.3f} held before; one process "
                   f"{peak_gb:.3f}), halo {d['halo_bytes']} bytes, gathers {d['gather_bytes']} "
-                  f"bytes; fields equal to the one-process fields; {len(held)} cost-volume and "
-                  f"data-term calls held to their plain versions, max_abs_err "
+                  f"bytes; fields equal to the one-process fields; {len(held)} cost-volume, box "
+                  f"and data-term calls held to their plain versions, max_abs_err "
                   f"{max(h['max_abs_err'] for h in held)} (tol 0)", flush=True)
     tiny_out = []
     for r in ranks:
@@ -4893,14 +5003,19 @@ def parallel_ranks_phase(torch, s1, dense, results):
                   f"9b rank {rank} {direction}: {d['launches']['cost_volume_block']} block launches")
             check(d["launches"]["coupled_argmin"] == FOLDS,
                   f"9b rank {rank} {direction}: {d['launches']['coupled_argmin']} fold launches")
-            # the candidate block and the first coupling's fold over the rank's slice
+            check(d["launches"]["box_mean3"] == 1,
+                  f"9b rank {rank} {direction}: {d['launches']['box_mean3']} box launches")
+            # the candidate block, its box passes and the first coupling's
+            # fold over the rank's slice
             held = {h["wrapper"]: h for h in d["held"]}
-            check(len(d["held"]) == 2 and set(held) == {"cost_volume_block", "coupled_argmin_fold"}
+            check(len(d["held"]) == 3
+                  and set(held) == {"cost_volume_block", "box_mean3", "coupled_argmin_fold"}
                   and all(_held(h) for h in d["held"]),
                   f"9b rank {rank} {direction}: calls held {d['held']}")
             row[direction] = {k: d[k] for k in ("seconds", "peak_gb", "start_gb")}
             row[direction]["cost_volume_block_launches"] = d["launches"]["cost_volume_block"]
             row[direction]["cost_volume_block_held"] = held["cost_volume_block"]
+            row[direction]["box_mean3_held"] = held["box_mean3"]
             row[direction]["coupled_argmin_held"] = held["coupled_argmin_fold"]
         launches[f"9b_tp_rank{rank}"] = {k: sum(d["launches"][k] for d in r["tp"].values())
                                          for k in r["tp"]["forward"]["launches"]}
@@ -4924,7 +5039,8 @@ def parallel_ranks_phase(torch, s1, dense, results):
                   f"{d['peak_gb']:.2f} GB ({d['start_gb']:.2f} held before), "
                   f"{d['cost_volume_block_launches']} candidate-block launch; equal to 7e's "
                   f"dense field and to the gathered fields; the block call {blk['args']} "
-                  f"max_abs_err {blk['max_abs_err']} (tol 0) and the fold "
+                  f"max_abs_err {blk['max_abs_err']} (tol 0), its box passes "
+                  f"{d['box_mean3_held']['max_abs_err']} (tol 0) and the fold "
                   f"{d['coupled_argmin_held']['max_abs_err']} (tol 0) against their plain "
                   f"versions", flush=True)
         print(f"9c rank {rank} at (setting, pair) {r['sweep']['coords']}: stage-1 sweep "
@@ -5012,6 +5128,11 @@ def main() -> int:
     # 3g. the coupled argmin fold at every class of the benchmark's cells
     rec, results["coupled_argmin"] = coupled_argmin_phase(torch, dev, (seg_f, seg_m))
     rec.update(ptxas_entry(results["ptxas"]["convex"], "coupled_argmin_fold_kernel", "ILi4E"))
+    records.append(rec)
+
+    # 3h. the cost volume's box passes at every class of the benchmark's cells
+    rec, results["box_mean3"] = box_phase(torch, dev)
+    rec.update(ptxas_entry(results["ptxas"]["box"], "box_mean3_kernel", "ILi2ELi4E"))
     records.append(rec)
 
     # 3c. trilinear sampler on inverse consistency's 2 x 3 x 32^3 fields (as

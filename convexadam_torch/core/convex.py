@@ -21,7 +21,8 @@ import torch
 import torch.distributed as dist
 
 from convexadam_torch.core.cost_volume import correlate, displacement_mesh
-from convexadam_torch.core.smoothing import avg_pool3d, window_mean3d
+from convexadam_torch.core.smoothing import avg_pool3d
+from convexadam_torch.kernels.box import box_mean3
 from convexadam_torch.kernels.convex import COUPLED_CHUNK_BYTES, coupled_argmin_fold, first_min
 from convexadam_torch.kernels.cost_volume import cost_volume_block
 from convexadam_torch.utils import trace
@@ -126,9 +127,8 @@ def correlate_coupled_streamed(
 
     def block(kh):
         with trace.span("convex.cost_volume"):
-            costs = cost_volume_block(fix, mov, q, kh, 1, metric, mov_row0)
-            for _ in range(smooth_passes):
-                costs = window_mean3d(costs, 3, stride=1, padding=1)
+            costs = box_mean3(cost_volume_block(fix, mov, q, kh, 1, metric, mov_row0),
+                              smooth_passes)
         return costs[:, lo:hi].reshape(K * K, n), local + kh
 
     def argmin_pass(s=None, c=None):
@@ -262,9 +262,8 @@ def convex_displacement_tp(
     shape = tuple(fix.shape[1:])
     n = fix[0].numel()
     dev = fix.device
-    costs = _candidate_costs(fix, mov, q, lo, hi, metric)
-    for _ in range(smooth_passes):
-        costs = window_mean3d(costs, 3, stride=1, padding=1)
+    with trace.span("convex.cost_volume"):
+        costs = box_mean3(_candidate_costs(fix, mov, q, lo, hi, metric), smooth_passes)
     costs = costs.reshape(hi - lo, n)
     mesh = displacement_mesh(q, device=dev)
     ks = torch.arange(lo, hi, device=dev)

@@ -8,9 +8,10 @@ script's cost) between the fixed features and the moving features shifted
 by each of the ``(2q+1)**3`` integer displacements (zeros outside), flat
 index ``k = kd*K**2 + kw*K + kh``.  It is made by the ``cost_volume`` kernel
 in float32 whatever the features' dtype, then smoothed by zero-padded 3^3
-box passes with the reference's rounding (:func:`window_mean3d`: one-hot
-semantic features give exactly tied costs, and the argmin takes the first
-minimum).
+box passes with the reference's rounding
+(:func:`~convexadam_torch.kernels.box.box_mean3`, ``F.avg_pool3d`` to the
+bit: one-hot semantic features give exactly tied costs, and the argmin takes
+the first minimum; a ``convex.box`` span).
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from convexadam_torch.core.smoothing import window_mean3d
+from convexadam_torch.kernels.box import box_mean3
 from convexadam_torch.kernels.cost_volume import cost_volume
+from convexadam_torch.utils import trace
 
 
 def displacement_mesh(disp_hw: int, device=None, dtype=torch.float32) -> torch.Tensor:
@@ -55,8 +57,7 @@ def correlate(
     """
     ssd = cost_volume(feat_fix.float().contiguous(), feat_mov.float().contiguous(), disp_hw,
                       metric, mov_row0)
-    for _ in range(smooth_passes):
-        ssd = window_mean3d(ssd, 3, stride=1, padding=1)
+    ssd = box_mean3(ssd, smooth_passes)
     if rows is not None:
         ssd = ssd[:, rows[0]:rows[1]].contiguous()
     return ssd, torch.argmin(ssd, dim=0)
@@ -69,6 +70,7 @@ def correlate_masked(
     mask``, then the argmin), as the CuRIOUS MRI-US pipeline uses it: a
     voxel outside the mask costs 0 for every displacement, so its argmin is
     the first candidate and the coupling sets its field."""
-    ssd, _ = correlate(feat_fix, feat_mov, disp_hw)
-    ssd = ssd * mask.to(ssd.dtype)[None]
-    return ssd, torch.argmin(ssd, dim=0)
+    with trace.span("convex.cost_volume"):
+        ssd, _ = correlate(feat_fix, feat_mov, disp_hw)
+        ssd = ssd * mask.to(ssd.dtype)[None]
+        return ssd, torch.argmin(ssd, dim=0)

@@ -10,9 +10,10 @@ Overlapping box filters are separable window sums over the last three axes,
 taken in H, W, D order with the window offsets ``j`` added in ascending
 order, as the JAX package sums them; they are differentiable with a
 deterministic backward, so the Adam smoothers use them.  Non-overlapping
-pooling, and the cost volume's box passes (:func:`window_mean3d`), are
-``F.avg_pool3d`` itself: the reference's rounding, which decides the
-argmin ties of one-hot semantic features.
+pooling (:func:`window_mean3d`) is ``F.avg_pool3d`` itself; so are the cost
+volume's box passes, the plain version of ``kernels/box.py``'s kernel: the
+reference's rounding, which decides the argmin ties of one-hot semantic
+features.
 """
 
 from __future__ import annotations

@@ -37,3 +37,22 @@ struct Io<__nv_bfloat16> {
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
+
+// Devices whose shared-memory grants a launch site keeps (its `granted`
+// array, one entry a device, indexed by cudaGetDevice).
+constexpr int MAX_DEVICES = 64;
+
+// Raise the kernel's dynamic shared-memory limit on the current device the
+// first time a launch needs more than the default 48 KB, and only then.
+template <typename Kern>
+int ensure_smem(Kern kernel, size_t bytes, int* granted) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if ((int)bytes <= granted[dev]) return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) granted[dev] = (int)bytes;
+  return (int)err;
+}

@@ -100,7 +100,6 @@ constexpr int TW = 4;    // j rows of a CTA tile
 constexpr int TD = 32;   // l voxels of a CTA tile
 constexpr int R = 4;     // l voxels of a thread
 constexpr int CC = 16;   // channels staged in shared memory at a time
-constexpr int MAX_DEVICES = 64;
 
 template <int Q>
 struct Cv {
@@ -115,21 +114,6 @@ struct Cv {
   // minimum ptxas spilled at q = 1 and q = 6
   static constexpr int MIN_CTAS = Q <= 4 ? 3 : 1;
 };
-
-// Raise the kernel's dynamic shared-memory limit on the current device the
-// first time a launch needs more than the default 48 KB, and only then.
-template <typename Kern>
-int ensure_smem(Kern kernel, size_t bytes, int* granted) {
-  if (bytes <= 48 * 1024) return 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  if ((int)bytes <= granted[dev]) return 0;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) granted[dev] = (int)bytes;
-  return (int)err;
-}
 
 // 4-byte asynchronous copy from global to shared memory (address dst),
 // zero-filled (and nothing read) where !in

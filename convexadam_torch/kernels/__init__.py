@@ -12,7 +12,7 @@ from __future__ import annotations
 KERNEL_NAMES = (
     "mind_ssd_stats", "cost_volume", "sample_trilinear", "sample_trilinear_ic",
     "sample_trilinear_bwd", "warp_ssd_loss_grad", "nearest_sq", "nearest_sq_dual",
-    "nearest_sq_pruned", "coupled_argmin",
+    "nearest_sq_pruned", "coupled_argmin", "box_mean3",
     # variants of three of the kernels above, counted on their own: the SAD
     # metric, candidate blocks of the streamed convex path, the general
     # cost-volume kernel (SSD at a q without its own instantiation), the

@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("mind", "cost_volume", "warp", "edt", "convex")
+KERNEL_SOURCES = ("mind", "cost_volume", "warp", "edt", "convex", "box")
 
 _LIBS: dict = {}
 _ENTRIES: dict = {}

@@ -3,8 +3,8 @@
 // tests/test_torch_slab_host.py can build the kernel sources with g++ and
 // run them on CPU tensors: every CUDA thread of a block is a std::thread,
 // __syncthreads a std::barrier, __syncwarp and the warp shuffles a barrier of
-// the warp's threads, cp.async a copy done at once (so cp.async.wait_all has
-// nothing to wait for), the blocks run one after another; the
+// the warp's threads, cp.async a copy done at once (so cp.async.wait_all and
+// wait_group have nothing to wait for), the blocks run one after another; the
 // __f*_rn intrinsics are host float operations (built with
 // -ffp-contract=off), and the bf16x2 PTX instructions of Pair<__nv_bfloat16>
 // (rewritten by the test into emu_asm calls) compute in float and round to
@@ -77,6 +77,12 @@ inline unsigned __cvta_generic_to_shared(const void* p) {
 inline void emu_cp_async4(unsigned dst, const float* src, int n) {
   const float v = n ? *src : 0.f;
   memcpy((char*)emu_smem + dst, &v, 4);
+}
+// an asynchronous copy of cp = 4, 8 or 16 bytes of which the first n are
+// read (the rest zero-filled), done at once
+inline void emu_cp_async(unsigned dst, const float* src, int cp, int n) {
+  memset((char*)emu_smem + dst, 0, cp);
+  if (n) memcpy((char*)emu_smem + dst, src, n);
 }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }

@@ -35,7 +35,13 @@ def host_source(src: str) -> str:
     src = re.sub(r'asm volatile\("cp\.async\.ca\.shared\.global \[%0\], \[%1\], 4, %2;\\n" ::'
                  r'"r"\((\w+)\),\s*"l"\((\w+)\),\s*"r"\((.*?)\)\s*: "memory"\);',
                  r"emu_cp_async4(\1, \2, \3);", src, flags=re.S)
+    src = re.sub(r'asm volatile\("cp\.async\.c[ag]\.shared\.global \[%0\], \[%1\], '
+                 r'(8|16), %2;\\n" ::"r"\((\w+)\),\s*"l"\((\w+)\),\s*"r"\((.*?)\)\s*: "memory"\);',
+                 r"emu_cp_async(\2, \3, \1, \4);", src, flags=re.S)
     src = src.replace('asm volatile("cp.async.wait_all;\\n" ::: "memory");', ";")
+    src = src.replace('asm volatile("cp.async.commit_group;\\n" ::: "memory");', ";")
+    src = re.sub(r'asm volatile\("cp\.async\.wait_group %0;\\n" ::"n"\([^)]*\) : "memory"\);', ";",
+                 src)
     src = re.sub(r"extern __shared__ __align__\(16\) float (\w+)\[\];",
                  r"float* \1 = reinterpret_cast<float*>(emu_smem);", src)
     src = re.sub(r"\b__shared__\b", "static", src)

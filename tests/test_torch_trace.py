@@ -188,6 +188,17 @@ def test_coupled_argmin_counts_its_plain_folds(runs):
     assert "coupled_argmin.kernel" not in on.counters
 
 
+def test_box_passes_count_their_plain_calls_inside_the_cost_volume(runs):
+    """Off the card each direction's box passes are one plain call, spanned
+    as ``convex.box`` inside its ``convex.cost_volume``: two a case."""
+    kind, _, on, _, _ = runs
+    n = 2 * len(SEMANTIC if kind == "semantic" else PAIRED) * len(PAIRS)
+    assert on.counters["box_passes.plain"] == n and "box_passes.kernel" not in on.counters
+    boxes = [s for s in on.spans if s.name == "convex.box"]
+    assert len(boxes) == n
+    assert all(on.spans[s.parent].name == "convex.cost_volume" for s in boxes)
+
+
 def test_parents_enclose_their_children_and_hand_down_their_case(runs):
     _, _, on, _, _ = runs
     for k, s in enumerate(on.spans):
@@ -333,6 +344,19 @@ def test_coupled_argmin_counts_its_kernel_launches(kind):
     settings = SEMANTIC if kind == "semantic" else PAIRED
     assert res.counters["coupled_argmin.kernel"] == 12 * len(settings) * len(PAIRS)
     assert "coupled_argmin.plain" not in res.counters
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("kind", ["semantic", "paired"])
+def test_box_passes_count_their_kernel_launches(kind):
+    """On the card each direction's box passes are one kernel launch, two a
+    case, each timed by its ``convex.box`` span; none takes the plain path."""
+    dev = _card()
+    _, res = _card_waits(lambda: (_semantic if kind == "semantic" else _paired)(dev))
+    n = 2 * len(SEMANTIC if kind == "semantic" else PAIRED) * len(PAIRS)
+    assert res.counters["box_passes.kernel"] == n and "box_passes.plain" not in res.counters
+    boxes = [s for s in res.spans if s.name == "convex.box"]
+    assert len(boxes) == n and all(s.stream_ms > 0 for s in boxes)
 
 
 def test_a_span_outside_a_sweep_opens_its_range_only():
